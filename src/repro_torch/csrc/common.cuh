@@ -1,0 +1,108 @@
+// Shared pieces of the port's embedding kernels (sm_90a).
+//
+// Every kernel here computes sum-pooled lookups: for each query row q and
+// embedding lane e, out[q, e] = sum over the query's ids of row[id, e], read
+// from an f32/bf16/f16 table and accumulated in f32.  Ids outside the table
+// (or window) contribute exactly zero.  Work is split the same way in all of
+// them: a CTA of kThreads threads owns kPairs consecutive (query, lane)
+// pairs of the row-major (B, E) output, thread t holding pairs
+// t, t + kThreads, ... so that neighbouring threads read neighbouring lanes
+// of one row (coalesced) and each output element is summed by one thread in
+// a fixed order (no atomics, bitwise reproducible run to run).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+constexpr int kThreads = 256;
+constexpr int kPer = 16;  // (query, lane) pairs per thread
+constexpr int kPairs = kThreads * kPer;
+
+// dtype codes passed from Python: 0 = float32, 1 = bfloat16, 2 = float16
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+
+// Issue the copy of nbytes from global to shared memory by the whole CTA:
+// 16-byte cp.async when both ends and the size are 16-byte aligned, else a
+// plain byte copy.  Completion needs stage_wait() and then __syncthreads().
+__device__ __forceinline__ void stage_async(void* smem, const void* gmem, long nbytes) {
+  const char* src = static_cast<const char*>(gmem);
+  char* dst = static_cast<char*>(smem);
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) |
+        static_cast<uintptr_t>(nbytes)) & 15) == 0) {
+    for (long off = threadIdx.x * 16L; off < nbytes; off += blockDim.x * 16L) {
+      uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst + off));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src + off));
+    }
+  } else {
+    for (long off = threadIdx.x; off < nbytes; off += blockDim.x) dst[off] = src[off];
+  }
+}
+
+__device__ __forceinline__ void stage_wait() {
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The tiled sweep shared by the UB kernel and the L1 kernel's fallback:
+// rows [row_lo, row_hi) of the table pass through shared memory tile_rows at
+// a time, and every pair adds the rows of its query's ids that fall in the
+// current tile.  Each id is compared against every tile, so the run time
+// does not depend on the id values (the UB property).
+template <typename T>
+__device__ __forceinline__ void sweep_tiles(const T* __restrict__ table, const int* __restrict__ idx,
+                                            T* tile, float (&acc)[kPer], long pair0, long total,
+                                            int s, int e, int row_lo, int row_hi, int tile_rows) {
+  for (int t0 = row_lo; t0 < row_hi; t0 += tile_rows) {
+    const int rows = min(tile_rows, row_hi - t0);
+    __syncthreads();  // the previous tile is no longer read
+    stage_async(tile, table + static_cast<long>(t0) * e, static_cast<long>(rows) * e * sizeof(T));
+    stage_wait();
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const long p = pair0 + static_cast<long>(k) * kThreads;
+      if (p < total) {
+        const long q = p / e;
+        const int lane = static_cast<int>(p - q * e);
+        const int* ids = idx + q * s;
+        float a = acc[k];
+        for (int j = 0; j < s; ++j) {
+          const int r = __ldg(ids + j) - t0;
+          if (r >= 0 && r < rows) a += to_f32(tile[static_cast<long>(r) * e + lane]);
+        }
+        acc[k] = a;
+      }
+    }
+  }
+}
+
+}  // namespace rt
+
+// Instantiate the statement(s) given after the code with T bound to the
+// table's element type (variadic: a launch's <<<...>>> holds commas).
+#define RT_DISPATCH_DTYPE(code, ...)                    \
+  switch (code) {                                       \
+    case 0: {                                           \
+      using T = float;                                  \
+      __VA_ARGS__;                                      \
+      break;                                            \
+    }                                                   \
+    case 1: {                                           \
+      using T = __nv_bfloat16;                          \
+      __VA_ARGS__;                                      \
+      break;                                            \
+    }                                                   \
+    case 2: {                                           \
+      using T = __half;                                 \
+      __VA_ARGS__;                                      \
+      break;                                            \
+    }                                                   \
+    default:                                            \
+      return static_cast<int>(cudaErrorInvalidValue);   \
+  }

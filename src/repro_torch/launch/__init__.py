@@ -1,0 +1,1 @@
+"""launch layer of the PyTorch/CUDA port (see repro_torch)."""

@@ -1,0 +1,281 @@
+"""The port's kernels (plain versions on CPU tensors) against the JAX
+package's Pallas kernels in interpret mode, on the same seeded inputs.
+
+Tolerance: rtol = atol = 1e-5 for every table dtype.  bf16/f16 rows convert
+exactly to f32 and both sides sum in f32, so the only difference is the f32
+summation order.  The L1 kernel is held against ``kernels/ref.py``: the JAX
+package's L1 Pallas kernel does not trace under the installed jax.
+The CUDA kernels themselves are held against these plain versions on the
+card by ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.embedding_gm import embedding_bag_gm as jax_gm
+from repro.kernels.embedding_multi import multi_embedding_bag_ragged as jax_ragged
+from repro.kernels.embedding_multi import ragged_block_b as jax_ragged_block_b
+from repro.kernels.embedding_ub import embedding_bag_ub as jax_ub
+from repro_torch.core.strategies import ALL_STRATEGIES
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.embedding_gm import embedding_bag_gm
+from repro_torch.kernels.embedding_l1 import embedding_bag_l1, l1_tile_rows
+from repro_torch.kernels.embedding_multi import (
+    multi_embedding_bag_ragged,
+    ragged_block_b,
+    ragged_runs,
+    ragged_stage_rows,
+)
+from repro_torch.kernels.embedding_ub import embedding_bag_ub, ub_schedule
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _tables(rng, m, e, dtype):
+    t32 = (rng.standard_normal((m, e)) * 0.5).astype(np.float32)
+    t = torch.from_numpy(t32).to(DTYPES[dtype])
+    return t, jnp.asarray(t32).astype(dtype)
+
+
+# --------------------------------------------------------------------------
+# K1: the fused ragged kernel, base mode
+# --------------------------------------------------------------------------
+
+BLOCK_R = 8
+# (slot, strategy code, steps); slot 4 (rows < block_r) covers "block_r >
+# chunk"; two trailing trash-slot steps are schedule padding
+_SCHEDULE = [(0, 1, 2), (1, 0, 1), (2, 3, 3), (3, 2, 1), (4, 0, 1)]
+_N_SLOTS = 5
+
+
+def _ragged_inputs(seed, b=12, s=3, dtype="float32"):
+    rng = np.random.default_rng(seed)
+    step_slot, step_base, step_block, step_strat = [], [], [], []
+    blk = 0
+    regions = {}
+    for slot, code, n in _SCHEDULE:
+        regions[slot] = n * BLOCK_R
+        for j in range(n):
+            step_slot.append(slot)
+            step_base.append(j * BLOCK_R)
+            step_block.append(blk)
+            step_strat.append(code)
+            blk += 1
+    for _ in range(2):  # padding steps: trash slot, base 0, block 0
+        step_slot.append(_N_SLOTS)
+        step_base.append(0)
+        step_block.append(0)
+        step_strat.append(0)
+    t_rows = blk * BLOCK_R
+    buf_t, buf_j = _tables(rng, t_rows, 16, dtype)
+    # ids from -3 to region + 5: -1 padding, other negatives, out-of-window
+    lidx = np.stack([
+        rng.integers(-3, regions[slot] + 5, size=(b, s)) for slot in range(_N_SLOTS)
+    ]).astype(np.int32)
+    steps = [np.asarray(a, np.int32) for a in (step_slot, step_base, step_block, step_strat)]
+    return buf_t, buf_j, lidx, steps
+
+
+def _runs(steps, n_slots=_N_SLOTS):
+    """The run list of reference-shaped (slot, base, block, strategy) steps."""
+    return torch.from_numpy(ragged_runs(steps[0], steps[1], steps[3], BLOCK_R, n_slots))
+
+
+def _port_ragged(buf_t, lidx, steps):
+    return multi_embedding_bag_ragged(
+        buf_t, torch.from_numpy(lidx), torch.from_numpy(steps[2]), _runs(steps), block_r=BLOCK_R,
+    )
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_ragged_matches_pallas(dtype, seed):
+    buf_t, buf_j, lidx, steps = _ragged_inputs(seed, dtype=dtype)
+    want = jax_ragged(
+        buf_j, jnp.asarray(lidx), *map(jnp.asarray, steps),
+        block_r=BLOCK_R, interpret=True,
+    )
+    got = _port_ragged(buf_t, lidx, steps)
+    assert got.dtype == torch.float32 and got.shape == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ragged_matches_pallas_batch_chunked():
+    """The reference chunks a batch past its on-chip budget outside the
+    kernel (here forced with block_b=8 over 20 rows: 3 chunks); the port's
+    grid tiles the batch itself, with the same result."""
+    buf_t, buf_j, lidx, steps = _ragged_inputs(2, b=20)
+    want = jax_ragged(
+        buf_j, jnp.asarray(lidx), *map(jnp.asarray, steps),
+        block_r=BLOCK_R, block_b=8, interpret=True,
+    )
+    got = _port_ragged(buf_t, lidx, steps)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ragged_all_cores_one_call():
+    """The port's batched (K, ...) form equals K one-core calls."""
+    cores = [_ragged_inputs(seed) for seed in (3, 4)]
+    buf = torch.stack([c[0] for c in cores])
+    lidx = torch.stack([torch.from_numpy(c[2]) for c in cores])
+    steps = [np.stack([c[3][i] for c in cores]) for i in range(4)]
+    runs = _runs(steps)
+    assert runs.shape == (2 * len(_SCHEDULE), 5)
+    got = multi_embedding_bag_ragged(buf, lidx, torch.from_numpy(steps[2]), runs,
+                                     block_r=BLOCK_R)
+    for k, (b_t, _, l_np, st) in enumerate(cores):
+        one = _port_ragged(b_t, l_np, st)
+        torch.testing.assert_close(got[k], one, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(8192, 1, 16, 64), (64, 4, 16, 512), (33, 5, 32, 8)])
+def test_ragged_block_b_matches_reference(shape):
+    b, seq, e, block_r = shape
+    for kw in ({}, {"block_b": 24}, {"unique_cap": 16, "cache_rows": 64}):
+        assert ragged_block_b(b, seq, e, block_r, **kw) == jax_ragged_block_b(
+            b, seq, e, block_r, **kw)
+
+
+def test_ragged_runs_reject_split_slot():
+    slot = np.array([[0, 1, 0]], np.int32)
+    base = np.array([[0, 0, 8]], np.int32)
+    with pytest.raises(ValueError, match="not consecutive"):
+        ragged_runs(slot, base, np.zeros_like(slot), 8, 2)
+
+
+def test_ragged_rejects_unaligned_buffer():
+    buf_t, _, lidx, steps = _ragged_inputs(0)
+    with pytest.raises(ValueError, match="multiple of block_r"):
+        _port_ragged(buf_t[:-1], lidx, steps)
+
+
+def test_ragged_stage_rows():
+    """Staging capacity: the largest L1/L1-UB region that fits the budget;
+    GM/GM-UB regions and oversized L1 regions are never staged."""
+    runs = np.array([[0, 0, 0, 4, 0], [0, 1, 4, 2, 2], [1, 0, 0, 3, 3],
+                     [1, 1, 3, 1000, 2]], np.int32)
+    assert ragged_stage_rows(runs, 8, 64) == 24
+    assert ragged_stage_rows(runs[:1], 8, 64) == 0
+    assert ragged_stage_rows(runs, 512, 64) == 1536  # exactly 96 KiB
+    assert ragged_stage_rows(runs, 512, 128) == 0  # 1024 rows * 128 B > 96 KiB
+
+
+# --------------------------------------------------------------------------
+# K2-K4: the single-table strategy kernels
+# --------------------------------------------------------------------------
+
+SHAPES = [(16, 16, 4, 1), (100, 16, 32, 4), (513, 32, 33, 5)]  # (m, E, B, s)
+
+
+def _bag_inputs(shape, dtype, seed=0, invalid=True):
+    m, e, b, s = shape
+    rng = np.random.default_rng(seed)
+    t, j = _tables(rng, m, e, dtype)
+    lo, hi = (-2, m + 3) if invalid else (0, m)
+    idx = rng.integers(lo, hi, size=(b, s)).astype(np.int32)
+    return t, j, idx
+
+
+@pytest.mark.parametrize("persistent", [False, True])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_ub_matches_pallas(shape, dtype, persistent):
+    t, j, idx = _bag_inputs(shape, dtype)
+    want = jax_ub(j, jnp.asarray(idx), block_b=8, block_m=16,
+                  persistent=persistent, interpret=True)
+    got = embedding_bag_ub(t, torch.from_numpy(idx), block_m=16, persistent=persistent)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gm_matches_pallas(shape, dtype):
+    # the Pallas GM kernel's row DMA takes only in-range ids
+    t, j, idx = _bag_inputs(shape, dtype, invalid=False)
+    want = jax_gm(j, jnp.asarray(idx), interpret=True)
+    got = embedding_bag_gm(t, torch.from_numpy(idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_l1_matches_ref(shape, dtype):
+    t, j, idx = _bag_inputs(shape, dtype, invalid=False)
+    want = jref.embedding_bag_ref(j.astype(jnp.float32), jnp.asarray(idx))
+    got = embedding_bag_l1(t, torch.from_numpy(idx))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("strategy", ALL_STRATEGIES)
+def test_invalid_ids_contribute_zero(strategy):
+    """-1 and ids >= m pool to exactly zero (never the last row)."""
+    t, j, _ = _bag_inputs((40, 16, 6, 3), "float32")
+    idx = np.array([[-1, -1, -1], [39, -1, 40], [0, 1, 2], [-5, 41, 39],
+                    [7, 7, 7], [-1, 3, -1]], np.int32)
+    got = ops.strategy_bag(t, torch.from_numpy(idx), strategy)
+    want = jref.chunk_bag_ref(j, jnp.asarray(idx), 0)
+    np.testing.assert_array_equal(got[0].numpy(), 0.0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("strategy", ALL_STRATEGIES)
+def test_ops_embedding_bag_matches_ref(strategy):
+    t, j, idx = _bag_inputs((100, 16, 32, 4), "float32", invalid=False)
+    for pooling in ("sum", "mean"):
+        got = ops.embedding_bag(t, torch.from_numpy(idx), strategy, pooling=pooling)
+        want = jref.embedding_bag_ref(j, jnp.asarray(idx), pooling=pooling)
+        assert got.dtype == t.dtype
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_ref_oracles_match_jax():
+    t, j, idx = _bag_inputs((64, 16, 8, 3), "float32", invalid=False)
+    ti = torch.from_numpy(idx)
+    np.testing.assert_allclose(
+        ref.gather_ref(t, ti).numpy(), np.asarray(jref.gather_ref(j, jnp.asarray(idx))), **TOL)
+    for off in (0, 10, 60):
+        np.testing.assert_allclose(
+            ref.chunk_bag_ref(t[off:off + 20], ti, off).numpy(),
+            np.asarray(jref.chunk_bag_ref(j[off:off + 20], jnp.asarray(idx), off)), **TOL)
+        np.testing.assert_allclose(
+            ref.chunk_gather_ref(t[off:off + 20], ti, off).numpy(),
+            np.asarray(jref.chunk_gather_ref(j[off:off + 20], jnp.asarray(idx), off)), **TOL)
+    with pytest.raises(IndexError):
+        ref.embedding_bag_ref(t, torch.full((2, 2), -1, dtype=torch.int32))
+
+
+def test_launch_geometry():
+    """Tile/split choices the CUDA launches use: resident when the table fits,
+    splits that fill the card, tiles a multiple of 8 rows."""
+    assert l1_tile_rows(100, 64) == 100
+    tile = l1_tile_rows(1_000_000, 64)
+    assert tile % 8 == 0 and tile * 64 <= 64 * 1024
+    tile_rows, split_rows, n_splits = ub_schedule(
+        846_812, 8192, 16, 64, block_m=512, persistent=False, n_sms=132)
+    assert tile_rows == 512 and split_rows % tile_rows == 0
+    assert n_splits * split_rows >= 846_812 > (n_splits - 1) * split_rows
+    assert 32 * n_splits >= 2 * 132
+    assert ub_schedule(98, 8192, 16, 64, block_m=512, persistent=True, n_sms=132) == (98, 98, 1)
+
+
+def test_wrappers_reject_unhandled_device():
+    """No silent fallback: a tensor on a device with neither a kernel nor a
+    plain version raises, and so do mixed devices."""
+    t = torch.zeros((8, 16), device="meta")
+    idx = torch.zeros((2, 1), dtype=torch.int32, device="meta")
+    for fn in (embedding_bag_gm, embedding_bag_l1, embedding_bag_ub):
+        with pytest.raises(ValueError, match="device"):
+            fn(t, idx)
+        with pytest.raises(ValueError, match="share one device"):
+            fn(torch.zeros((8, 16)), idx)
+    with pytest.raises(ValueError, match="device"):
+        multi_embedding_bag_ragged(
+            torch.zeros((8, 16), device="meta"),
+            torch.zeros((1, 2, 1), dtype=torch.int32, device="meta"),
+            torch.zeros((1,), dtype=torch.int32, device="meta"),
+            torch.zeros((0, 5), dtype=torch.int32, device="meta"),
+            block_r=8,
+        )
