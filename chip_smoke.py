@@ -21,16 +21,25 @@ Phases (any failure raises and exits non-zero):
    C. the serve CLI's own defaults (``shard_rocks`` on, ``degrade_after``
       left at the config's 3): a fully asymmetric plan (15 L1 chunks, no
       symmetric group) whose big regions, too large for shared memory, run
-      through the fused kernel's device-memory gather.
+      through the fused kernel's device-memory gather;
+   D. access reduction, as the JAX package's presets serve: ``zipf:1.2``
+      traffic and pricing, ``access=full`` (batch dedup + the hot-row
+      cache), ``tuning=sweep`` (the block-size sweep timed on the card),
+      the ``a100`` cost-model preset (whose taobao plan has GM chunks to
+      cache) and the CLI's ``shard_rocks``: the fused kernel's dedup,
+      cache and sparse-gather modes in every served launch.
    Each checks the request accounting, finite logits, the launch counters,
    that its server has no plain fallback step, and the pooled output of its
    last served batch against the same engine built on the CPU (the kernels'
-   plain versions);
+   plain versions; path D's twin packs the block sizes the card's sweep
+   chose);
 4. kernels: each kernel against its plain version on the card, in f32,
    bf16 and f16, at the shapes the main path gave it (plus every strategy
-   code, padding steps, -1 and out-of-window ids for the fused kernel),
-   timed with CUDA events beside its plain version and one PyTorch library
-   call computing the same lookups (``F.embedding_bag``, a yardstick only).
+   code, padding steps, -1 and out-of-window ids for the fused kernel, and
+   for its access modes a forced spill and forced one-hot and sparse
+   gathers, which must agree bitwise), timed with CUDA events beside its
+   plain version and one PyTorch library call computing the same lookups
+   (``F.embedding_bag``, a yardstick only).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -39,6 +48,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,21 +68,40 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores, published
 CLI_ARGS = ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
             "--distribution", "uniform", "--set", "mesh_shape=[1,8]"]
 MAIN_ARGS = CLI_ARGS + ["--set", "degrade_after=0"]
+ZIPF = "zipf:1.2"
 PATHS = {
     "A": MAIN_ARGS + ["--set", 'planner_options={"shard_rocks": false}'],
     "B": MAIN_ARGS + ["--set", "planner=symmetric", "--set", "hardware=ascend_910"],
     "C": CLI_ARGS,
+    "D": ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
+          "--distribution", ZIPF, "--set", "mesh_shape=[1,8]", "--set", f"distribution={ZIPF}",
+          "--set", "access=full", "--set", "tuning=sweep", "--set", "hardware=a100"],
 }
+ACCESS_SRC = "src/repro_torch/csrc/embedding_access.cu"
 KERNELS = {
-    # name: (wrapper module, source, the Pallas kernel it replaces)
-    "multi_embedding_bag_ragged": ("embedding_multi", "src/repro_torch/csrc/embedding_multi.cu",
-                                   "src/repro/kernels/embedding_multi.py:139"),
-    "embedding_bag_ub": ("embedding_ub", "src/repro_torch/csrc/embedding_ub.cu",
+    # name: (wrapper module, wrapper, launch mode counted (None = every
+    # launch), source, the Pallas kernel it replaces)
+    "multi_embedding_bag_ragged": (
+        "embedding_multi", "multi_embedding_bag_ragged", "base",
+        "src/repro_torch/csrc/embedding_multi.cu", "src/repro/kernels/embedding_multi.py:139"),
+    "embedding_bag_ub": ("embedding_ub", "embedding_bag_ub", None,
+                         "src/repro_torch/csrc/embedding_ub.cu",
                          "src/repro/kernels/embedding_ub.py:34"),
-    "embedding_bag_gm": ("embedding_gm", "src/repro_torch/csrc/embedding_gm.cu",
+    "embedding_bag_gm": ("embedding_gm", "embedding_bag_gm", None,
+                         "src/repro_torch/csrc/embedding_gm.cu",
                          "src/repro/kernels/embedding_gm.py:27"),
-    "embedding_bag_l1": ("embedding_l1", "src/repro_torch/csrc/embedding_l1.cu",
+    "embedding_bag_l1": ("embedding_l1", "embedding_bag_l1", None,
+                         "src/repro_torch/csrc/embedding_l1.cu",
                          "src/repro/kernels/embedding_l1.py:25"),
+    "multi_embedding_bag_ragged[dedup]": (
+        "embedding_multi", "multi_embedding_bag_ragged", "dedup", ACCESS_SRC,
+        "src/repro/kernels/embedding_multi.py:190"),
+    "multi_embedding_bag_ragged[cache]": (
+        "embedding_multi", "multi_embedding_bag_ragged", "cache", ACCESS_SRC,
+        "src/repro/kernels/embedding_multi.py:244"),
+    "multi_embedding_bag_ragged[sparse]": (
+        "embedding_multi", "multi_embedding_bag_ragged", "sparse", ACCESS_SRC,
+        "src/repro/kernels/embedding_multi.py:205"),
 }
 
 
@@ -89,18 +118,21 @@ def wrappers():
     import importlib
 
     return {
-        name: getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), name)
-        for name, (mod, _, _) in KERNELS.items()
+        name: getattr(importlib.import_module(f"repro_torch.kernels.{mod}"), fn)
+        for name, (mod, fn, _, _, _) in KERNELS.items()
     }
 
 
 def reset_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        for mode in getattr(fn, "modes", {}):
+            fn.modes[mode] = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    return {name: fn.modes[KERNELS[name][2]] if KERNELS[name][2] else fn.launches
+            for name, fn in wrappers().items()}
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -185,7 +217,7 @@ def main_path(label: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     engine, last = res["engine"], res["last"]
-    s = res["stats"]["uniform"]
+    s = res["stats"][args.distribution]
     check(s["submitted"] == s["served"] == args.queries,
           f"[main {label}] submitted {s['submitted']} served {s['served']}")
     check(s["batch_failures"] == 0 and s["degraded_batches"] == 0,
@@ -196,10 +228,24 @@ def main_path(label: str) -> dict:
     check(logits.shape == (args.batch,) and np.isfinite(logits).all(),
           f"[main {label}] bad logits")
 
-    # the same engine on the CPU (plain versions) on the last served batch
+    # the same engine on the CPU (plain versions) on the last served batch;
+    # a swept engine's twin packs the block sizes the card's sweep chose
     idx = last["indices"]
+    cpu_config = engine.config
+    tuning = engine.plan.meta.get("tuning")
+    if engine.config.tuning == "sweep":
+        check(tuning and tuning["backend"] == "cuda" and tuning["compiled"],
+              f"[main {label}] the block-size sweep did not time the card: {tuning}")
+        best = tuning["best"]
+        cpu_config = dataclasses.replace(engine.config, tuning="fixed", tuning_options={
+            "block_r": best["block_r"], **({"block_b": best["block_b"]} if best["block_b"] else {})})
     cpu_engine = InferenceEngine.build(res["params"]["tables"], engine.workload,
-                                       engine.config, device="cpu")
+                                       cpu_config, device="cpu")
+    check(cpu_engine.packed.block_r == engine.packed.block_r
+          and cpu_engine.packed.unique_cap == engine.packed.unique_cap
+          and cpu_engine.packed.cache_rows == engine.packed.cache_rows
+          and cpu_engine.packed.kernel_path == engine.packed.kernel_path,
+          f"[main {label}] the CPU twin packed another schedule")
     got = engine.lookup(idx).cpu()
     want = cpu_engine.lookup(idx)
     pooled_err = float((got - want).abs().max())
@@ -244,8 +290,37 @@ def main_path(label: str) -> dict:
                      engine.plan.symmetric_tables, engine.plan.symmetric_strategies)]},
         "launches": counts, "pooled_max_err": pooled_err, "logit_max_err": logit_err,
     }
+    if engine.packed.unique_cap or engine.packed.cache_rows:
+        rec["access"] = access_summary(engine, idx)
+        rec["tuning"] = {k: tuning[k] for k in ("best", "backend", "compiled", "iters")}
+        rec["tuning"]["candidates"] = [
+            {k: c[k] for k in ("block_r", "n_steps", "padding_frac", "wall_us")}
+            for c in tuning["candidates"]]
+        rec["cache"] = engine.plan.meta["cache"]
+        rec["kernel"] = engine.plan.meta["kernel"]["packed"]
     print(json.dumps(rec))
     return {"engine": engine, "indices": idx, "counts": counts}
+
+
+def access_summary(engine, idx) -> dict:
+    """What the access reduction saw on one served batch: lookups, cache
+    hits, distinct rows left for the gather, spilled lookups."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import dedup_indices
+
+    lidx, hidx, _ = _access_ids(engine, idx)
+    valid = int((lidx >= 0).sum()) + int((hidx >= 0).sum() if hidx is not None else 0)
+    hits = int((hidx >= 0).sum()) if hidx is not None else 0
+    out = {"lookups": valid, "cache_hits": hits, "cache_hit_share": hits / max(valid, 1),
+           "unique_cap": engine.packed.unique_cap, "cache_rows": engine.packed.cache_rows}
+    if engine.packed.unique_cap:
+        uniq, _, spill = dedup_indices(lidx, engine.packed.unique_cap)
+        out["unique_rows"] = int((uniq >= 0).sum())
+        out["spilled_lookups"] = int((spill >= 0).sum())
+        out["max_unique_per_slot"] = int((uniq >= 0).sum(dim=-1).max())
+    torch.cuda.synchronize()
+    return out
 
 
 def _pick(engine, strategy: str, largest: bool = True) -> int:
@@ -339,16 +414,7 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
     check(torch.allclose(got, want, **TOL), f"[kernel] ragged {dtype}: max err {err}")
     # library yardstick: one embedding_bag over global buffer rows
     s_slots, b, s = lidx.shape[1:]
-    gl = torch.full((k, s_slots, b, s), zero_row, dtype=torch.long, device=buf.device)
-    blocks = step_block.long()
-    for core, slot, first, n, _ in run_list:
-        ids = lidx[core, slot].long()
-        ok = (ids >= 0) & (ids < n * block_r)
-        loc = torch.where(ok, ids, 0)
-        rows = blocks[core, first + loc // block_r] * block_r + loc % block_r
-        gl[core, slot] = torch.where(ok, rows, zero_row)
-    flat = full.reshape(k * t1, e)
-    gl = (gl + torch.arange(k, device=buf.device).view(k, 1, 1, 1) * t1).reshape(-1, s)
+    flat, gl = _global_rows(full, lidx, step_block, run_list, block_r)
     lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
     lib_err = float((lib.float() - want).abs().max())
     rec = {
@@ -369,6 +435,102 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
         uniq * e * full.element_size() + n_runs * b * s * 4 + n_runs * b * e * 4,
         n_runs * b * s * e)
     return rec
+
+
+def _global_rows(full, lidx, step_block, run_list, block_r):
+    """The fused kernel's lookups as rows of the flattened ``(K * (T+1), E)``
+    buffer (invalid ones on a zero row): ``(flat, (K*S*B, s) rows)``."""
+    import torch
+
+    k, t1, e = full.shape
+    zero_row = t1 - 1
+    s_slots, b, s = lidx.shape[1:]
+    gl = torch.full((k, s_slots, b, s), zero_row, dtype=torch.long, device=full.device)
+    blocks = step_block.long()
+    for core, slot, first, n, _ in run_list:
+        ids = lidx[core, slot].long()
+        ok = (ids >= 0) & (ids < n * block_r)
+        loc = torch.where(ok, ids, 0)
+        rows = blocks[core, first + loc // block_r] * block_r + loc % block_r
+        gl[core, slot] = torch.where(ok, rows, zero_row)
+    gl = (gl + torch.arange(k, device=full.device).view(k, 1, 1, 1) * t1).reshape(-1, s)
+    return full.reshape(k * t1, e), gl
+
+
+def _access_ids(engine, idx):
+    """Path D's kernel inputs: the ids after the hot/cold split, the cache
+    positions, and the ids before the split (every lookup on the buffer)."""
+    import torch
+
+    from repro_torch.core.partition import _fused_ids, _slot_indices
+
+    packed = engine.packed
+    ids = torch.as_tensor(idx, device=packed.device)
+    lidx, hidx = _fused_ids(packed, ids)
+    local, valid = _slot_indices(packed, ids)
+    return lidx, hidx, torch.where(valid, local, -1).to(torch.int32)
+
+
+def _access_record(case, engine, idx, dtype, *, unique_cap, cache, kpath):
+    """One access-mode launch at path D's shapes against its plain version,
+    timed beside it and beside one ``F.embedding_bag`` over the same
+    lookups.  ``kpath``: None (no selector), "served" (the pack's own
+    per-step paths), "onehot" or "sparse" (every step forced)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_multi import (
+        multi_embedding_bag_ragged,
+        multi_embedding_bag_ragged_plain,
+    )
+
+    packed = engine.packed
+    lidx, hidx, lidx_all = _access_ids(engine, idx)
+    full = packed.chunk_data.to(dtype)
+    buf = full[:, :-1]
+    ids = lidx if cache else lidx_all
+    plain_kw = dict(block_r=packed.block_r, unique_cap=unique_cap)
+    if cache:
+        plain_kw.update(cache=packed.cache_data.to(dtype), hidx=hidx)
+    kw = dict(plain_kw, step_slot=packed.step_slot, step_base=packed.step_base)
+    if kpath == "served":
+        check(packed.kernel_path != "onehot", "path D's pack has no sparse step")
+        kw["step_kpath"] = packed.step_kpath
+    elif kpath is not None:
+        kw["step_kpath"] = torch.full_like(packed.step_kpath, int(kpath == "sparse"))
+    args = (buf, ids, packed.step_block, packed.step_runs)
+
+    def kernel():
+        return multi_embedding_bag_ragged(*args, **kw)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = multi_embedding_bag_ragged_plain(*args, **plain_kw)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, **TOL), f"[kernel] {case} {dtype}: max err {err}")
+    run_list = packed.step_runs.tolist()
+    k, s_slots, b, s = lidx.shape
+    e = full.shape[-1]
+    flat, gl = _global_rows(full, lidx_all, packed.step_block, run_list, packed.block_r)
+    lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
+    rec = {
+        "name": case, "dtype": str(dtype).replace("torch.", ""),
+        "shape": {"K": k, "S": s_slots, "B": b, "s": s, "E": e, "block_r": packed.block_r,
+                  "runs": len(run_list), "unique_cap": unique_cap,
+                  "cache_rows": packed.cache_rows if cache else 0, "kpath": kpath},
+        "max_err": err, "library_max_err": float((lib.float() - want).abs().max()),
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: multi_embedding_bag_ragged_plain(*args, **plain_kw)),
+        "library_ms": time_ms(lambda: F.embedding_bag(gl, flat, mode="sum")),
+    }
+    real = gl.view(k, s_slots, b, s)
+    n_valid = int((lidx_all >= 0).sum())
+    hit_rows = int(torch.unique(real[lidx_all >= 0]).numel())
+    id_bytes = ids.numel() * 4 + (hidx.numel() * 4 if cache else 0)
+    rec["bound_ms"], rec["bound_by"] = bound(
+        hit_rows * e * full.element_size() + id_bytes + k * s_slots * b * e * 4, n_valid * e)
+    rec["distinct_rows"] = hit_rows
+    return rec, got
 
 
 def mixed_ragged_case():
@@ -406,6 +568,83 @@ def mixed_ragged_case():
             packed.step_runs, packed.block_r)
 
 
+def access_phase(path_d: dict, recs: dict) -> None:
+    """K5-K7 at path D's shapes in f32, bf16 and f16: as served, with the
+    gather forced one-hot and sparse (bitwise equal), with a forced spill
+    (a 64-wide unique cap), and the cache alone."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import dedup_indices
+
+    engine, idx = path_d["engine"], path_d["indices"]
+    cap = engine.packed.unique_cap
+    check(cap > 0 and engine.packed.cache_rows > 0, "path D packed no dedup or no cache")
+    spill_cap = 64
+    lidx, _, _ = _access_ids(engine, idx)
+    check(int((dedup_indices(lidx, spill_cap)[2] >= 0).sum()) > 0, "the spill case spills nothing")
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        rec, _ = _access_record("served (dedup + cache, planned paths)", engine, idx, dtype,
+                                unique_cap=cap, cache=True, kpath="served")
+        recs["multi_embedding_bag_ragged[dedup]"].append(rec)
+        outs = {}
+        for name, case_cap in (("", cap), (" spill", spill_cap)):
+            for kpath in ("onehot", "sparse"):
+                rec, outs[name, kpath] = _access_record(
+                    f"forced {kpath}{name} (dedup + cache)", engine, idx, dtype,
+                    unique_cap=case_cap, cache=True, kpath=kpath)
+                key = "sparse" if kpath == "sparse" else "dedup"
+                recs[f"multi_embedding_bag_ragged[{key}]"].append(rec)
+            check(torch.equal(outs[name, "onehot"], outs[name, "sparse"]),
+                  f"[kernel] one-hot and sparse gathers differ{name} ({dtype})")
+        rec, _ = _access_record("cache alone", engine, idx, dtype, unique_cap=0, cache=True,
+                                kpath=None)
+        recs["multi_embedding_bag_ragged[cache]"].append(rec)
+    print(json.dumps({"breakdown": access_breakdown(engine, idx)}))
+
+
+def access_breakdown(engine, idx, calls: int = 10) -> dict:
+    """Where path D's served launch spends its time (f32): the device time
+    of each kernel per call (``torch.profiler``), the event time of the
+    whole wrapper call and of the dedup op alone, and the host time to
+    enqueue one call."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import dedup_indices, multi_embedding_bag_ragged
+
+    packed = engine.packed
+    lidx, hidx, _ = _access_ids(engine, idx)
+    args = (packed.chunk_data[:, :-1], lidx, packed.step_block, packed.step_runs)
+    kw = dict(block_r=packed.block_r, unique_cap=packed.unique_cap, cache=packed.cache_data,
+              hidx=hidx, step_kpath=packed.step_kpath, step_slot=packed.step_slot,
+              step_base=packed.step_base)
+
+    def served():
+        return multi_embedding_bag_ragged(*args, **kw)
+
+    served()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            served()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+               and e.self_device_time_total > 0}
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        served()
+    enqueue_ms = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    return {
+        "event_ms": time_ms(served),
+        "dedup_op_event_ms": time_ms(lambda: dedup_indices(lidx, packed.unique_cap)),
+        "host_enqueue_ms": enqueue_ms,
+        "device_ms": sum(kernels.values()),
+        "kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+    }
+
+
 def kernel_phase(paths: dict, counts: dict) -> list:
     import torch
 
@@ -415,6 +654,7 @@ def kernel_phase(paths: dict, counts: dict) -> list:
 
     dtypes = (torch.float32, torch.bfloat16, torch.float16)
     recs: dict[str, list] = {name: [] for name in KERNELS}
+    access_phase(paths["D"], recs)
     a, b, c = paths["A"], paths["B"], paths["C"]
     ragged = _ragged_inputs(a["engine"], a["indices"])
     ragged_c = _ragged_inputs(c["engine"], c["indices"])
@@ -451,7 +691,7 @@ def kernel_phase(paths: dict, counts: dict) -> list:
             r["launches"] = counts[name]
             print(json.dumps(r))
         head = rs[0]  # f32 at the main path's shapes
-        _, src, replaces = KERNELS[name]
+        _, _, _, src, replaces = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": counts[name], "max_abs_err": max(r["max_err"] for r in rs),
@@ -486,6 +726,9 @@ def main(argv=None) -> int:
     check(runs["A"]["counts"]["embedding_bag_ub"] > 0, "K2 not launched on path A")
     check(runs["B"]["counts"]["embedding_bag_gm"] > 0, "K3 not launched on path B")
     check(runs["B"]["counts"]["embedding_bag_l1"] > 0, "K4 not launched on path B")
+    for name, k in (("dedup", "K5"), ("cache", "K6"), ("sparse", "K7")):
+        check(runs["D"]["counts"][f"multi_embedding_bag_ragged[{name}]"] > 0,
+              f"{k} ({name}) not launched on path D")
     kernels = kernel_phase(runs, counts)
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -81,18 +81,56 @@ class PartitionedEmbeddingBag:
         layout: str | None = None,
         block_r: int | None = None,
         block_b: int | None = None,
+        autotune: bool = False,
+        freqs=None,
+        unique_cap: int | None = None,
+        cache_rows: int | None = None,
+        kernel_path: str | None = None,
+        tuning_cache=None,
         device: torch.device | str = "cpu",
     ) -> PackedPlan:
-        """Materialize the plan on ``device`` (the autotune block-size sweep
-        waits for ROADMAP A7)."""
+        """Materialize the plan on ``device``.  ``autotune=True`` sweeps the
+        fused kernel's ``block_r``/``block_b`` first on ``device`` (recorded
+        in ``plan.meta["tuning"]``; see :mod:`repro_torch.core.autotune`).
+
+        ``unique_cap``/``cache_rows`` default to the planner's selection in
+        ``plan.meta["cache"]``; ``freqs`` defaults to the histograms the plan
+        was priced under, so a dedup/cache plan packs its residency cache
+        without extra arguments.  ``kernel_path`` (``None`` = the planner's
+        choice in ``plan.meta["kernel"]``) selects the dedup'd gather;
+        ``tuning_cache`` (a :class:`repro_torch.core.autotune.TuningCache`)
+        lets the sweep reuse prior picks for shape-identical plans."""
+        layout = layout or self.layout
+        if freqs is None:
+            freqs = self.planner_kwargs.get("freqs")
+        if autotune and layout == "ragged" and block_r is None:
+            from repro_torch.core.autotune import autotune_block_sizes
+
+            best = autotune_block_sizes(
+                self.plan, self.workload.tables, batch=self.workload.batch,
+                freqs=freqs, cache=tuning_cache, dtype=self.dtype, device=device,
+            )
+            block_r, block_b = best["block_r"], block_b or best["block_b"]
+            # the sweep's winning access-reduction sizes ship with its block
+            # sizes (with default candidates these equal the planner's pick)
+            if unique_cap is None:
+                unique_cap = best["unique_cap"]
+            if cache_rows is None:
+                cache_rows = best["cache_rows"]
+            if kernel_path is None:
+                kernel_path = best["kernel_path"]
         return pack_plan(
             self.plan,
             self.workload.tables,
             table_data,
             dtype=self.dtype,
-            layout=layout or self.layout,
+            layout=layout,
             block_r=block_r,
             block_b=block_b,
+            freqs=freqs,
+            unique_cap=unique_cap,
+            cache_rows=cache_rows,
+            kernel_path=kernel_path,
             device=device,
         )
 

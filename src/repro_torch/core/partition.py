@@ -30,12 +30,14 @@ reference accepts: its computation does not need it.
 
 ``use_kernels``: ``"fused"`` (default) runs the CUDA kernels (their plain
 versions on CPU tensors); ``False`` is the plain gather path, the same math
-without kernels.  ``layout="dense"``
-(ROADMAP B8) and the access-reduction knobs ``unique_cap``/``cache_rows``
-(ROADMAP A7) are not ported yet and raise.
+without kernels.  The access-reduction knobs arm the fused kernel as in
+the reference: ``unique_cap`` (batch dedup), ``cache_rows`` (the per-core
+hot-row residency cache, carved by :func:`cache_plan_entries`) and
+``kernel_path`` (the per-step one-hot or sparse gather of the dedup'd
+rows).  ``layout="dense"`` (ROADMAP B8) is not ported yet and raises.
 
-``plan.meta`` gets the reference's ``layout``, ``rejoin`` and
-``kernel["packed"]`` records, equal key for key.
+``plan.meta`` gets the reference's ``layout``, ``rejoin``,
+``cache["packed"]`` and ``kernel["packed"]`` records, equal key for key.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core.cost_model import freq_of
 from repro_torch.core.strategies import Plan, Strategy
 from repro_torch.core.tables import TableSpec
 from repro_torch.kernels.embedding_multi import (
@@ -57,6 +60,7 @@ from repro_torch.kernels.ops import strategy_bag
 __all__ = [
     "STRATEGY_CODE",
     "PackedPlan",
+    "cache_plan_entries",
     "pack_plan",
     "partitioned_lookup",
 ]
@@ -115,17 +119,17 @@ class PackedPlan:
     sym_table: Any  # (Nsym,) int32
     sym_rows: Any  # (Nsym,) int32
     sym_strategy: Any  # (Nsym,) int32
-    # hot-row residency cache (zero-sized: not ported yet, ROADMAP A7)
-    cache_data: Any = None  # (K, 0, E)
-    cache_remap: Any = None  # (K, T+1) int32, zeros while the cache is off
+    # hot-row residency cache (zero-sized when off)
+    cache_data: Any = None  # (K, C, E) per-core resident hot-row mini-table
+    cache_remap: Any = None  # (K, T+1) int32 buffer row -> cache pos, -1 cold
     # static layout descriptors
     layout: str = "ragged"
     block_r: int = 0  # fused-kernel row-block size
     slot_window: int = 0  # largest per-slot block_r allocation (informational)
     block_b: int = 0  # the reference's resident batch rows; 0 = auto
-    unique_cap: int = 0  # batch-dedup width per slot; always 0 here
-    cache_rows: int = 0  # residency-cache rows; always 0 here
-    kernel_path: str = "onehot"  # resolved gather mode
+    unique_cap: int = 0  # batch-dedup width per slot; 0 = dedup off
+    cache_rows: int = 0  # padded residency-cache rows; 0 = cache off
+    kernel_path: str = "onehot"  # resolved gather mode; "onehot" = no sparse
     # port-only: the fused kernel's inputs made once at pack time
     step_runs: Any = None  # (n_runs, 5) int32 (core, slot, first, n_steps, code)
     stage_rows: int = 0  # shared-memory rows for staging L1-coded regions
@@ -206,6 +210,47 @@ def _as_table(t, dtype: torch.dtype) -> torch.Tensor:
     return t.detach().to("cpu", dtype)
 
 
+def cache_plan_entries(
+    plan: Plan,
+    tables: Sequence[TableSpec],
+    freqs,
+    cache_rows: int,
+) -> dict[int, list]:
+    """Per-core residency-cache carve: the ``cache_rows`` rows of each core's
+    **GM** chunk inventory with the highest expected hit count.
+
+    Only GM chunks are candidates: GM is the one strategy that pays device
+    memory per landing lookup, so it is the only place a resident hot row
+    saves modeled (and real per-lookup) traffic.  Candidates are ranked by
+    per-query expected hits ``p · seq / replicas`` with deterministic tie
+    order (table, then row id), as the reference ranks them.  Returns
+    ``{core: [(slot_index, assignment, global_row, weight), ...]}`` (at most
+    ``cache_rows`` entries per core).  Shared by :func:`pack_plan` (contents)
+    and :func:`repro_torch.core.traffic.modeled_plan_traffic` (hits).
+    """
+    out: dict[int, list] = {c: [] for c in range(plan.n_cores)}
+    if not cache_rows or freqs is None:
+        return out
+    for core, assigns in plan.per_core().items():
+        cand = []
+        for s_i, a in enumerate(assigns):
+            f = freq_of(freqs, a.table_idx)
+            if f is None or a.strategy is not Strategy.GM:
+                continue
+            ids = np.asarray(f.ids, np.int64)
+            probs = np.asarray(f.probs, np.float64)
+            sel = (ids >= a.row_offset) & (ids < a.row_offset + a.rows)
+            w = probs[sel] * tables[a.table_idx].seq / max(a.replicas, 1)
+            for gid, ww in zip(ids[sel].tolist(), w.tolist()):
+                cand.append((-ww, a.table_idx, gid, s_i))
+        cand.sort()
+        out[core] = [
+            (s_i, assigns[s_i], gid, -nw)
+            for nw, _, gid, s_i in cand[:cache_rows]
+        ]
+    return out
+
+
 def pack_plan(
     plan: Plan,
     tables: Sequence[TableSpec],
@@ -227,11 +272,17 @@ def pack_plan(
     ``None`` for abstract packing (zeros; shape-only work).  The buffers are
     built on the host and moved to ``device`` once.  ``block_r`` overrides
     the fused kernel's row-block size; ``block_b`` is recorded for
-    ``plan.meta["layout"]`` parity.  ``unique_cap``/``cache_rows``
-    default to ``plan.meta["cache"]`` like the reference; any value above 0
-    raises (ROADMAP A7), as does ``layout="dense"`` (ROADMAP B8).
+    ``plan.meta["layout"]`` parity.  ``layout="dense"`` raises (ROADMAP B8).
+
+    ``unique_cap``/``cache_rows`` arm the access reduction; ``None``
+    resolves each from ``plan.meta["cache"]`` (the planner's selection).
+    The cache carve needs the access histograms: pass the same ``freqs``
+    the plan was priced under.  ``kernel_path`` picks the dedup'd gather per
+    step: ``"onehot"``, ``"sparse"`` (every step; needs ``unique_cap > 0``)
+    or ``"auto"`` (per chunk from ``plan.meta["kernel"]["per_chunk"]``;
+    without dedup every step stays one-hot); ``None`` resolves from
+    ``plan.meta["kernel"]["path"]``, defaulting to ``"onehot"``.
     """
-    del freqs  # only the residency-cache carve reads it (ROADMAP A7)
     if layout not in ("ragged", "dense"):
         raise ValueError(f"unknown layout {layout!r}")
     if layout == "dense":
@@ -244,21 +295,33 @@ def pack_plan(
         unique_cap = int(access_meta.get("unique_cap") or 0)
     if cache_rows is None:
         cache_rows = int(access_meta.get("cache_rows") or 0)
-    if unique_cap or cache_rows:
-        raise NotImplementedError(
-            "batch dedup (unique_cap) and the residency cache (cache_rows) "
-            "are not ported yet: ROADMAP A7"
+    if cache_rows and freqs is None:
+        raise ValueError(
+            "cache_rows > 0 needs the access histograms (freqs) to carve "
+            "the hot-row residency cache"
         )
     kernel_meta = plan.meta.get("kernel") or {}
     if kernel_path is None:
         kernel_path = kernel_meta.get("path") or "onehot"
     if kernel_path not in ("onehot", "sparse", "auto"):
         raise ValueError(f"unknown kernel_path {kernel_path!r}")
-    if kernel_path == "sparse":
+    if kernel_path == "sparse" and not unique_cap:
         raise ValueError(
             "kernel_path='sparse' requires batch dedup (unique_cap > 0): "
             "the sparse gather rides the dedup uniq/cnt machinery"
         )
+    # per-assignment gather path (parallel to plan.assignments; per_core()
+    # returns the same objects)
+    path_of: dict[int, str] = {}
+    if kernel_path == "sparse":
+        path_of = {id(a): "sparse" for a in plan.assignments}
+    elif kernel_path == "auto" and unique_cap:
+        per_chunk = kernel_meta.get("per_chunk") or []
+        if len(per_chunk) == len(plan.assignments):
+            path_of = {
+                id(a): rec.get("path", "onehot")
+                for a, rec in zip(plan.assignments, per_chunk)
+            }
     e = tables[0].dim
     if any(t.dim != e for t in tables):
         raise ValueError("all tables must share the embedding dim E")
@@ -268,15 +331,15 @@ def pack_plan(
     max_slots = max(max_slots, 1)
     max_rows = max((a.rows for a in plan.assignments), default=1)
     max_rows_pad = _align(max_rows, _ROW_PAD)
-    cache: dict[int, torch.Tensor] = {}
+    loaded: dict[int, torch.Tensor] = {}
 
     def tbl(i):
-        if i not in cache:
-            cache[i] = (
+        if i not in loaded:
+            loaded[i] = (
                 torch.zeros((tables[i].rows, e), dtype=dtype)
                 if table_data is None else _as_table(table_data[i], dtype)
             )
-        return cache[i]
+        return loaded[i]
 
     slot_table = -np.ones((k, max_slots), np.int32)
     slot_offset = np.zeros((k, max_slots), np.int32)
@@ -323,19 +386,20 @@ def pack_plan(
         )
         for core in range(k)
     }
-    steps: list[list[tuple[int, int, int, int]]] = []
+    steps: list[list[tuple[int, int, int, int, int]]] = []
     slot_window = br
     t_needed = br
     for core in range(k):
         cur = 0
-        core_steps: list[tuple[int, int, int, int]] = []
+        core_steps: list[tuple[int, int, int, int, int]] = []
         for s_i in core_order[core]:
             a = per_core[core][s_i]
             alloc = _align(a.rows + 1, br)
             slot_row_start[core, s_i] = cur
             code = STRATEGY_CODE[a.strategy]
+            kp = 1 if path_of.get(id(a)) == "sparse" else 0
             for j in range(alloc // br):
-                core_steps.append((s_i, j * br, cur // br + j, code))
+                core_steps.append((s_i, j * br, cur // br + j, code, kp))
             cur += alloc
             slot_window = max(slot_window, alloc)
         steps.append(core_steps)
@@ -350,6 +414,32 @@ def pack_plan(
                 a.row_offset : a.row_offset + a.rows
             ]
 
+    if cache_rows:
+        # residency-cache carve: each core's top-mass GM rows go into the
+        # mini-table and the buffer-row remap points at them; clamp to the
+        # realized carve so no zero rows are allocated
+        entries = cache_plan_entries(plan, tables, freqs, cache_rows)
+        cache_rows = min(cache_rows, max((len(v) for v in entries.values()), default=0))
+    if cache_rows:
+        cache_pad = _align(cache_rows, _ROW_PAD)
+        cache_buf = torch.zeros((k, cache_pad, e), dtype=dtype)
+        remap_np = -np.ones((k, t_pad + 1), np.int32)
+        for core in range(k):
+            for p, (s_i, a, gid, _w) in enumerate(entries[core]):
+                remap_np[core, int(slot_row_start[core, s_i]) + gid - a.row_offset] = p
+                cache_buf[core, p] = tbl(a.table_idx)[gid]
+        cache_rows = cache_pad
+        plan.meta.setdefault("cache", {})["packed"] = {
+            "cache_rows": int(cache_pad),
+            "rows_per_core": [len(entries[c]) for c in range(k)],
+        }
+    else:
+        cache_buf = torch.zeros((k, 0, e), dtype=dtype)
+        remap_np = np.zeros((k, t_pad + 1), np.int32)
+        if plan.meta.get("cache", {}).get("cache_rows"):
+            # requested but nothing carvable: record the empty carve
+            plan.meta["cache"]["packed"] = {"cache_rows": 0, "rows_per_core": [0] * k}
+
     # uniform step count across cores; padding steps target the trash slot
     # (id = max_slots) with base 0.
     n_steps = max((len(s) for s in steps), default=0)
@@ -360,11 +450,12 @@ def pack_plan(
     step_strategy = np.zeros((k, n_steps), np.int32)
     step_kpath = np.zeros((k, n_steps), np.int32)
     for core, core_steps in enumerate(steps):
-        for t, (s_i, base, blk, code) in enumerate(core_steps):
+        for t, (s_i, base, blk, code, kp) in enumerate(core_steps):
             step_slot[core, t] = s_i
             step_base[core, t] = base
             step_block[core, t] = blk
             step_strategy[core, t] = code
+            step_kpath[core, t] = kp
 
     mesh_meta = plan.meta.get("mesh") or {}
     mesh_shape = (
@@ -405,11 +496,15 @@ def pack_plan(
             if c // cph != d // cph
         ),
     }
+    # a pack with no sparse step resolves to plain "onehot"
+    n_sparse_steps = int((step_kpath == 1).sum())
+    kernel_resolved = kernel_path if n_sparse_steps else "onehot"
+    n_sparse_chunks = sum(1 for a in plan.assignments if path_of.get(id(a)) == "sparse")
     plan.meta.setdefault("kernel", {})["packed"] = {
-        "path": "onehot",
-        "sparse_chunks": 0,
-        "onehot_chunks": len(plan.assignments),
-        "sparse_steps": 0,
+        "path": kernel_resolved,
+        "sparse_chunks": n_sparse_chunks,
+        "onehot_chunks": len(plan.assignments) - n_sparse_chunks,
+        "sparse_steps": n_sparse_steps,
     }
 
     # symmetric group: every table padded to the largest one (+1 zero row)
@@ -442,7 +537,7 @@ def pack_plan(
         "rejoin_bucket": rejoin_bucket,
         "sym_table": sym_table, "sym_rows": sym_rows,
         "sym_strategy": sym_strategy,
-        "cache_remap": np.zeros((k, t_pad + 1), np.int32),
+        "cache_remap": remap_np,
     }
     dev = torch.device(device)
     tensors = {name: torch.as_tensor(arr).to(dev) for name, arr in ints.items()}
@@ -453,12 +548,14 @@ def pack_plan(
     return PackedPlan(
         chunk_data=buf.to(dev),
         sym_data=sym_data.to(dev),
-        cache_data=torch.zeros((k, 0, e), dtype=dtype, device=dev),
+        cache_data=cache_buf.to(dev),
         layout=layout,
         block_r=br,
         slot_window=slot_window,
         block_b=int(block_b or 0),
-        kernel_path="onehot",
+        unique_cap=int(unique_cap),
+        cache_rows=int(cache_rows),
+        kernel_path=kernel_resolved,
         step_runs=torch.as_tensor(runs).to(dev),
         stage_rows=ragged_stage_rows(runs, br, e * itemsize),
         host=host,
@@ -544,18 +641,36 @@ def _local_asym_lookup(
     return _scatter_slots(packed, pooled, n_tables)
 
 
+def _fused_ids(packed: PackedPlan, indices: torch.Tensor):
+    """The fused kernel's id inputs: ``(lidx, hidx)``, both (K, S, B, s)
+    int32.  ``lidx`` holds chunk-local ids with ``-1`` for invalid lookups;
+    with the residency cache, lookups of cache-resident rows leave it
+    (``-1``) and arrive in ``hidx`` as cache positions (else ``hidx`` is
+    ``None``).  The split comes before any dedup, as in the reference."""
+    local, valid = _slot_indices(packed, indices)
+    # -1 sentinel: matches no row-block window in the kernel
+    lidx = torch.where(valid, local, -1).to(torch.int32)
+    if not packed.cache_rows:
+        return lidx, None
+    # the remap's trailing entry (the shared zero row) is -1
+    trash = packed.cache_remap.shape[-1] - 1
+    g = torch.where(valid, packed.slot_row_start.long()[..., None, None] + local, trash)
+    cores = torch.arange(packed.n_cores, device=packed.device)[:, None, None, None]
+    hidx = packed.cache_remap[cores, g]
+    return torch.where(hidx >= 0, -1, lidx), hidx
+
+
 def _fused_asym_lookup(
     packed: PackedPlan, indices: torch.Tensor, *, n_tables: int
 ) -> torch.Tensor:
     """One fused-kernel launch for every slot of every core -> (K, N, B, E)."""
-    local, valid = _slot_indices(packed, indices)
-    k, s_slots, b, _ = local.shape
+    k, s_slots = packed.slot_table.shape
+    b = indices.shape[1]
     e = packed.chunk_data.shape[-1]
     if packed.step_slot.shape[-1] == 0:
         pooled = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=packed.device)
     else:
-        # -1 sentinel: matches no row-block window in the kernel
-        lidx = torch.where(valid, local, -1).to(torch.int32)
+        lidx, hidx = _fused_ids(packed, indices)
         pooled = multi_embedding_bag_ragged(
             packed.chunk_data[:, :-1],  # drop the shared zero row: block_r-tiled
             lidx,
@@ -563,6 +678,13 @@ def _fused_asym_lookup(
             packed.step_runs,
             block_r=packed.block_r,
             stage_rows=packed.stage_rows,
+            unique_cap=packed.unique_cap,
+            cache=packed.cache_data if hidx is not None else None,
+            hidx=hidx,
+            # an all-onehot pack passes no selector at all
+            step_kpath=packed.step_kpath if packed.kernel_path != "onehot" else None,
+            step_slot=packed.step_slot,
+            step_base=packed.step_base,
         )
     return _scatter_slots(packed, pooled, n_tables)
 

@@ -171,12 +171,20 @@ for _name in ("baseline", "symmetric", "asymmetric"):
     )
 
 
-class _NoAccessReduction:
+class _AccessArming:
+    def __init__(self, dedup: bool, cache: bool):
+        self.dedup, self.cache = dedup, cache
+
     def planner_kwargs(self, **options) -> dict:
-        return {}
+        if not (self.dedup or self.cache):
+            return {}
+        return {"dedup": self.dedup, "cache": self.cache, **options}
 
 
-ACCESS_POLICIES.register("none", _NoAccessReduction)
+ACCESS_POLICIES.register("none", lambda: _AccessArming(False, False))
+ACCESS_POLICIES.register("dedup", lambda: _AccessArming(True, False))
+ACCESS_POLICIES.register("cache", lambda: _AccessArming(False, True))
+ACCESS_POLICIES.register("full", lambda: _AccessArming(True, True))
 
 
 class _NoTuning:
@@ -192,8 +200,18 @@ class _FixedTuning:
         return {k: options[k] for k in ("block_r", "block_b") if k in options}
 
 
+class _SweepTuning:
+    """The :func:`repro_torch.core.autotune.autotune_block_sizes` sweep on
+    the serving device, recorded in ``plan.meta["tuning"]`` by
+    ``bag.pack(autotune=True)``."""
+
+    def pack_kwargs(self, **options) -> dict:
+        return {"autotune": True}
+
+
 TUNING_POLICIES.register("none", _NoTuning)
 TUNING_POLICIES.register("fixed", _FixedTuning)
+TUNING_POLICIES.register("sweep", _SweepTuning)
 
 
 class _NoDrift:
@@ -416,8 +434,6 @@ class EngineConfig:
         pending = [
             (self.model != "pooled", f"model={self.model!r} (scenario towers)", "A9"),
             (self.planner == "hierarchical", "planner='hierarchical'", "A4"),
-            (self.access != "none", f"access={self.access!r}", "A7"),
-            (self.tuning == "sweep", "tuning='sweep'", "A7"),
             (self.drift != "none", f"drift={self.drift!r}", "A6"),
             (self.integrity != "none", f"integrity={self.integrity!r}", "A8"),
             (self.layout == "dense", "layout='dense'", "B8"),
@@ -478,12 +494,14 @@ class InferenceEngine:
     Attributes useful for composition (e.g. a DLRM forward on top of the
     packed embeddings): ``bag`` (the :class:`PartitionedEmbeddingBag`),
     ``packed`` (the :class:`PackedPlan`), ``plan``, ``device``, ``freqs``
-    (the histograms the plan was priced under), ``cost_model``.
+    (the histograms the plan was priced under), ``cost_model``,
+    ``tuning_cache`` (the sweep memo; another build given it reuses its
+    sweeps).
     """
 
     def __init__(
         self, *, config, workload, bag, packed, device, freqs, table_data,
-        cost_model,
+        cost_model, tuning_cache=None,
     ):
         self.config = config
         self.workload = workload
@@ -492,6 +510,7 @@ class InferenceEngine:
         self.device = device
         self.freqs = freqs
         self.cost_model = cost_model
+        self.tuning_cache = tuning_cache
         self._table_data = table_data
         self._server = None
 
@@ -507,6 +526,7 @@ class InferenceEngine:
         device=None,
         freqs=None,
         rng: torch.Generator | None = None,
+        tuning_cache=None,
     ) -> "InferenceEngine":
         """Build the pipeline from a declarative config on ``device``
         (``None`` = ``"cuda"``, which raises when CUDA is absent).
@@ -518,7 +538,9 @@ class InferenceEngine:
         :class:`~repro_torch.data.distributions.RowProbs`.  ``K`` is
         ``mesh_shape``'s core count; without one it is the number of visible
         CUDA devices (1 on the CPU), as the JAX package defaults to its
-        device count.
+        device count.  ``tuning_cache`` (a
+        :class:`repro_torch.core.autotune.TuningCache`; default: a fresh one)
+        memoizes ``tuning="sweep"`` sweeps across builds.
         """
         from repro_torch.core.cost_model import analytic_model
         from repro_torch.core.embedding import PartitionedEmbeddingBag
@@ -582,8 +604,12 @@ class InferenceEngine:
             )
         else:
             table_data = list(tables)
+        if tuning_cache is None:
+            from repro_torch.core.autotune import TuningCache
+
+            tuning_cache = TuningCache()
         packed = bag.pack(
-            table_data, device=device,
+            table_data, device=device, tuning_cache=tuning_cache,
             **tuning.pack_kwargs(**config.tuning_options),
         )
         return cls(
@@ -595,6 +621,7 @@ class InferenceEngine:
             freqs=freqs,
             table_data=table_data,
             cost_model=model,
+            tuning_cache=tuning_cache,
         )
 
     def reference_view(self) -> "InferenceEngine":
@@ -611,6 +638,7 @@ class InferenceEngine:
             freqs=self.freqs,
             table_data=self._table_data,
             cost_model=self.cost_model,
+            tuning_cache=self.tuning_cache,
         )
 
     # -- execution ----------------------------------------------------------
@@ -732,9 +760,10 @@ class InferenceEngine:
     # -- introspection ------------------------------------------------------
 
     def stats(self) -> dict:
-        """Plan/layout summary (+ live server stats if :meth:`serve` was
-        called).  ``predicted_p99_us`` is the cost model's figure under the
-        config's ``hardware`` preset, not a time measured on the card."""
+        """Plan/layout/tuning/cache summary (+ live server stats if
+        :meth:`serve` was called).  ``predicted_p99_us`` is the cost model's
+        figure under the config's ``hardware`` preset, not a time measured
+        on the card."""
         from repro_torch.core.planner import predicted_p99
 
         plan = self.plan
@@ -754,7 +783,7 @@ class InferenceEngine:
             "layout": self.bag.layout_summary(),
             "config": self.config.to_dict(),
         }
-        for key in ("cache", "distribution", "kernel", "mesh"):
+        for key in ("cache", "tuning", "distribution", "kernel", "mesh"):
             if plan.meta.get(key) is not None:
                 out[key] = plan.meta[key]
         out["mesh_shape"] = [1, plan.n_cores]
@@ -820,6 +849,22 @@ class InferenceEngine:
                 f"(dense would be {lay['dense_bytes']:,}; "
                 f"{lay['bytes_vs_dense']:.2%} of dense, "
                 f"padding_frac={lay['padding_frac']:.2%})"
+            )
+        tuning = s.get("tuning")
+        if tuning and tuning.get("best"):
+            best = tuning["best"]
+            lines.append(
+                f"autotuned block_r={best['block_r']} "
+                f"block_b={best['block_b'] or 'auto'} "
+                f"({len(tuning['candidates'])} candidates, "
+                f"backend={tuning['backend']})"
+            )
+        acc = s.get("cache")
+        if acc:
+            lines.append(
+                f"access-reduction dedup={acc['dedup']} "
+                f"unique_cap={acc['unique_cap']} cache_rows={acc['cache_rows']} "
+                f"(modeled coverage={acc['coverage']:.2%})"
             )
         kern = s.get("kernel")
         if kern and kern.get("per_chunk"):

@@ -9,12 +9,31 @@ slot lives at row ``step_block[t] * block_r + l % block_r`` of step
 ``t = first + l // block_r``, and ``-1`` or out-of-window ids contribute
 exactly zero.  Steps on the trash slot ``S`` are schedule padding.
 
-This slice ports the base mode (no batch dedup, no residency cache, no
-sparse kernel path); those modes wait for ROADMAP B5-B7.  The CUDA kernel is
-``csrc/embedding_multi.cu``; it reads the schedule as per-slot *runs*
-(:func:`ragged_runs`), which pack time computes once on the host and stores
-on the packed plan, on the device, with the kernel's staging capacity
+Base mode (no access reduction): ``csrc/embedding_multi.cu``, which reads
+the schedule as per-slot *runs* (:func:`ragged_runs`), computed once at pack
+time and stored on the device with the kernel's staging capacity
 (:func:`ragged_stage_rows`).
+
+Access-reduction modes (the reference's ``unique_cap``/``cache``/
+``step_kpath`` branches): ``csrc/embedding_access.cu``.
+
+* **batch dedup** (``unique_cap > 0``): :func:`dedup_indices` unique-izes
+  each slot's ids (sort + first-occurrence ranks, a torch op on the ids'
+  device); a first pass gathers every unique row once per batch into
+  ``rows_u (K, S, U, E)`` f32, and a second pass sums ``rows_u[rank]`` back
+  into batch rows.  Ids past the cap spill and are read row by row.  Where
+  the reference carries the dense multiplicity matrix ``cnt (S, B, U)``,
+  the port carries each lookup's ``rank (S, B, s)`` (``-1`` for none):
+  :func:`cnt_from_rank` rebuilds ``cnt`` for comparisons;
+* **gather path** (``step_kpath``, dedup only): per step, ``0`` streams the
+  step's ``(block_r, E)`` window through shared memory and picks the unique
+  ids in it (the read does not depend on the ids, like the reference's
+  one-hot GEMM), ``1`` copies each in-window unique row straight from
+  device memory (the reference's sparse gather).  Both are exact row
+  copies, so ``rows_u`` and the output are bitwise equal either way;
+* **residency cache** (``cache (K, C, E)`` + ``hidx (K, S, B, s)``): hot
+  lookups (``hidx >= 0``, already ``-1`` in ``lidx``) are summed from the
+  core's resident mini-table once per slot.
 """
 from __future__ import annotations
 
@@ -26,6 +45,9 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
+    "cnt_from_rank",
+    "dedup_indices",
+    "gather_unique_rows_plain",
     "multi_embedding_bag_ragged",
     "multi_embedding_bag_ragged_plain",
     "ragged_block_b",
@@ -44,6 +66,19 @@ _ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_GATHER_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+_ACCESS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# shared memory (bytes) for one step's window in the one-hot gather, and for
+# the resident cache in the scatter pass (a larger cache is read from L2)
+GATHER_STAGE_BYTES = 64 * 1024
+CACHE_STAGE_BYTES = 64 * 1024
 
 
 def _align8(n: int) -> int:
@@ -65,8 +100,9 @@ def ragged_block_b(
 
     A TPU concern (how much of the batch fits VMEM beside one window); the
     GPU grid tiles the batch itself, so the kernel does not read it.  The
-    reference's traffic model prices its fused path with it, which the
-    port's will too (ROADMAP A4/A7); a test holds it to the reference.
+    traffic model (:func:`repro_torch.core.traffic.modeled_hbm_traffic`)
+    prices the fused path with it, as the reference's does, so the modeled
+    figures equal the reference's; a test holds it to the reference.
     """
     if block_b is None:
         per_row = 4 * (
@@ -124,11 +160,85 @@ def ragged_stage_rows(runs, block_r: int, row_bytes: int) -> int:
     return max(staged, default=0)
 
 
-def _batched(buffer, lidx, step_block):
-    """Accept the reference's one-core shapes or the port's all-core ones."""
+def dedup_indices(lidx: torch.Tensor, unique_cap: int):
+    """Batch-prep unique-ization of chunk-local ids, per slot.
+
+    ``lidx (..., B, s)`` int -> ``(uniq, rank, spill)``: over each slot's
+    ``B * s`` positions, ``uniq (..., U)`` holds the first ``unique_cap``
+    distinct ids in ascending order (``-1`` padding), ``rank (..., B, s)``
+    each lookup's position in ``uniq`` (``-1`` for padding ids and for ids
+    past the cap), and ``spill (..., B, s)`` the ids past the cap (``-1``
+    elsewhere).  ``-1`` ids never enter the unique set; every lookup lands in
+    exactly one of ``rank``/``spill``.  ``uniq`` and ``spill`` equal the
+    reference's ``_dedup_indices``; ``cnt_from_rank(rank)`` its ``cnt``.
+    Runs on the ids' device (a sort and a scan per slot).
+    """
+    if unique_cap <= 0:
+        raise ValueError(f"unique_cap must be positive, got {unique_cap}")
+    *lead, b, s = lidx.shape
+    flat = lidx.reshape(-1, b * s).to(torch.int32)
+    big = torch.iinfo(torch.int32).max
+    key = torch.where(flat < 0, big, flat)
+    sv, order = torch.sort(key, dim=1, stable=True)
+    valid = sv < big
+    first = valid.clone()
+    first[:, 1:] &= sv[:, 1:] != sv[:, :-1]
+    rank_sorted = torch.cumsum(first, dim=1, dtype=torch.int32) - 1
+    rank_sorted = torch.where(valid, rank_sorted, unique_cap)
+    in_cap = first & (rank_sorted < unique_cap)
+    uniq = torch.full((flat.shape[0], unique_cap + 1), -1, dtype=torch.int32,
+                      device=lidx.device)
+    # every first occurrence below the cap writes its value once; everything
+    # else lands on the dropped trash entry U with -1
+    uniq.scatter_(1, torch.where(in_cap, rank_sorted, unique_cap).long(),
+                  torch.where(in_cap, sv, -1))
+    pos_rank = torch.empty_like(rank_sorted).scatter_(1, order, rank_sorted)
+    rank = torch.where(pos_rank < unique_cap, pos_rank, -1)
+    spill = torch.where((pos_rank >= unique_cap) & (flat >= 0), flat, -1)
+    return (uniq[:, :unique_cap].contiguous().reshape(*lead, unique_cap),
+            rank.reshape(*lead, b, s), spill.reshape(*lead, b, s))
+
+
+def cnt_from_rank(rank: torch.Tensor, unique_cap: int) -> torch.Tensor:
+    """The reference's multiplicity matrix from the port's ranks:
+    ``rank (..., B, s)`` -> ``cnt (..., B, U)`` f32, ``cnt[b, u]`` the number
+    of the row's lookups of ``uniq[u]``.  For comparisons only: the kernel
+    never builds it (at batch 8192 and U = 1856 it would be 61 MB per slot)."""
+    hit = rank >= 0
+    onehot = torch.nn.functional.one_hot(torch.where(hit, rank, 0).long(), unique_cap)
+    return (onehot * hit[..., None]).sum(dim=-2).float()
+
+
+def _batched(buffer, lidx, step_block, *per_core):
+    """Accept the reference's one-core shapes or the port's all-core ones:
+    ``per_core`` are further (S, B, s)/(n_steps,) tensors (or None) that
+    gain the core axis with ``lidx``."""
     if buffer.dim() == 2:
-        return True, buffer[None], lidx[None], step_block[None]
-    return False, buffer, lidx, step_block
+        return (True, buffer[None], lidx[None], step_block[None],
+                *(None if t is None else t[None] for t in per_core))
+    return (False, buffer, lidx, step_block, *per_core)
+
+
+def _window_rows(ids, blocks, first, n, block_r):
+    """Chunk-local ids of one run -> (valid, buffer rows)."""
+    valid = (ids >= 0) & (ids < n * block_r)
+    local = torch.where(valid, ids, 0)
+    return valid, blocks[first + local // block_r] * block_r + local % block_r
+
+
+def gather_unique_rows_plain(buffer, uniq, step_block, runs, *, block_r: int) -> torch.Tensor:
+    """The dedup gather in plain torch: buffer (K, T, E), uniq (K, S, U) ->
+    rows_u (K, S, U, E) f32, each in-window unique id's row copied once
+    (zero for padding and out-of-window ids).  Both of the kernel's gather
+    paths compute exactly this."""
+    k, s_slots, u = uniq.shape
+    rows_u = torch.zeros((k, s_slots, u, buffer.shape[-1]), dtype=torch.float32,
+                         device=buffer.device)
+    blocks = step_block.long()
+    for core, slot, first, n, _code in runs.tolist():
+        valid, rows = _window_rows(uniq[core, slot].long(), blocks[core], first, n, block_r)
+        rows_u[core, slot] = torch.where(valid[:, None], buffer[core][rows].float(), 0.0)
+    return rows_u
 
 
 def multi_embedding_bag_ragged_plain(
@@ -138,20 +248,35 @@ def multi_embedding_bag_ragged_plain(
     runs: torch.Tensor,
     *,
     block_r: int,
+    unique_cap: int = 0,
+    cache: torch.Tensor | None = None,
+    hidx: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """The kernel's function in plain torch over the run list:
-    buffer (K, T, E), lidx (K, S, B, s) -> (K, S, B, E) f32."""
+    buffer (K, T, E), lidx (K, S, B, s) -> (K, S, B, E) f32.  With
+    ``unique_cap`` it takes the dedup route the kernel takes (unique rows
+    gathered once, scattered back by rank, spill read row by row); with
+    ``cache``/``hidx`` it adds each slot's hot lookups from the cache.  The
+    gather path (``step_kpath``) does not change the result."""
     k, s_slots, b, _ = lidx.shape
     e = buffer.shape[-1]
     out = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=buffer.device)
     blocks = step_block.long()
+    rows_u = rank = None
+    if unique_cap:
+        uniq, rank, lidx = dedup_indices(lidx, unique_cap)
+        rows_u = gather_unique_rows_plain(buffer, uniq, step_block, runs, block_r=block_r)
     for core, slot, first, n, _code in runs.tolist():
-        ids = lidx[core, slot].long()
-        valid = (ids >= 0) & (ids < n * block_r)
-        local = torch.where(valid, ids, 0)
-        rows = blocks[core, first + local // block_r] * block_r + local % block_r
-        g = buffer[core][rows].float()  # (B, s, E)
-        out[core, slot] = torch.where(valid[..., None], g, 0.0).sum(dim=1)
+        valid, rows = _window_rows(lidx[core, slot].long(), blocks[core], first, n, block_r)
+        g = torch.where(valid[..., None], buffer[core][rows].float(), 0.0)  # (B, s, E)
+        if rows_u is not None:
+            r = rank[core, slot].long()
+            g = g + torch.where((r >= 0)[..., None], rows_u[core, slot][r.clamp(min=0)], 0.0)
+        if cache is not None:
+            h = hidx[core, slot].long()
+            hit = (h >= 0) & (h < cache.shape[1])
+            g = g + torch.where(hit[..., None], cache[core][torch.where(hit, h, 0)].float(), 0.0)
+        out[core, slot] = g.sum(dim=1)
     return out
 
 
@@ -163,42 +288,74 @@ def multi_embedding_bag_ragged(
     *,
     block_r: int,
     stage_rows: int = 0,
+    unique_cap: int = 0,  # > 0 arms batch dedup (static cap per slot)
+    cache: torch.Tensor | None = None,  # (C, E) or (K, C, E) resident hot rows
+    hidx: torch.Tensor | None = None,  # like lidx: cache positions, -1 miss
+    step_kpath: torch.Tensor | None = None,  # like step_block: 0 onehot, 1 sparse
+    step_slot: torch.Tensor | None = None,  # like step_block; needed by dedup
+    step_base: torch.Tensor | None = None,  # like step_block; needed by dedup
 ) -> torch.Tensor:
     """All slots' pooled lookups in one launch -> (S, B, E) or (K, S, B, E) f32.
 
     ``runs`` lies on the buffer's device (pack time stores it there, so a
     launch copies nothing from the host).  ``stage_rows`` is
-    :func:`ragged_stage_rows` of the runs, the kernel's shared-memory window
-    capacity; 0 gathers every region from device memory.  The buffer's rows
-    must be contiguous; its core stride may be anything (a ``[:, :-1]`` view
-    of the packed ``(K, T+1, E)`` buffer works without a copy).  CPU tensors
-    run the plain version, CUDA tensors the kernel.
+    :func:`ragged_stage_rows` of the runs, the base kernel's shared-memory
+    window capacity; 0 gathers every region from device memory.  The
+    buffer's rows must be contiguous; its core stride may be anything (a
+    ``[:, :-1]`` view of the packed ``(K, T+1, E)`` buffer works without a
+    copy).  ``unique_cap``/``cache``+``hidx``/``step_kpath`` arm the access
+    reduction with the reference's meaning (module docstring): callers have
+    already set ``lidx`` to ``-1`` wherever ``hidx >= 0``, and ``step_kpath``
+    needs ``unique_cap > 0``.  CPU tensors run the plain version, CUDA
+    tensors the kernel.
     """
-    single, buffer, lidx, step_block = _batched(buffer, lidx, step_block)
+    if step_kpath is not None and not unique_cap:
+        raise ValueError(
+            "step_kpath (sparse kernel path) requires unique_cap > 0: the "
+            "sparse gather rides the dedup uniq/cnt machinery"
+        )
+    if cache is not None and hidx is None:
+        raise ValueError("cache requires the hidx hot-position tensor")
+    if cache is not None and not cache.shape[-2]:
+        cache = hidx = None  # a zero-row cache holds nothing
+    single, buffer, lidx, step_block, cache, hidx, step_kpath, step_slot, step_base = _batched(
+        buffer, lidx, step_block, cache, hidx, step_kpath, step_slot, step_base)
     if buffer.shape[1] % block_r:
         raise ValueError("buffer rows must be a multiple of block_r")
     if runs.dim() != 2 or runs.shape[1] != 5:
         raise ValueError(f"runs must be (n_runs, 5), got {tuple(runs.shape)}")
-    device = build.route(buffer, lidx, step_block, runs)
+    if unique_cap and (step_slot is None or step_base is None):
+        raise ValueError("batch dedup needs step_slot and step_base")
+    extra = [t for t in (cache, hidx, step_kpath, step_slot, step_base) if t is not None]
+    device = build.route(buffer, lidx, step_block, runs, *extra)
     if device == "cpu":
-        out = multi_embedding_bag_ragged_plain(buffer, lidx, step_block, runs, block_r=block_r)
+        out = multi_embedding_bag_ragged_plain(
+            buffer, lidx, step_block, runs, block_r=block_r, unique_cap=unique_cap,
+            cache=cache, hidx=hidx)
+    elif unique_cap or cache is not None:
+        out = _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap,
+                             cache, hidx, step_kpath, step_slot, step_base)
     else:
         out = _launch(buffer, lidx, step_block, runs, block_r, stage_rows)
     return out[0] if single else out
 
 
+def _check_ids(lidx, step_block, runs, *more):
+    if any(t.dtype != torch.int32 for t in (lidx, step_block, runs, *more)):
+        raise TypeError("ids, schedule and runs must be int32")
+    if not all(t.is_contiguous() for t in (lidx, step_block, runs, *more)):
+        raise ValueError("ids, schedule and runs must be contiguous")
+    if runs.shape[0] > _MAX_RUNS:
+        raise ValueError(f"{runs.shape[0]} slot runs exceed the grid limit {_MAX_RUNS}")
+
+
 def _launch(buffer, lidx, step_block, runs, block_r, stage_rows):
     k, _, e = buffer.shape
     _, s_slots, b, seq = lidx.shape
-    if lidx.dtype != torch.int32 or step_block.dtype != torch.int32 or runs.dtype != torch.int32:
-        raise TypeError("lidx, step_block and runs must be int32")
+    _check_ids(lidx, step_block, runs)
     if buffer.stride(2) != 1 or buffer.stride(1) != e:
         raise ValueError("buffer rows must be contiguous")
-    if not (lidx.is_contiguous() and step_block.is_contiguous() and runs.is_contiguous()):
-        raise ValueError("lidx, step_block and runs must be contiguous")
     n_runs = runs.shape[0]
-    if n_runs > _MAX_RUNS:
-        raise ValueError(f"{n_runs} slot runs exceed the grid limit {_MAX_RUNS}")
     out = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=buffer.device)
     fn = build.c_function("embedding_multi", "rt_multi_embedding_bag_ragged", _ARGS)
     with torch.cuda.device(buffer.device):
@@ -208,7 +365,73 @@ def _launch(buffer, lidx, step_block, runs, block_r, stage_rows):
                 build.dtype_code(buffer.dtype), build.stream_of(buffer.device))
     build.check_launch(rc, "multi_embedding_bag_ragged")
     multi_embedding_bag_ragged.launches += 1
+    multi_embedding_bag_ragged.modes["base"] += 1
+    return out
+
+
+def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, hidx,
+                   step_kpath, step_slot, step_base):
+    """Dedup and/or cache: (1) with dedup, the unique-row gather into
+    ``rows_u``; (2) the scatter pass (ranks, spill or plain ids, hot fold)."""
+    k, _, e = buffer.shape
+    _, s_slots, b, seq = lidx.shape
+    n_steps = step_block.shape[-1]
+    if buffer.stride(2) != 1 or buffer.stride(1) != e:
+        raise ValueError("buffer rows must be contiguous")
+    per_step = [t for t in (step_kpath, step_slot, step_base) if t is not None]
+    if any(t.shape != step_block.shape for t in per_step):
+        raise ValueError("step_kpath, step_slot and step_base must be shaped like step_block")
+    _check_ids(lidx, step_block, runs, *per_step)
+    cache_rows = 0
+    if cache is not None:
+        if cache.dtype != buffer.dtype:
+            raise TypeError("cache must have the buffer's dtype")
+        if hidx.shape != lidx.shape or cache.shape[0] != k or cache.shape[2] != e:
+            raise ValueError("hidx must be shaped like lidx and cache (K, C, E)")
+        _check_ids(hidx, step_block, runs)
+        if not cache.is_contiguous():
+            raise ValueError("cache must be contiguous")
+        cache_rows = cache.shape[1]
+    dev = buffer.device
+    dtype = build.dtype_code(buffer.dtype)
+    item = buffer.element_size()
+    with torch.cuda.device(dev):
+        rank = rows_u = None
+        if unique_cap:
+            uniq, rank, lidx = dedup_indices(lidx, unique_cap)
+            _check_ids(uniq, rank, runs)
+            rows_u = torch.zeros((k, s_slots, unique_cap, e), dtype=torch.float32, device=dev)
+            stage = max(min(block_r, GATHER_STAGE_BYTES // (e * item)), 1)
+            gather = build.c_function("embedding_access", "rt_ragged_dedup_gather", _GATHER_ARGS)
+            rc = gather(buffer.data_ptr(), buffer.stride(0), uniq.data_ptr(),
+                        step_slot.data_ptr(), step_base.data_ptr(), step_block.data_ptr(),
+                        step_kpath.data_ptr() if step_kpath is not None else None,
+                        n_steps, k, s_slots, unique_cap, e, block_r, stage,
+                        rows_u.data_ptr(), dtype, build.stream_of(dev))
+            build.check_launch(rc, "multi_embedding_bag_ragged (dedup gather)")
+        stage_cache = int(cache_rows * e * item <= CACHE_STAGE_BYTES)
+        out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=dev)
+        if runs.shape[0] < k * s_slots:
+            out.zero_()  # slots without a run stay zero
+        scatter = build.c_function("embedding_access", "rt_ragged_access", _ACCESS_ARGS)
+        rc = scatter(buffer.data_ptr(), buffer.stride(0), lidx.data_ptr(),
+                     rank.data_ptr() if rank is not None else None,
+                     rows_u.data_ptr() if rows_u is not None else None,
+                     hidx.data_ptr() if hidx is not None else None,
+                     cache.data_ptr() if cache is not None else None, cache_rows,
+                     step_block.data_ptr(), n_steps, runs.data_ptr(), runs.shape[0],
+                     out.data_ptr(), s_slots, b, seq, e, block_r, unique_cap, stage_cache,
+                     dtype, build.stream_of(dev))
+        build.check_launch(rc, "multi_embedding_bag_ragged (access)")
+    modes = multi_embedding_bag_ragged.modes
+    multi_embedding_bag_ragged.launches += 1
+    modes["dedup"] += bool(unique_cap)
+    modes["cache"] += cache is not None
+    modes["sparse"] += step_kpath is not None
     return out
 
 
 multi_embedding_bag_ragged.launches = 0
+# launches by mode: "base" (no access reduction), "dedup", "cache", and
+# "sparse" (given a step_kpath, which callers pass only with sparse steps)
+multi_embedding_bag_ragged.modes = {"base": 0, "dedup": 0, "cache": 0, "sparse": 0}

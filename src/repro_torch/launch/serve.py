@@ -11,6 +11,9 @@ resolved artifact with ``--save-config``.  ``--distribution`` picks the
 query stream (``uniform`` / ``zipf:<a>`` / ``hotset:<frac>:<mass>[:<off>]``
 / preset / ``all``) and doubles as the pricing distribution unless the
 config pins one.  ``--device cpu`` runs the kernels' plain versions.
+``--set access=full --set tuning=sweep`` serves with batch dedup and the
+hot-row cache after a block-size sweep on the device; the plan report then
+prints the access-reduction and tuning records.
 
 As in the JAX package's CLI, the asymmetric planner gets
 ``shard_rocks=True`` unless the config sets it (big tables are row-sharded

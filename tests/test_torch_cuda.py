@@ -8,7 +8,7 @@ runs on a machine with only PyTorch:
 
 Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
-order).
+order).  The dedup gather's two data flows are held bitwise equal.
 """
 import numpy as np
 import pytest
@@ -126,3 +126,71 @@ def test_engine_on_card_matches_cpu(cuda, planner):
     for reduce_mode in ("sparse", "psum", "ring"):
         gpu.config.reduce_mode = cpu.config.reduce_mode = reduce_mode
         torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
+
+
+def _access_case(cuda, dtype, *, unique_cap, cache_rows, seed=4):
+    """Two cores, every strategy code, padding steps, -1 and out-of-window
+    ids, a spill-prone slot, hot lookups split off through ``hidx``."""
+    rng = np.random.default_rng(seed)
+    steps, t_rows = _schedule()
+    k, b, s = 2, 700, 3
+    buf = torch.from_numpy(rng.standard_normal((k, t_rows + 1, 16)).astype(np.float32)).to(dtype)
+    regions = [n * BLOCK_R for _, n in SCHEDULE]
+    lidx = np.stack([np.stack([rng.integers(-3, r + 9, size=(b, s)) for r in regions])
+                     for _ in range(k)]).astype(np.int32)
+    lidx[:, 1] = 5  # all-duplicate slot
+    steps2 = [np.stack([a, a]) for a in steps]
+    runs = ragged_runs(steps2[0], steps2[1], steps2[3], BLOCK_R, len(SCHEDULE))
+    kw = dict(block_r=BLOCK_R, unique_cap=unique_cap)
+    if cache_rows:
+        hidx = np.where(rng.random(lidx.shape) < 0.3,
+                        rng.integers(0, cache_rows, size=lidx.shape), -1).astype(np.int32)
+        lidx = np.where(hidx >= 0, -1, lidx).astype(np.int32)
+        cache = torch.from_numpy(rng.standard_normal((k, cache_rows, 16)).astype(np.float32))
+        kw.update(cache=cache.to(dtype).to(cuda), hidx=torch.from_numpy(hidx).to(cuda))
+    d = {n: torch.from_numpy(a).to(cuda) for n, a in
+         zip(("slot", "base", "block", "strat"), steps2)}
+    args = (buf.to(cuda)[:, :-1], torch.from_numpy(lidx).to(cuda), d["block"],
+            torch.from_numpy(runs).to(cuda))
+    return args, kw, d
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("unique_cap,cache_rows", [(64, 0), (8, 0), (0, 24), (64, 24), (4, 8)])
+def test_access_kernel_matches_plain(cuda, dtype, unique_cap, cache_rows):
+    """Dedup (with and without spill), the cache, both, against the plain
+    version; forced one-hot and sparse gathers bitwise equal."""
+    args, kw, d = _access_case(cuda, dtype, unique_cap=unique_cap, cache_rows=cache_rows)
+    want = multi_embedding_bag_ragged_plain(*args, **kw)
+    outs = []
+    for kpath in ((None,) if not unique_cap else (0, 1)):
+        extra = dict(step_slot=d["slot"], step_base=d["base"])
+        if kpath is not None:
+            extra["step_kpath"] = torch.full_like(d["block"], kpath)
+        before = dict(multi_embedding_bag_ragged.modes)
+        got = multi_embedding_bag_ragged(*args, **kw, **extra)
+        torch.cuda.synchronize()
+        modes = multi_embedding_bag_ragged.modes
+        assert modes["dedup"] - before["dedup"] == bool(unique_cap)
+        assert modes["cache"] - before["cache"] == bool(cache_rows)
+        torch.testing.assert_close(got, want, **TOL)
+        outs.append(got)
+    for other in outs[1:]:
+        assert torch.equal(other, outs[0])
+
+
+@pytest.mark.parametrize("access", ["dedup", "cache", "full"])
+def test_access_engine_on_card_matches_cpu(cuda, access):
+    wl = small_workload(batch=64)
+    config = EngineConfig(mesh_shape=(1, 4), distribution="zipf:1.2", hardware="a100",
+                          access=access, kernel_path="auto",
+                          planner_options={"shard_rocks": True})
+    tables = [torch.randn((t.rows, t.dim), generator=torch.Generator().manual_seed(i))
+              for i, t in enumerate(wl.tables)]
+    gpu = InferenceEngine.build(tables, wl, config)
+    cpu = InferenceEngine.build(tables, wl, config, device="cpu")
+    rng = np.random.default_rng(2)
+    idx = np.full((len(wl.tables), 64, 4), -1, np.int32)
+    for i, t in enumerate(wl.tables):
+        idx[i, :, : t.seq] = rng.integers(0, min(t.rows, 50), size=(64, t.seq))
+    torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)

@@ -239,10 +239,27 @@ def test_unported_pack_options_raise():
     (_, (twl, tplan)), _ = _hand_plans("replicas")
     with pytest.raises(NotImplementedError, match="B8"):
         tpart.pack_plan(tplan, twl.tables, None, layout="dense")
-    with pytest.raises(NotImplementedError, match="A7"):
-        tpart.pack_plan(tplan, twl.tables, None, unique_cap=8)
     with pytest.raises(ValueError, match="sparse"):
         tpart.pack_plan(tplan, twl.tables, None, kernel_path="sparse")
+
+
+@pytest.mark.parametrize("kernel_path", ["onehot", "sparse"])
+def test_dedup_pack_option_packs_like_reference(kernel_path):
+    """``unique_cap`` packs (batch dedup), field for field as the reference,
+    and the dedup'd lookup stays exact."""
+    ((jwl, jplan), (twl, tplan)), rows = _hand_plans("replicas")
+    params = _params(rows)
+    jp = jpart.pack_plan(jplan, jwl.tables, [jnp.asarray(p) for p in params],
+                         unique_cap=8, kernel_path=kernel_path)
+    tp = tpart.pack_plan(tplan, twl.tables, params, unique_cap=8, kernel_path=kernel_path)
+    assert tp.unique_cap == 8 and tp.kernel_path == kernel_path
+    assert_packs_equal(jp, tp, jplan, tplan)
+    idx = np.stack(_indices(twl))
+    got = tpart._local_asym_lookup(tp, torch.from_numpy(idx), n_tables=3,
+                                   use_kernels="fused").sum(dim=0)
+    want = tpart._local_asym_lookup(tp, torch.from_numpy(idx), n_tables=3,
+                                    use_kernels=False).sum(dim=0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 def test_symmetric_batch_split_needs_divisible_batch():

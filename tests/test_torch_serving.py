@@ -153,13 +153,45 @@ def test_reference_config_json_loads_unchanged():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("access", "full", "A7"), ("drift", "replan", "A6"), ("integrity", "checksum", "A8"),
-    ("tuning", "sweep", "A7"), ("layout", "dense", "B8"), ("planner", "hierarchical", "A4"),
+    ("drift", "replan", "A6"), ("integrity", "checksum", "A8"),
+    ("layout", "dense", "B8"), ("planner", "hierarchical", "A4"),
     ("model", "dlrm", "A9"),
 ])
 def test_unported_config_values_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         _engine(**{field: value})
+
+
+@pytest.mark.parametrize("field,value", [
+    ("access", "full"), ("tuning", "sweep"), ("access", "dedup"), ("access", "cache"),
+    ("kernel_path", "sparse"), ("kernel_path", "onehot"),
+])
+def test_access_and_tuning_values_build_and_serve(field, value):
+    """Access reduction, its kernel paths and the block-size sweep build and
+    serve on the CPU (the round trip equals the engine's own lookup)."""
+    cfg = {field: value}
+    if field == "kernel_path":
+        cfg.update(access="full", tuning="sweep")
+    engine = _engine(max_batch=8, distribution="zipf:1.2", hardware="a100",
+                     planner_options={"shard_rocks": True}, **cfg)
+    assert getattr(engine.config, field) == value
+    if engine.config.access != "none":
+        acc = engine.stats()["cache"]
+        assert acc["dedup"] is (engine.config.access != "cache")
+        assert (engine.packed.unique_cap > 0) is acc["dedup"]
+    if engine.config.tuning == "sweep":
+        assert engine.stats()["tuning"]["best"]["block_r"] == engine.packed.block_r
+    if field == "kernel_path":
+        assert engine.packed.kernel_path == value
+    srv = engine.serve()
+    queries = _queries(engine.workload, 16, seed=5)
+    handles = [srv.submit_request(q) for q in queries]
+    srv.pump()
+    srv.drain()
+    want = engine.lookup(np.stack(queries, axis=1)).numpy()
+    for i, h in enumerate(handles):
+        np.testing.assert_allclose(h.result(), want[:, i], **TOL)
+    assert srv.stats()["served"] == 16
 
 
 def test_bad_config_values_raise_like_reference():
