@@ -11,7 +11,7 @@ Phases (any failure raises and exits non-zero):
 2. build: every kernel of ``src/repro_torch/csrc`` with nvcc, in parallel;
 3. main path: the port's serve entry point on full-width taobao (15 tables,
    3,142,468 rows, E=16) at batch 8192, 16,384 requests, K=8 plan cores,
-   three times, with every launch counter set to 0 just before and read
+   five times, with every launch counter set to 0 just before and read
    just after each run:
    A. the default EngineConfig with the paper's LIF fallback
       (``shard_rocks`` off): nine asymmetric L1 chunks through the fused
@@ -27,7 +27,11 @@ Phases (any failure raises and exits non-zero):
       cache), ``tuning=sweep`` (the block-size sweep timed on the card),
       the ``a100`` cost-model preset (whose taobao plan has GM chunks to
       cache) and the CLI's ``shard_rocks``: the fused kernel's dedup,
-      cache and sparse-gather modes in every served launch.
+      cache and sparse-gather modes in every served launch;
+   E. path C's plan in the legacy dense stacked-slot layout
+      (``layout=dense``): 15 whole-table chunks in (8, 2) slots, every slot
+      padded to 1,141,737 rows (a 1.17 GB f32 buffer), through the dense
+      kernel.
    Each checks the request accounting, finite logits, the launch counters,
    that its server has no plain fallback step, and the pooled output of its
    last served batch against the same engine built on the CPU (the kernels'
@@ -39,7 +43,9 @@ Phases (any failure raises and exits non-zero):
    for its access modes a forced spill and forced one-hot and sparse
    gathers, which must agree bitwise), timed with CUDA events beside its
    plain version and one PyTorch library call computing the same lookups
-   (``F.embedding_bag``, a yardstick only).
+   (``F.embedding_bag``, a yardstick only); the dense kernel also on a
+   small single-core stack with s=3, a batch tail, the zero row, an empty
+   slot and ids outside [0, R].
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -76,6 +82,7 @@ PATHS = {
     "D": ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
           "--distribution", ZIPF, "--set", "mesh_shape=[1,8]", "--set", f"distribution={ZIPF}",
           "--set", "access=full", "--set", "tuning=sweep", "--set", "hardware=a100"],
+    "E": CLI_ARGS + ["--set", "layout=dense"],
 }
 ACCESS_SRC = "src/repro_torch/csrc/embedding_access.cu"
 KERNELS = {
@@ -102,6 +109,9 @@ KERNELS = {
     "multi_embedding_bag_ragged[sparse]": (
         "embedding_multi", "multi_embedding_bag_ragged", "sparse", ACCESS_SRC,
         "src/repro/kernels/embedding_multi.py:205"),
+    "multi_embedding_bag_dense": (
+        "embedding_multi", "multi_embedding_bag_dense", None,
+        "src/repro_torch/csrc/embedding_dense.cu", "src/repro/kernels/embedding_multi.py:506"),
 }
 
 
@@ -277,8 +287,11 @@ def main_path(label: str) -> dict:
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and not e.is_user_annotation) / 1e3
     batches = args.queries // args.batch
+    layout = engine.bag.layout_summary()
     rec = {
         "main_path": label, "served": s["served"], "batches": batches,
+        "layout": {k: layout[k] for k in ("kind", "chunk_bytes", "dense_bytes",
+                                          "bytes_vs_dense")},
         "wall_s": wall, "serve_wall_per_batch_ms": res["serve_wall_s"] / batches * 1e3,
         "p50_us": s["p50_us"], "p99_us": s["p99_us"],
         "forward_ms": forward_ms, "lookup_ms": lookup_ms,
@@ -373,6 +386,18 @@ def _bag_record(name, fn, table, lidx, dtype, **kw):
     rec["bound_ms"], rec["bound_by"] = bound(
         uniq * e * t.element_size() + b * s * 4 + b * e * 4, b * s * e)
     return rec
+
+
+def _dense_inputs(engine, idx):
+    """Path E's dense kernel inputs: the (K, S, R+1, E) stack and the
+    pre-clipped (K, S, B, s) ids."""
+    import torch
+
+    from repro_torch.core.partition import _dense_ids
+
+    packed = engine.packed
+    ids = _dense_ids(packed, torch.as_tensor(idx, device=packed.device))
+    return packed.chunk_data, ids.to(torch.int32)
 
 
 def _ragged_inputs(engine, idx):
@@ -533,6 +558,92 @@ def _access_record(case, engine, idx, dtype, *, unique_cap, cache, kpath):
     return rec, got
 
 
+def _dense_record(chunks_full, lidx, dtype):
+    """The dense kernel against its plain version, bitwise (both sum each
+    query's rows in position order from 0.0 in f32), timed beside it and
+    beside one ``F.embedding_bag`` over the same lookups."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_multi import (
+        multi_embedding_bag_dense,
+        multi_embedding_bag_dense_plain,
+    )
+
+    chunks = chunks_full.to(dtype)
+    k, s_slots, rows, e = chunks.shape
+    b, s = lidx.shape[2:]
+
+    def kernel():
+        return multi_embedding_bag_dense(chunks, lidx)
+
+    got = kernel()
+    torch.cuda.synchronize()
+    want = multi_embedding_bag_dense_plain(chunks, lidx)
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"[kernel] dense {dtype}: not bitwise equal, max err {err}")
+    # library yardstick: one embedding_bag over the flattened (K*S*(R+1), E) stack
+    flat = chunks.reshape(k * s_slots * rows, e)
+    offset = torch.arange(k * s_slots, device=lidx.device).view(k, s_slots, 1, 1) * rows
+    gl = (lidx.long() + offset).reshape(-1, s)
+    lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
+    rec = {
+        "name": "multi_embedding_bag_dense", "dtype": str(dtype).replace("torch.", ""),
+        "shape": {"K": k, "S": s_slots, "R+1": rows, "E": e, "B": b, "s": s},
+        "max_err": err,
+        "library_max_err": float((lib.float() - want).abs().max()),
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: multi_embedding_bag_dense_plain(chunks, lidx)),
+        "library_ms": time_ms(lambda: F.embedding_bag(gl, flat, mode="sum")),
+    }
+    # what the data needs: the distinct rows hit (a slot's zero row R holds
+    # nothing to read), the ids, the (K, S, B, E) f32 output
+    uniq = int(torch.unique(gl[(gl % rows) != rows - 1]).numel())
+    rec["bound_ms"], rec["bound_by"] = bound(
+        uniq * e * chunks.element_size() + lidx.numel() * 4 + k * s_slots * b * e * 4,
+        k * s_slots * b * s * e)
+    rec["distinct_rows"] = uniq
+    return rec
+
+
+def dense_edge_case(dtype):
+    """The dense kernel on a small single-core stack: s=3, a batch that is
+    no multiple of any tile, ids at 0 and at the zero row, an all-zero-row
+    (empty) slot, and ids outside [0, R], which the kernel gives zero and
+    the plain version refuses."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_multi import (
+        multi_embedding_bag_dense,
+        multi_embedding_bag_dense_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    s_slots, rows, b, s = 3, 1001, 1037, 3
+    chunks = torch.from_numpy(rng.standard_normal((s_slots, rows, 16)).astype(np.float32))
+    chunks[:, -1] = 0
+    chunks[2] = 0  # an empty slot
+    lidx = rng.integers(0, rows, size=(s_slots, b, s)).astype(np.int32)
+    lidx[:, ::7, 0] = 0
+    lidx[:, ::5, 1] = rows - 1
+    lidx[2] = rows - 1
+    chunks, ids = chunks.to(dtype).to(DEVICE), torch.from_numpy(lidx).to(DEVICE)
+    got = multi_embedding_bag_dense(chunks, ids)
+    want = multi_embedding_bag_dense_plain(chunks[None], ids[None])[0]
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), f"[kernel] dense edge case {dtype}: not bitwise equal")
+    check(not got[2].any(), "[kernel] dense edge case: the empty slot is not zero")
+    bad = ids.clone()
+    bad[:, :, 2] = torch.where(bad[:, :, 2] % 2 == 0, -5, rows + 3).to(torch.int32)
+    masked = multi_embedding_bag_dense_plain(
+        chunks[None], torch.where(bad < 0, rows - 1, bad).clamp(max=rows - 1)[None])[0]
+    got_bad = multi_embedding_bag_dense(chunks, bad)
+    torch.cuda.synchronize()
+    check(torch.equal(got_bad, masked), f"[kernel] dense ids outside [0, R] {dtype}")
+    return float((got - want).abs().max())
+
+
 def mixed_ragged_case():
     """Every strategy code, multi-step slots, padding steps (core 0 has fewer
     steps), -1 and out-of-window ids, on taobao table sizes."""
@@ -655,6 +766,11 @@ def kernel_phase(paths: dict, counts: dict) -> list:
     dtypes = (torch.float32, torch.bfloat16, torch.float16)
     recs: dict[str, list] = {name: [] for name in KERNELS}
     access_phase(paths["D"], recs)
+    dense = _dense_inputs(paths["E"]["engine"], paths["E"]["indices"])
+    for dtype in dtypes:
+        rec = _dense_record(*dense, dtype)
+        rec["edge_case_max_err"] = dense_edge_case(dtype)
+        recs["multi_embedding_bag_dense"].append(rec)
     a, b, c = paths["A"], paths["B"], paths["C"]
     ragged = _ragged_inputs(a["engine"], a["indices"])
     ragged_c = _ragged_inputs(c["engine"], c["indices"])
@@ -729,6 +845,7 @@ def main(argv=None) -> int:
     for name, k in (("dedup", "K5"), ("cache", "K6"), ("sparse", "K7")):
         check(runs["D"]["counts"][f"multi_embedding_bag_ragged[{name}]"] > 0,
               f"{k} ({name}) not launched on path D")
+    check(runs["E"]["counts"]["multi_embedding_bag_dense"] > 0, "K8 not launched on path E")
     kernels = kernel_phase(runs, counts)
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

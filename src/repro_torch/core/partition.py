@@ -16,7 +16,11 @@ of GPUs.  The packed layout is the reference's, field for field:
   (:func:`repro_torch.kernels.embedding_multi.multi_embedding_bag_ragged`)
   runs all K cores' schedules in ONE launch;
 * the owner-sharded rejoin maps (``rejoin_*``) and the symmetric fallback
-  group (``sym_*``) are built as in the reference.
+  group (``sym_*``) are built as in the reference;
+* ``layout="dense"`` keeps the legacy stacked-slot layout instead:
+  ``(K, S, R+1, E)`` with every slot padded to the largest chunk (plus one
+  zero row), no step schedule, and its own kernel
+  (:func:`repro_torch.kernels.embedding_multi.multi_embedding_bag_dense`).
 
 The rejoins become device-local reductions of the per-core ``(N, B, E)``
 partials that reproduce the reference's collectives: ``"sparse"`` sums each
@@ -34,7 +38,7 @@ without kernels.  The access-reduction knobs arm the fused kernel as in
 the reference: ``unique_cap`` (batch dedup), ``cache_rows`` (the per-core
 hot-row residency cache, carved by :func:`cache_plan_entries`) and
 ``kernel_path`` (the per-step one-hot or sparse gather of the dedup'd
-rows).  ``layout="dense"`` (ROADMAP B8) is not ported yet and raises.
+rows); they need the ragged layout, as in the reference.
 
 ``plan.meta`` gets the reference's ``layout``, ``rejoin``,
 ``cache["packed"]`` and ``kernel["packed"]`` records, equal key for key.
@@ -51,6 +55,8 @@ from repro_torch.core.cost_model import freq_of
 from repro_torch.core.strategies import Plan, Strategy
 from repro_torch.core.tables import TableSpec
 from repro_torch.kernels.embedding_multi import (
+    multi_embedding_bag_dense,
+    multi_embedding_bag_dense_plain,
     multi_embedding_bag_ragged,
     ragged_runs,
     ragged_stage_rows,
@@ -85,7 +91,8 @@ class PackedPlan:
     ``chunk_data`` is ``(K, R_total+1, E)`` with each core's chunks
     concatenated row-wise (``slot_row_start`` gives each slot's first row);
     the ``step_*`` arrays hold the fused kernel's per-core (slot, row-block,
-    strategy) schedule.  The ``rejoin_*`` maps drive the owner-sharded
+    strategy) schedule.  Under ``layout="dense"`` it is ``(K, S, R+1, E)``
+    and the schedule is empty.  The ``rejoin_*`` maps drive the owner-sharded
     sparse rejoin: ``rejoin_send[c, d]`` lists the tables core ``c`` sends
     to owner ``d``, ``rejoin_bucket[d]`` lists the tables core ``d`` owns,
     and ``rejoin_owned_pos[t]`` is table ``t``'s position in its owner's
@@ -96,7 +103,7 @@ class PackedPlan:
     """
 
     # asymmetric slots
-    chunk_data: Any  # (K, R_total+1, E)
+    chunk_data: Any  # ragged: (K, R_total+1, E); dense: (K, S, R+1, E)
     slot_table: Any  # (K, S) int32, -1 = empty
     slot_offset: Any  # (K, S) int32 row offset within the source table
     slot_rows: Any  # (K, S) int32
@@ -104,7 +111,7 @@ class PackedPlan:
     slot_strategy: Any  # (K, S) int32
     slot_rep: Any  # (K, S) int32
     slot_nrep: Any  # (K, S) int32
-    # fused-kernel step schedule
+    # fused-kernel step schedule (ragged layout only; (K, 0) otherwise)
     step_slot: Any  # (K, T) int32 slot id per step (S = trash slot)
     step_base: Any  # (K, T) int32 chunk-local first row of the step's block
     step_block: Any  # (K, T) int32 row-block index into the ragged buffer
@@ -270,14 +277,17 @@ def pack_plan(
 
     ``table_data[i]`` is the (m_i, E) table i (numpy array or tensor), or
     ``None`` for abstract packing (zeros; shape-only work).  The buffers are
-    built on the host and moved to ``device`` once.  ``block_r`` overrides
-    the fused kernel's row-block size; ``block_b`` is recorded for
-    ``plan.meta["layout"]`` parity.  ``layout="dense"`` raises (ROADMAP B8).
+    built on the host and moved to ``device`` once.  ``layout="ragged"``
+    concatenates each core's chunks row-wise; ``layout="dense"`` pads every
+    slot to the global ``max_rows`` (the legacy layout, kept for
+    comparison).  ``block_r`` overrides the fused kernel's row-block size;
+    ``block_b`` is recorded for ``plan.meta["layout"]`` parity.
 
     ``unique_cap``/``cache_rows`` arm the access reduction; ``None``
     resolves each from ``plan.meta["cache"]`` (the planner's selection).
     The cache carve needs the access histograms: pass the same ``freqs``
-    the plan was priced under.  ``kernel_path`` picks the dedup'd gather per
+    the plan was priced under.  Ragged layout only, as is ``kernel_path``,
+    which picks the dedup'd gather per
     step: ``"onehot"``, ``"sparse"`` (every step; needs ``unique_cap > 0``)
     or ``"auto"`` (per chunk from ``plan.meta["kernel"]["per_chunk"]``;
     without dedup every step stays one-hot); ``None`` resolves from
@@ -285,11 +295,6 @@ def pack_plan(
     """
     if layout not in ("ragged", "dense"):
         raise ValueError(f"unknown layout {layout!r}")
-    if layout == "dense":
-        raise NotImplementedError(
-            "layout='dense' (the legacy stacked-slot layout) is not ported "
-            "yet: ROADMAP B8"
-        )
     access_meta = plan.meta.get("cache") or {}
     if unique_cap is None:
         unique_cap = int(access_meta.get("unique_cap") or 0)
@@ -300,16 +305,21 @@ def pack_plan(
             "cache_rows > 0 needs the access histograms (freqs) to carve "
             "the hot-row residency cache"
         )
+    if layout == "dense" and (unique_cap or cache_rows):
+        raise ValueError("dedup/cache require layout='ragged'")
     kernel_meta = plan.meta.get("kernel") or {}
     if kernel_path is None:
         kernel_path = kernel_meta.get("path") or "onehot"
     if kernel_path not in ("onehot", "sparse", "auto"):
         raise ValueError(f"unknown kernel_path {kernel_path!r}")
-    if kernel_path == "sparse" and not unique_cap:
-        raise ValueError(
-            "kernel_path='sparse' requires batch dedup (unique_cap > 0): "
-            "the sparse gather rides the dedup uniq/cnt machinery"
-        )
+    if kernel_path == "sparse":
+        if layout == "dense":
+            raise ValueError("kernel_path='sparse' requires layout='ragged'")
+        if not unique_cap:
+            raise ValueError(
+                "kernel_path='sparse' requires batch dedup (unique_cap > 0): "
+                "the sparse gather rides the dedup uniq/cnt machinery"
+            )
     # per-assignment gather path (parallel to plan.assignments; per_core()
     # returns the same objects)
     path_of: dict[int, str] = {}
@@ -363,82 +373,98 @@ def pack_plan(
     itemsize = torch.empty((), dtype=dtype).element_size()
     dense_bytes = k * max_slots * (max_rows_pad + 1) * e * itemsize
 
-    # ragged: per core, concatenate chunks row-wise; each chunk's region is
-    # padded to a block_r multiple (>= 1 zero row after the data, the slot's
-    # redirect target), so the fused kernel's row-blocks tile it.  block_r is
-    # sized off the SMALLEST real chunk.
-    min_rows = min((a.rows for a in plan.assignments), default=1)
-    br = block_r or min(
-        _RAGGED_BLOCK_R,
-        max(_align(min_rows + 1, _ROW_PAD), _RAGGED_BLOCK_R_MIN),
-    )
-    br = max(_align(br, _ROW_PAD), _ROW_PAD)
-    # per-strategy step schedule: slots grouped by strategy code (then
-    # ascending size) so every strategy's steps form one contiguous run.
-    core_order: dict[int, list[int]] = {
-        core: sorted(
-            range(len(per_core.get(core, []))),
-            key=lambda s_i: (
-                STRATEGY_CODE[per_core[core][s_i].strategy],
-                per_core[core][s_i].rows,
-                s_i,
-            ),
-        )
-        for core in range(k)
-    }
-    steps: list[list[tuple[int, int, int, int, int]]] = []
-    slot_window = br
-    t_needed = br
-    for core in range(k):
-        cur = 0
-        core_steps: list[tuple[int, int, int, int, int]] = []
-        for s_i in core_order[core]:
-            a = per_core[core][s_i]
-            alloc = _align(a.rows + 1, br)
-            slot_row_start[core, s_i] = cur
-            code = STRATEGY_CODE[a.strategy]
-            kp = 1 if path_of.get(id(a)) == "sparse" else 0
-            for j in range(alloc // br):
-                core_steps.append((s_i, j * br, cur // br + j, code, kp))
-            cur += alloc
-            slot_window = max(slot_window, alloc)
-        steps.append(core_steps)
-        t_needed = max(t_needed, cur)
-    t_pad = _align(t_needed, br)
-
-    buf = torch.zeros((k, t_pad + 1, e), dtype=dtype)
-    for core in range(k):
-        for s_i, a in enumerate(per_core.get(core, [])):
-            start = int(slot_row_start[core, s_i])
-            buf[core, start : start + a.rows] = tbl(a.table_idx)[
-                a.row_offset : a.row_offset + a.rows
-            ]
-
-    if cache_rows:
-        # residency-cache carve: each core's top-mass GM rows go into the
-        # mini-table and the buffer-row remap points at them; clamp to the
-        # realized carve so no zero rows are allocated
-        entries = cache_plan_entries(plan, tables, freqs, cache_rows)
-        cache_rows = min(cache_rows, max((len(v) for v in entries.values()), default=0))
-    if cache_rows:
-        cache_pad = _align(cache_rows, _ROW_PAD)
-        cache_buf = torch.zeros((k, cache_pad, e), dtype=dtype)
-        remap_np = -np.ones((k, t_pad + 1), np.int32)
+    if layout == "dense":
+        # every slot padded to the global max rows plus one zero row (the
+        # redirect target of invalid ids); empty slots stay all zeros.  One
+        # (K, S, R+1, E) tensor filled in place: padding and stacking per
+        # slot would hold the whole buffer twice on the host.
+        buf = torch.zeros((k, max_slots, max_rows_pad + 1, e), dtype=dtype)
         for core in range(k):
-            for p, (s_i, a, gid, _w) in enumerate(entries[core]):
-                remap_np[core, int(slot_row_start[core, s_i]) + gid - a.row_offset] = p
-                cache_buf[core, p] = tbl(a.table_idx)[gid]
-        cache_rows = cache_pad
-        plan.meta.setdefault("cache", {})["packed"] = {
-            "cache_rows": int(cache_pad),
-            "rows_per_core": [len(entries[c]) for c in range(k)],
-        }
-    else:
+            for s_i, a in enumerate(per_core.get(core, [])):
+                buf[core, s_i, : a.rows] = tbl(a.table_idx)[
+                    a.row_offset : a.row_offset + a.rows
+                ]
+        steps: list[list[tuple[int, int, int, int, int]]] = [[] for _ in range(k)]
+        br = slot_window = 0
         cache_buf = torch.zeros((k, 0, e), dtype=dtype)
-        remap_np = np.zeros((k, t_pad + 1), np.int32)
-        if plan.meta.get("cache", {}).get("cache_rows"):
-            # requested but nothing carvable: record the empty carve
-            plan.meta["cache"]["packed"] = {"cache_rows": 0, "rows_per_core": [0] * k}
+        remap_np = np.zeros((k, 1), np.int32)
+    else:
+        # ragged: per core, concatenate chunks row-wise; each chunk's region
+        # is padded to a block_r multiple (>= 1 zero row after the data, the
+        # slot's redirect target), so the fused kernel's row-blocks tile it.
+        # block_r is sized off the SMALLEST real chunk.
+        min_rows = min((a.rows for a in plan.assignments), default=1)
+        br = block_r or min(
+            _RAGGED_BLOCK_R,
+            max(_align(min_rows + 1, _ROW_PAD), _RAGGED_BLOCK_R_MIN),
+        )
+        br = max(_align(br, _ROW_PAD), _ROW_PAD)
+        # per-strategy step schedule: slots grouped by strategy code (then
+        # ascending size) so every strategy's steps form one contiguous run.
+        core_order: dict[int, list[int]] = {
+            core: sorted(
+                range(len(per_core.get(core, []))),
+                key=lambda s_i: (
+                    STRATEGY_CODE[per_core[core][s_i].strategy],
+                    per_core[core][s_i].rows,
+                    s_i,
+                ),
+            )
+            for core in range(k)
+        }
+        steps = []
+        slot_window = br
+        t_needed = br
+        for core in range(k):
+            cur = 0
+            core_steps: list[tuple[int, int, int, int, int]] = []
+            for s_i in core_order[core]:
+                a = per_core[core][s_i]
+                alloc = _align(a.rows + 1, br)
+                slot_row_start[core, s_i] = cur
+                code = STRATEGY_CODE[a.strategy]
+                kp = 1 if path_of.get(id(a)) == "sparse" else 0
+                for j in range(alloc // br):
+                    core_steps.append((s_i, j * br, cur // br + j, code, kp))
+                cur += alloc
+                slot_window = max(slot_window, alloc)
+            steps.append(core_steps)
+            t_needed = max(t_needed, cur)
+        t_pad = _align(t_needed, br)
+
+        buf = torch.zeros((k, t_pad + 1, e), dtype=dtype)
+        for core in range(k):
+            for s_i, a in enumerate(per_core.get(core, [])):
+                start = int(slot_row_start[core, s_i])
+                buf[core, start : start + a.rows] = tbl(a.table_idx)[
+                    a.row_offset : a.row_offset + a.rows
+                ]
+
+        if cache_rows:
+            # residency-cache carve: each core's top-mass GM rows go into
+            # the mini-table and the buffer-row remap points at them; clamp to
+            # the realized carve so no zero rows are allocated
+            entries = cache_plan_entries(plan, tables, freqs, cache_rows)
+            cache_rows = min(cache_rows, max((len(v) for v in entries.values()), default=0))
+        if cache_rows:
+            cache_pad = _align(cache_rows, _ROW_PAD)
+            cache_buf = torch.zeros((k, cache_pad, e), dtype=dtype)
+            remap_np = -np.ones((k, t_pad + 1), np.int32)
+            for core in range(k):
+                for p, (s_i, a, gid, _w) in enumerate(entries[core]):
+                    remap_np[core, int(slot_row_start[core, s_i]) + gid - a.row_offset] = p
+                    cache_buf[core, p] = tbl(a.table_idx)[gid]
+            cache_rows = cache_pad
+            plan.meta.setdefault("cache", {})["packed"] = {
+                "cache_rows": int(cache_pad),
+                "rows_per_core": [len(entries[c]) for c in range(k)],
+            }
+        else:
+            cache_buf = torch.zeros((k, 0, e), dtype=dtype)
+            remap_np = np.zeros((k, t_pad + 1), np.int32)
+            if plan.meta.get("cache", {}).get("cache_rows"):
+                # requested but nothing carvable: record the empty carve
+                plan.meta["cache"]["packed"] = {"cache_rows": 0, "rows_per_core": [0] * k}
 
     # uniform step count across cores; padding steps target the trash slot
     # (id = max_slots) with base 0.
@@ -626,11 +652,13 @@ def _local_asym_lookup(
 ) -> torch.Tensor:
     """indices (N, B, s) -> per-core partials (K, N, B, E) f32 (pre-rejoin).
 
-    ``use_kernels``: ``"fused"`` = the fused ragged kernel over all cores in
-    one launch; ``False`` = the plain gather path.
+    ``use_kernels``: ``"fused"`` = the layout's fused kernel over all cores
+    in one launch; ``False`` = the plain gather path.
     """
     if use_kernels == "fused":
         return _fused_asym_lookup(packed, indices, n_tables=n_tables)
+    if packed.layout == "dense":
+        return _dense_asym_lookup(packed, indices, n_tables=n_tables)
     local, valid = _slot_indices(packed, indices)
     buffer = packed.chunk_data  # (K, T+1, E)
     zrow = buffer.shape[1] - 1  # shared trailing zero row
@@ -638,6 +666,22 @@ def _local_asym_lookup(
     gidx = torch.where(valid, start + local, zrow)  # (K, S, B, s)
     cores = torch.arange(packed.n_cores, device=buffer.device)[:, None, None, None]
     pooled = buffer[cores, gidx].float().sum(dim=3)  # (K, S, B, E)
+    return _scatter_slots(packed, pooled, n_tables)
+
+
+def _dense_ids(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
+    """Dense-layout slot ids (K, S, B, s): chunk-local ids, invalid lookups
+    redirected to each slot's trailing zero row ``R``."""
+    local, valid = _slot_indices(packed, indices)
+    rpad = packed.chunk_data.shape[-2] - 1
+    return torch.where(valid, local, rpad)
+
+
+def _dense_asym_lookup(
+    packed: PackedPlan, indices: torch.Tensor, *, n_tables: int
+) -> torch.Tensor:
+    """The plain stacked-slot gather over (K, S, R+1, E) -> (K, N, B, E)."""
+    pooled = multi_embedding_bag_dense_plain(packed.chunk_data, _dense_ids(packed, indices))
     return _scatter_slots(packed, pooled, n_tables)
 
 
@@ -667,7 +711,10 @@ def _fused_asym_lookup(
     k, s_slots = packed.slot_table.shape
     b = indices.shape[1]
     e = packed.chunk_data.shape[-1]
-    if packed.step_slot.shape[-1] == 0:
+    if packed.layout == "dense":
+        lidx = _dense_ids(packed, indices).to(torch.int32)
+        pooled = multi_embedding_bag_dense(packed.chunk_data, lidx)
+    elif packed.step_slot.shape[-1] == 0:
         pooled = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=packed.device)
     else:
         lidx, hidx = _fused_ids(packed, indices)

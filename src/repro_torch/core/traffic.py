@@ -49,8 +49,9 @@ def modeled_hbm_traffic(
 ) -> dict:
     """Analytic traffic per path -> nested dict of byte counts, the
     reference's model of its TPU data flow (windows streamed once per core
-    and batch chunk, ids, output, rejoin volume); equal to the reference's
-    figures for the same pack.  Modeled, not measured on the card."""
+    and batch chunk, or every dense slot's whole chunk, ids, output, rejoin
+    volume); equal to the reference's figures for the same pack.  Modeled,
+    not measured on the card."""
     item = packed.chunk_data.element_size()
     e = int(packed.chunk_data.shape[-1])
     k = packed.n_cores
@@ -61,29 +62,37 @@ def modeled_hbm_traffic(
     idx_bytes = n_real_slots * batch * seq * 4
     out_bytes = n_real_slots * batch * e * item
 
-    step_slot = _host(packed.step_slot)
-    step_block = _host(packed.step_block)
-    br = packed.block_r
-    _, batch_chunks = ragged_block_b(
-        batch, seq, e, br, block_b=packed.block_b or None,
-        unique_cap=packed.unique_cap, cache_rows=packed.cache_rows,
-    )
-    window_bytes = 0
-    for core in range(k):
-        real = step_slot[core] < slot_table.shape[1]
-        n_blocks = len(np.unique(step_block[core][real]))
-        refetch = 1 if (~real).any() and n_blocks else 0
-        window_bytes += (n_blocks + refetch) * br * e * item
-    window_bytes *= batch_chunks
-    # the retired per-slot scan: every real slot paid the core-max window
-    scan_bytes = 0
-    for core in range(k):
-        real = slot_table[core] >= 0
-        if real.any():
-            max_alloc = int(
-                (-(-(slot_rows[core][real] + 1) // br) * br).max()
-            )
-            scan_bytes += int(real.sum()) * max_alloc * e * item
+    if packed.layout == "dense":
+        # every slot's whole padded chunk, on every core
+        s_max = slot_table.shape[1]
+        rpad = int(packed.chunk_data.shape[-2])
+        window_bytes = k * s_max * rpad * e * item
+        scan_bytes = window_bytes
+        batch_chunks = 1
+    else:
+        step_slot = _host(packed.step_slot)
+        step_block = _host(packed.step_block)
+        br = packed.block_r
+        _, batch_chunks = ragged_block_b(
+            batch, seq, e, br, block_b=packed.block_b or None,
+            unique_cap=packed.unique_cap, cache_rows=packed.cache_rows,
+        )
+        window_bytes = 0
+        for core in range(k):
+            real = step_slot[core] < slot_table.shape[1]
+            n_blocks = len(np.unique(step_block[core][real]))
+            refetch = 1 if (~real).any() and n_blocks else 0
+            window_bytes += (n_blocks + refetch) * br * e * item
+        window_bytes *= batch_chunks
+        # the retired per-slot scan: every real slot paid the core-max window
+        scan_bytes = 0
+        for core in range(k):
+            real = slot_table[core] >= 0
+            if real.any():
+                max_alloc = int(
+                    (-(-(slot_rows[core][real] + 1) // br) * br).max()
+                )
+                scan_bytes += int(real.sum()) * max_alloc * e * item
 
     gather_bytes = n_real_slots * batch * seq * e * item
 

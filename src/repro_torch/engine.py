@@ -45,6 +45,7 @@ __all__ = [
     "PLACEMENT_POLICIES",
     "PlacementPolicy",
     "PolicyRegistry",
+    "SCENARIO_MODELS",
     "TUNING_POLICIES",
     "TuningPolicy",
     "VALIDATION_POLICIES",
@@ -259,6 +260,10 @@ INTEGRITY_POLICIES.register("none", _NoIntegrity)
 
 HARDWARE_PRESETS = ("tpu_v5e", "a100", "ascend_910")
 
+# the JAX package's scenario towers (its repro.models.registry.SCENARIOS),
+# which this port does not serve yet
+SCENARIO_MODELS = ("dlrm", "mamba2", "moe", "transformer")
+
 
 def _hardware_presets() -> dict:
     from repro_torch.core import cost_model
@@ -408,6 +413,11 @@ class EngineConfig:
                 raise ValueError("access reduction requires layout='ragged'")
             if self.use_kernels != "fused":
                 raise ValueError("access reduction requires use_kernels='fused'")
+        if self.model != "pooled" and self.model not in SCENARIO_MODELS:
+            raise ValueError(
+                f"unknown scenario model {self.model!r}; registered: "
+                f"{sorted(SCENARIO_MODELS)} (or 'pooled')"
+            )
         if self.integrity != "none":
             check_every = self.integrity_options.get("check_every", 64)
             if not isinstance(check_every, int) or check_every < 0:
@@ -415,32 +425,42 @@ class EngineConfig:
                     f"integrity_options['check_every'] must be an int >= 0, "
                     f"got {check_every!r}"
                 )
-        self.require_ported()
-        # fail early on unknown policy names (before any planning work)
-        for reg, name in (
-            (PLACEMENT_POLICIES, self.planner),
-            (ACCESS_POLICIES, self.access),
-            (TUNING_POLICIES, self.tuning),
-            (DRIFT_POLICIES, self.drift),
-            (VALIDATION_POLICIES, self.validation),
-            (INTEGRITY_POLICIES, self.integrity),
+        # fail early on unknown policy names (before any planning work); a
+        # value this port does not run yet is left to require_ported, which
+        # InferenceEngine.build calls
+        unported = {field for field, _, _ in self._unported()}
+        for reg, field in (
+            (PLACEMENT_POLICIES, "planner"),
+            (ACCESS_POLICIES, "access"),
+            (TUNING_POLICIES, "tuning"),
+            (DRIFT_POLICIES, "drift"),
+            (VALIDATION_POLICIES, "validation"),
+            (INTEGRITY_POLICIES, "integrity"),
         ):
-            reg.create(name)
+            if field not in unported:
+                reg.create(getattr(self, field))
+
+    def _unported(self) -> list[tuple[str, str, str]]:
+        """``(field, description, ROADMAP item)`` for each value the JAX
+        package runs and this port does not run yet (only the JAX package's
+        own names: any other name fails :meth:`validate` as it does there)."""
+        pending = [
+            ("model", self.model in SCENARIO_MODELS, f"model={self.model!r} (scenario towers)",
+             "A9"),
+            ("planner", self.planner == "hierarchical", "planner='hierarchical'", "A4"),
+            ("drift", self.drift == "replan", "drift='replan'", "A6"),
+            ("integrity", self.integrity == "checksum", "integrity='checksum'", "A8"),
+        ]
+        return [(field, what, item) for field, bad, what, item in pending if bad]
 
     def require_ported(self) -> None:
         """Raise ``NotImplementedError`` for a value the JAX package accepts
-        but this slice cannot execute yet, naming the ROADMAP item that ports
-        it (the registries hold only what runs)."""
-        pending = [
-            (self.model != "pooled", f"model={self.model!r} (scenario towers)", "A9"),
-            (self.planner == "hierarchical", "planner='hierarchical'", "A4"),
-            (self.drift != "none", f"drift={self.drift!r}", "A6"),
-            (self.integrity != "none", f"integrity={self.integrity!r}", "A8"),
-            (self.layout == "dense", "layout='dense'", "B8"),
-        ]
-        for bad, what, item in pending:
-            if bad:
-                raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+        but this port cannot execute yet, naming the ROADMAP item that ports
+        it (the registries hold only what runs).  :meth:`validate` accepts
+        such a config, as the JAX package does, so that a config resolves
+        alike in both packages; building an engine from it raises here."""
+        for _, what, item in self._unported():
+            raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
     # -- JSON round-trip ----------------------------------------------------
 
@@ -549,6 +569,7 @@ class InferenceEngine:
 
         config = config if config is not None else EngineConfig()
         config.validate()
+        config.require_ported()
         device = resolve_device(device)
 
         hosts, cores_per_host = resolve_mesh_shape(

@@ -26,8 +26,8 @@ __all__ = ["SOURCES", "build", "build_dir", "c_function", "check_launch",
            "dtype_code", "route", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("embedding_multi", "embedding_access", "embedding_ub", "embedding_gm",
-           "embedding_l1")
+SOURCES = ("embedding_multi", "embedding_access", "embedding_dense", "embedding_ub",
+           "embedding_gm", "embedding_l1")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

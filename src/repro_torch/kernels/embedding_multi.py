@@ -17,6 +17,11 @@ time and stored on the device with the kernel's staging capacity
 Access-reduction modes (the reference's ``unique_cap``/``cache``/
 ``step_kpath`` branches): ``csrc/embedding_access.cu``.
 
+The legacy dense stacked-slot layout has its own kernel,
+:func:`multi_embedding_bag_dense` (``csrc/embedding_dense.cu``): every slot
+padded to the same ``R+1`` rows, ids pre-clipped to ``[0, R]`` with row
+``R`` zero, no schedule.
+
 * **batch dedup** (``unique_cap > 0``): :func:`dedup_indices` unique-izes
   each slot's ids (sort + first-occurrence ranks, a torch op on the ids'
   device); a first pass gathers every unique row once per batch into
@@ -48,6 +53,8 @@ __all__ = [
     "cnt_from_rank",
     "dedup_indices",
     "gather_unique_rows_plain",
+    "multi_embedding_bag_dense",
+    "multi_embedding_bag_dense_plain",
     "multi_embedding_bag_ragged",
     "multi_embedding_bag_ragged_plain",
     "ragged_block_b",
@@ -75,6 +82,9 @@ _ACCESS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_DENSE_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
+               ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_int, ctypes.c_void_p]
 # shared memory (bytes) for one step's window in the one-hot gather, and for
 # the resident cache in the scatter pass (a larger cache is read from L2)
 GATHER_STAGE_BYTES = 64 * 1024
@@ -435,3 +445,83 @@ multi_embedding_bag_ragged.launches = 0
 # launches by mode: "base" (no access reduction), "dedup", "cache", and
 # "sparse" (given a step_kpath, which callers pass only with sparse steps)
 multi_embedding_bag_ragged.modes = {"base": 0, "dedup": 0, "cache": 0, "sparse": 0}
+
+
+# --------------------------------------------------------------------------
+# dense stacked-slot layout (legacy, kept for layout comparisons)
+# --------------------------------------------------------------------------
+
+
+def _dense_batched(chunks, lidx):
+    """The reference's one-core ``(S, R+1, E)``/``(S, B, s)`` shapes or the
+    port's all-core ``(K, S, R+1, E)``/``(K, S, B, s)`` ones."""
+    single = chunks.dim() == 3
+    if single:
+        chunks, lidx = chunks[None], lidx[None]
+    if chunks.dim() != 4 or lidx.dim() != 4 or lidx.shape[:2] != chunks.shape[:2]:
+        raise ValueError(
+            f"chunks (S, R+1, E) or (K, S, R+1, E) and lidx (S, B, s) or (K, S, B, s) "
+            f"with matching leading axes, got {tuple(chunks.shape)} and {tuple(lidx.shape)}")
+    return single, chunks, lidx
+
+
+def multi_embedding_bag_dense_plain(chunks: torch.Tensor, lidx: torch.Tensor) -> torch.Tensor:
+    """The dense kernel's function in plain torch: chunks (K, S, R+1, E),
+    lidx (K, S, B, s) -> (K, S, B, E) f32, each query's ``s`` rows summed in
+    position order from 0.0 in f32, as the reference's kernel does.  Ids
+    must lie in ``[0, R]`` (callers pre-clip; an id outside raises)."""
+    k, s_slots, rows, e = chunks.shape
+    b, seq = lidx.shape[2:]
+    if lidx.numel() and (int(lidx.min()) < 0 or int(lidx.max()) >= rows):
+        raise IndexError(f"dense ids must lie in [0, {rows - 1}]")
+    flat = chunks.reshape(k * s_slots, rows, e)
+    ids = lidx.reshape(k * s_slots, b, seq).long()
+    slot = torch.arange(k * s_slots, device=chunks.device)[:, None]
+    acc = torch.zeros((k * s_slots, b, e), dtype=torch.float32, device=chunks.device)
+    for j in range(seq):
+        acc = acc + flat[slot, ids[:, :, j]].float()
+    return acc.reshape(k, s_slots, b, e)
+
+
+def multi_embedding_bag_dense(
+    chunks: torch.Tensor,  # (S, R+1, E) or (K, S, R+1, E), trailing zero row
+    lidx: torch.Tensor,  # (S, B, s) or (K, S, B, s) int32, pre-clipped to [0, R]
+) -> torch.Tensor:
+    """All slots' pooled lookups over the dense stacked-slot layout in one
+    launch -> (S, B, E) or (K, S, B, E) f32.
+
+    The CUDA grid tiles the batch itself, so there is no ``block_b``: the
+    reference's batch tile is recorded by ``pack_plan`` in ``plan.meta``.
+    CPU tensors run the plain version, CUDA tensors the kernel, which gives
+    zero for an id outside ``[0, R]`` where the plain version raises.
+    """
+    single, chunks, lidx = _dense_batched(chunks, lidx)
+    if build.route(chunks, lidx) == "cpu":
+        out = multi_embedding_bag_dense_plain(chunks, lidx)
+    else:
+        out = _launch_dense(chunks, lidx)
+    return out[0] if single else out
+
+
+def _launch_dense(chunks, lidx):
+    k, s_slots, rows, e = chunks.shape
+    b, seq = lidx.shape[2:]
+    if lidx.dtype != torch.int32:
+        raise TypeError("ids must be int32")
+    if not (chunks.is_contiguous() and lidx.is_contiguous()):
+        raise ValueError("chunks and ids must be contiguous")
+    if k * s_slots > _MAX_RUNS:
+        raise ValueError(f"{k * s_slots} slots exceed the grid limit {_MAX_RUNS}")
+    out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=chunks.device)
+    if not out.numel():
+        return out
+    fn = build.c_function("embedding_dense", "rt_multi_embedding_bag_dense", _DENSE_ARGS)
+    with torch.cuda.device(chunks.device):
+        rc = fn(chunks.data_ptr(), rows * e, lidx.data_ptr(), out.data_ptr(), k * s_slots,
+                rows, b, seq, e, build.dtype_code(chunks.dtype), build.stream_of(chunks.device))
+    build.check_launch(rc, "multi_embedding_bag_dense")
+    multi_embedding_bag_dense.launches += 1
+    return out
+
+
+multi_embedding_bag_dense.launches = 0

@@ -19,14 +19,22 @@ As in the JAX package's CLI, the asymmetric planner gets
 ``shard_rocks=True`` unless the config sets it (big tables are row-sharded
 instead of falling back to the symmetric group); ``--set
 'planner_options={"shard_rocks": false}'`` restores the paper's LIF
-fallback.  The legacy flag spellings, ``--preset`` and ``--drift`` are not
-ported yet (ROADMAP A6).
+fallback.  ``--set layout=dense`` serves the legacy stacked-slot layout.
+
+Legacy flag spellings (``--planner``, ``--layout``, ``--kernels``,
+``--reduce``, ``--autotune``, ``--dedup``, ``--cache``, ``--replan``,
+``--replan-threshold``) still work: each maps onto the corresponding
+``EngineConfig`` field and emits a ``DeprecationWarning`` naming its
+replacement (see :func:`config_from_args`).  ``--replan`` resolves as in the
+JAX package, and building the engine then raises: drift serving,
+``--preset`` and ``--drift`` are not ported yet (ROADMAP A6).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -71,17 +79,86 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the resolved EngineConfig JSON and continue")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="where to serve (default: the card)")
+    # legacy flag spellings: deprecated, mapped onto EngineConfig with a
+    # DeprecationWarning each (None/False defaults detect explicit use)
+    p.add_argument("--planner", default=None,
+                   choices=["baseline", "symmetric", "asymmetric"],
+                   help="[deprecated: --set planner=...]")
+    p.add_argument("--layout", default=None, choices=["ragged", "dense"],
+                   help="[deprecated: --set layout=...]")
+    p.add_argument("--kernels", default=None, choices=["fused", "xla"],
+                   help="[deprecated: --set use_kernels=...]")
+    p.add_argument("--reduce", default=None,
+                   choices=["sparse", "psum", "ring"],
+                   help="[deprecated: --set reduce_mode=...]")
+    p.add_argument("--autotune", action="store_true",
+                   help="[deprecated: --set tuning=sweep]")
+    p.add_argument("--dedup", action="store_true",
+                   help="[deprecated: --set access=dedup|full]")
+    p.add_argument("--cache", action="store_true",
+                   help="[deprecated: --set access=cache|full]")
+    p.add_argument("--replan", action="store_true",
+                   help="[deprecated: --set drift=replan]")
+    p.add_argument("--replan-threshold", type=float, default=None,
+                   help="[deprecated: --set "
+                        "drift_options='{\"threshold\":...}']")
     return p
+
+
+def _warn_legacy(flag: str, replacement: str) -> None:
+    warnings.warn(
+        f"--{flag} is a deprecated spelling; set EngineConfig.{replacement} "
+        f"(via --config / --set) instead",
+        DeprecationWarning,
+        stacklevel=4,  # the caller of config_from_args
+    )
+
+
+# the serve CLI's historical drift-trigger cadence, filled into
+# drift_options however replanning was asked for
+_CLI_DRIFT_DEFAULTS = {"check_every": 4, "patience": 2, "cooldown": 8}
+
+
+def _apply_legacy_flags(args, config: EngineConfig) -> None:
+    """Map the deprecated flag spellings onto ``config``, one
+    :class:`DeprecationWarning` per flag given."""
+    for flag, field in (("planner", "planner"), ("layout", "layout"),
+                        ("kernels", "use_kernels"), ("reduce", "reduce_mode")):
+        value = getattr(args, flag)
+        if value is not None:
+            _warn_legacy(flag, field)
+            setattr(config, field, value)
+    if args.autotune:
+        _warn_legacy("autotune", "tuning='sweep'")
+        config.tuning = "sweep"
+    if args.dedup or args.cache:
+        dedup = args.dedup or config.access in ("dedup", "full")
+        cache = args.cache or config.access in ("cache", "full")
+        if args.dedup:
+            _warn_legacy("dedup", "access='dedup' (or 'full')")
+        if args.cache:
+            _warn_legacy("cache", "access='cache' (or 'full')")
+        config.access = {(True, True): "full", (True, False): "dedup",
+                         (False, True): "cache"}[(dedup, cache)]
+    if args.replan:
+        _warn_legacy("replan", "drift='replan'")
+        config.drift = "replan"
+    if args.replan_threshold is not None:
+        # the threshold alone records the option but does not arm replanning
+        _warn_legacy("replan-threshold", "drift_options['threshold']")
+        config.drift_options["threshold"] = args.replan_threshold
 
 
 def config_from_args(args) -> EngineConfig:
     """Resolve the CLI namespace into one :class:`EngineConfig`.
 
-    Precedence: ``--config`` base (else defaults) < ``--batch`` < ``--set``
-    overrides.  Also bakes in the serve CLI's historical choice of
-    ``shard_rocks=True`` for the asymmetric planner.
+    Precedence: ``--config`` base (else defaults) < legacy flags (each with
+    a :class:`DeprecationWarning`) < ``--batch`` < ``--set`` overrides.
+    Also bakes in the serve CLI's historical choices: ``shard_rocks=True``
+    for the asymmetric planner and the drift-trigger cadence.
     """
     config = EngineConfig.load(args.config) if args.config else EngineConfig()
+    _apply_legacy_flags(args, config)
     if args.batch is not None:
         config.max_batch = args.batch
     for spec in args.overrides:
@@ -96,6 +173,9 @@ def config_from_args(args) -> EngineConfig:
             pass  # bare strings: --set planner=symmetric
         setattr(config, field, value)
     config.__post_init__()  # normalize a --set mesh_shape list
+    if config.drift == "replan":
+        for k, v in _CLI_DRIFT_DEFAULTS.items():
+            config.drift_options.setdefault(k, v)
     # the query stream doubles as the pricing distribution unless the
     # config pins its own ("all" streams start from the uniform leg)
     if config.distribution is None and args.distribution:

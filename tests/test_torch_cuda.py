@@ -8,7 +8,8 @@ runs on a machine with only PyTorch:
 
 Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
-order).  The dedup gather's two data flows are held bitwise equal.
+order).  The dedup gather's two data flows are held bitwise equal, and so
+are the dense kernel and its plain version (both sum in position order).
 """
 import numpy as np
 import pytest
@@ -17,10 +18,12 @@ import torch
 from repro_torch.core.strategies import ALL_STRATEGIES
 from repro_torch.data.workloads import small_workload
 from repro_torch.engine import EngineConfig, InferenceEngine
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embedding_gm import embedding_bag_gm
 from repro_torch.kernels.embedding_l1 import embedding_bag_l1
 from repro_torch.kernels.embedding_multi import (
+    multi_embedding_bag_dense,
+    multi_embedding_bag_dense_plain,
     multi_embedding_bag_ragged,
     multi_embedding_bag_ragged_plain,
     ragged_runs,
@@ -194,3 +197,81 @@ def test_access_engine_on_card_matches_cpu(cuda, access):
     for i, t in enumerate(wl.tables):
         idx[i, :, : t.seq] = rng.integers(0, min(t.rows, 50), size=(64, t.seq))
     torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
+
+
+def _dense_case(k, seq, *, seed=6, s_slots=3, rows=1001, b=1037):
+    """(K, S, R+1, E) stacks with a zero last row and an empty last slot;
+    ids in [0, R], some at 0 and at R, a batch that fills no tile evenly."""
+    rng = np.random.default_rng(seed)
+    chunks = rng.standard_normal((k, s_slots, rows, 16)).astype(np.float32)
+    chunks[:, :, -1] = 0
+    chunks[:, -1] = 0
+    lidx = rng.integers(0, rows, size=(k, s_slots, b, seq)).astype(np.int32)
+    lidx[:, :, ::7, 0] = 0
+    lidx[:, :, ::5, -1] = rows - 1
+    lidx[:, -1] = rows - 1
+    return torch.from_numpy(chunks), torch.from_numpy(lidx)
+
+
+def test_dense_source_is_built():
+    assert "embedding_dense" in build.SOURCES
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("seq", [1, 3])
+def test_dense_kernel_matches_plain(cuda, dtype, seq):
+    """Two cores in one launch, bitwise equal to the plain version on the
+    card and on the CPU; the empty slot comes out zero."""
+    chunks, lidx = _dense_case(2, seq)
+    chunks = chunks.to(dtype)
+    c_d, l_d = chunks.to(cuda), lidx.to(cuda)
+    before = multi_embedding_bag_dense.launches
+    got = multi_embedding_bag_dense(c_d, l_d)
+    torch.cuda.synchronize()
+    assert multi_embedding_bag_dense.launches == before + 1
+    assert torch.equal(got, multi_embedding_bag_dense_plain(c_d, l_d))
+    assert torch.equal(got.cpu(), multi_embedding_bag_dense_plain(chunks, lidx))
+    assert not got[:, -1].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_kernel_single_core_and_ids_outside(cuda, dtype):
+    """The reference's 3-D one-core call; an id outside [0, R] gives zero
+    (the plain version refuses it, callers pre-clip)."""
+    chunks, lidx = _dense_case(1, 3, seed=7)
+    chunks = chunks[0].to(dtype).to(cuda)
+    ids = lidx[0].to(cuda)
+    got = multi_embedding_bag_dense(chunks, ids)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 1037, 16)
+    torch.testing.assert_close(got, multi_embedding_bag_dense_plain(chunks[None], ids[None])[0],
+                               **TOL)
+    rows = chunks.shape[1]
+    bad = ids.clone()
+    bad[:, ::2, 1] = -4
+    bad[:, 1::2, 1] = rows + 2
+    on_zero_row = torch.where((bad < 0) | (bad >= rows), rows - 1, bad)
+    want = multi_embedding_bag_dense_plain(chunks[None], on_zero_row[None])[0]
+    assert torch.equal(multi_embedding_bag_dense(chunks, bad), want)
+    with pytest.raises(IndexError):
+        multi_embedding_bag_dense_plain(chunks[None], bad[None])
+
+
+def test_dense_engine_on_card_matches_cpu(cuda):
+    wl = small_workload(batch=64)
+    config = EngineConfig(mesh_shape=(1, 4), distribution="uniform", layout="dense",
+                          planner_options={"shard_rocks": False})
+    tables = [torch.randn((t.rows, t.dim), generator=torch.Generator().manual_seed(i))
+              for i, t in enumerate(wl.tables)]
+    gpu = InferenceEngine.build(tables, wl, config)
+    cpu = InferenceEngine.build(tables, wl, config, device="cpu")
+    assert gpu.packed.layout == "dense"
+    rng = np.random.default_rng(2)
+    idx = np.full((len(wl.tables), 64, 4), -1, np.int32)
+    for i, t in enumerate(wl.tables):
+        idx[i, :, : t.seq] = rng.integers(0, t.rows, size=(64, t.seq))
+    before = multi_embedding_bag_dense.launches
+    for reduce_mode in ("sparse", "psum", "ring"):
+        gpu.config.reduce_mode = cpu.config.reduce_mode = reduce_mode
+        torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
+    assert multi_embedding_bag_dense.launches == before + 3

@@ -236,11 +236,18 @@ def test_lookup_rejects_unknown_use_kernels():
 
 
 def test_unported_pack_options_raise():
+    """Pack options the layout cannot take raise the reference's errors:
+    the sparse gather without dedup, and dense with dedup, the cache or
+    the sparse gather."""
     (_, (twl, tplan)), _ = _hand_plans("replicas")
-    with pytest.raises(NotImplementedError, match="B8"):
-        tpart.pack_plan(tplan, twl.tables, None, layout="dense")
     with pytest.raises(ValueError, match="sparse"):
         tpart.pack_plan(tplan, twl.tables, None, kernel_path="sparse")
+    for kw, match in ((dict(unique_cap=8), "dedup/cache require layout='ragged'"),
+                      (dict(cache_rows=8, freqs=[]), "dedup/cache require layout='ragged'"),
+                      (dict(kernel_path="sparse", unique_cap=0),
+                       "kernel_path='sparse' requires layout='ragged'")):
+        with pytest.raises(ValueError, match=match):
+            tpart.pack_plan(tplan, twl.tables, None, layout="dense", **kw)
 
 
 @pytest.mark.parametrize("kernel_path", ["onehot", "sparse"])

@@ -9,7 +9,7 @@ import torch
 
 from repro.engine import EngineConfig as JEngineConfig
 from repro_torch.data.workloads import small_workload
-from repro_torch.engine import EngineConfig, InferenceEngine
+from repro_torch.engine import SCENARIO_MODELS, EngineConfig, InferenceEngine
 from repro_torch.launch import serve as serve_cli
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -154,21 +154,24 @@ def test_reference_config_json_loads_unchanged():
 
 @pytest.mark.parametrize("field,value,item", [
     ("drift", "replan", "A6"), ("integrity", "checksum", "A8"),
-    ("layout", "dense", "B8"), ("planner", "hierarchical", "A4"),
-    ("model", "dlrm", "A9"),
+    ("planner", "hierarchical", "A4"), ("model", "dlrm", "A9"),
 ])
 def test_unported_config_values_raise(field, value, item):
+    """A value this port does not run yet validates, as in the JAX package,
+    and building an engine from it raises, naming its ROADMAP item."""
+    EngineConfig(**{field: value}).validate()
     with pytest.raises(NotImplementedError, match=item):
         _engine(**{field: value})
 
 
 @pytest.mark.parametrize("field,value", [
     ("access", "full"), ("tuning", "sweep"), ("access", "dedup"), ("access", "cache"),
-    ("kernel_path", "sparse"), ("kernel_path", "onehot"),
+    ("kernel_path", "sparse"), ("kernel_path", "onehot"), ("layout", "dense"),
 ])
 def test_access_and_tuning_values_build_and_serve(field, value):
-    """Access reduction, its kernel paths and the block-size sweep build and
-    serve on the CPU (the round trip equals the engine's own lookup)."""
+    """Access reduction, its kernel paths, the block-size sweep and the
+    dense layout build and serve 2 batches on the CPU (the round trip
+    equals the engine's own lookup)."""
     cfg = {field: value}
     if field == "kernel_path":
         cfg.update(access="full", tuning="sweep")
@@ -183,6 +186,8 @@ def test_access_and_tuning_values_build_and_serve(field, value):
         assert engine.stats()["tuning"]["best"]["block_r"] == engine.packed.block_r
     if field == "kernel_path":
         assert engine.packed.kernel_path == value
+    if field == "layout":
+        assert engine.packed.layout == value == engine.stats()["layout"]["kind"]
     srv = engine.serve()
     queries = _queries(engine.workload, 16, seed=5)
     handles = [srv.submit_request(q) for q in queries]
@@ -194,11 +199,19 @@ def test_access_and_tuning_values_build_and_serve(field, value):
     assert srv.stats()["served"] == 16
 
 
+def test_scenario_models_match_reference():
+    from repro.models.registry import SCENARIOS
+
+    assert SCENARIO_MODELS == tuple(sorted(SCENARIOS))
+
+
 def test_bad_config_values_raise_like_reference():
     for bad in (dict(reduce_mode="x"), dict(hardware="h100"), dict(max_batch=0),
-                dict(kernel_path="sparse")):
-        with pytest.raises(ValueError):
-            EngineConfig(**bad).validate()
+                dict(kernel_path="sparse"), dict(drift="bogus"), dict(integrity="bogus"),
+                dict(model="bogus")):
+        for config in (EngineConfig(**bad), JEngineConfig(**bad)):
+            with pytest.raises(ValueError):
+                config.validate()
 
 
 def test_default_device_is_the_card(monkeypatch):
