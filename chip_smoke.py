@@ -41,11 +41,19 @@ Phases (any failure raises and exits non-zero):
    bf16 and f16, at the shapes the main path gave it (plus every strategy
    code, padding steps, -1 and out-of-window ids for the fused kernel, and
    for its access modes a forced spill and forced one-hot and sparse
-   gathers, which must agree bitwise), timed with CUDA events beside its
-   plain version and one PyTorch library call computing the same lookups
-   (``F.embedding_bag``, a yardstick only); the dense kernel also on a
-   small single-core stack with s=3, a batch tail, the zero row, an empty
-   slot and ids outside [0, R].
+   gathers, which must agree bitwise), timed with CUDA events (``ms``) and
+   by ``torch.profiler``'s device time of its own kernels (``device_ms``)
+   beside its plain version and one PyTorch library call computing the
+   same lookups (``F.embedding_bag``, a yardstick only, also in device
+   time); the dense kernel also on a small single-core stack with s=3, a
+   batch tail, the zero row, an empty slot and ids outside [0, R]; the UB
+   kernel bitwise for s=1, on a batch of one repeated row and on a batch of
+   one id (the table sweep alone), each timed over the uniform batch, and
+   with s=3, invalid ids and -1 padding; the dedup kernel array-equal to
+   its plain op on path D's ids and on edge cases (all padding, one id,
+   cap 1, a cap above the distinct count, s=3, slots wider than its bitmap
+   window); and path D's served call profiled for its launches (no sort,
+   scan or scatter kernel may run in it).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -112,6 +120,9 @@ KERNELS = {
     "multi_embedding_bag_dense": (
         "embedding_multi", "multi_embedding_bag_dense", None,
         "src/repro_torch/csrc/embedding_dense.cu", "src/repro/kernels/embedding_multi.py:506"),
+    "batch_dedup": ("embedding_multi", "batch_dedup", None,
+                    "src/repro_torch/csrc/embedding_dedup.cu",
+                    "src/repro/kernels/embedding_multi.py:281"),
 }
 
 
@@ -159,6 +170,37 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def profile_calls(fn, calls: int = 10) -> dict:
+    """The card's own time for ``fn``: ``torch.profiler`` device time of the
+    CUDA kernels (and copies) it launches, per call, summed over them, the
+    number of such launches per call, and the time of each by name."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+              and e.self_device_time_total > 0]
+    kernels = {e.key: e.self_device_time_total / calls / 1e3 for e in events}
+    return {"device_ms": sum(kernels.values()) if kernels else "not measured",
+            "launches_per_call": sum(e.count for e in events) / calls,
+            "kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1]))}
+
+
+def device_times(kernel, library=None) -> dict:
+    """``device_ms`` and ``kernels_per_call`` of a kernel's wrapper call, and
+    ``library_device_ms`` of its PyTorch yardstick."""
+    prof = profile_calls(kernel)
+    rec = {"device_ms": prof["device_ms"], "kernels_per_call": prof["launches_per_call"]}
+    rec["library_device_ms"] = profile_calls(library)["device_ms"] if library else None
+    return rec
 
 
 def host_ms(fn, iters: int = 5) -> float:
@@ -359,7 +401,11 @@ def _sym_case(engine, idx, table):
     return packed.sym_data[i, : rows + 1], lidx
 
 
-def _bag_record(name, fn, table, lidx, dtype, **kw):
+def _bag_record(name, fn, table, lidx, dtype, *, bitwise=False, **kw):
+    """A strategy kernel on one table (its rows plus the zero row) against
+    ``bag_f32``, bitwise where ``bitwise`` (a row copy, s = 1), else within
+    TOL; timed beside it and beside ``F.embedding_bag`` (ids outside the
+    table go to the zero row for the library call)."""
     import torch
     import torch.nn.functional as F
 
@@ -370,17 +416,28 @@ def _bag_record(name, fn, table, lidx, dtype, **kw):
     torch.cuda.synchronize()
     want = bag_f32(t, lidx)
     err = float((got - want).abs().max())
+    if bitwise:
+        check(torch.equal(got, want), f"[kernel] {name} {dtype}: not bitwise equal, max err {err}")
     check(torch.allclose(got, want, **TOL), f"[kernel] {name} {dtype}: max err {err}")
-    ids = lidx.long()
+    zero_row = t.shape[0] - 1
+    ids = torch.where((lidx >= 0) & (lidx < t.shape[0]), lidx, zero_row).long()
+
+    def kernel():
+        return fn(t, lidx, **kw)
+
+    def library():
+        return F.embedding_bag(ids, t, mode="sum")
+
     rec = {
         "name": name, "dtype": str(dtype).replace("torch.", ""),
         "shape": {"m": t.shape[0] - 1, "E": t.shape[1], "B": lidx.shape[0], "s": lidx.shape[1]},
         "max_err": err,
-        "ms": time_ms(lambda: fn(t, lidx, **kw)),
+        "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: bag_f32(t, lidx)),
-        "library_ms": time_ms(lambda: F.embedding_bag(ids, t, mode="sum")),
+        "library_ms": time_ms(library),
+        **device_times(kernel, library),
     }
-    uniq = int(torch.unique(ids[ids < t.shape[0] - 1]).numel())
+    uniq = int(torch.unique(ids[ids < zero_row]).numel())
     b, s = lidx.shape
     e = t.shape[1]
     rec["bound_ms"], rec["bound_by"] = bound(
@@ -440,7 +497,11 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
     # library yardstick: one embedding_bag over global buffer rows
     s_slots, b, s = lidx.shape[1:]
     flat, gl = _global_rows(full, lidx, step_block, run_list, block_r)
-    lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
+
+    def library():
+        return F.embedding_bag(gl, flat, mode="sum")
+
+    lib = library().view(k, s_slots, b, e)
     lib_err = float((lib.float() - want).abs().max())
     rec = {
         "name": "multi_embedding_bag_ragged", "dtype": str(dtype).replace("torch.", ""),
@@ -451,7 +512,8 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
         "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: multi_embedding_bag_ragged_plain(
             buf, lidx, step_block, runs, block_r=block_r)),
-        "library_ms": time_ms(lambda: F.embedding_bag(gl, flat, mode="sum")),
+        "library_ms": time_ms(library),
+        **device_times(kernel, library),
     }
     real = gl.view(k, s_slots, b, s)[[r[0] for r in run_list], [r[1] for r in run_list]]
     uniq = int(torch.unique(real[real % t1 != zero_row]).numel())
@@ -537,7 +599,11 @@ def _access_record(case, engine, idx, dtype, *, unique_cap, cache, kpath):
     k, s_slots, b, s = lidx.shape
     e = full.shape[-1]
     flat, gl = _global_rows(full, lidx_all, packed.step_block, run_list, packed.block_r)
-    lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
+
+    def library():
+        return F.embedding_bag(gl, flat, mode="sum")
+
+    lib = library().view(k, s_slots, b, e)
     rec = {
         "name": case, "dtype": str(dtype).replace("torch.", ""),
         "shape": {"K": k, "S": s_slots, "B": b, "s": s, "E": e, "block_r": packed.block_r,
@@ -546,7 +612,8 @@ def _access_record(case, engine, idx, dtype, *, unique_cap, cache, kpath):
         "max_err": err, "library_max_err": float((lib.float() - want).abs().max()),
         "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: multi_embedding_bag_ragged_plain(*args, **plain_kw)),
-        "library_ms": time_ms(lambda: F.embedding_bag(gl, flat, mode="sum")),
+        "library_ms": time_ms(library),
+        **device_times(kernel, library),
     }
     real = gl.view(k, s_slots, b, s)
     n_valid = int((lidx_all >= 0).sum())
@@ -586,7 +653,11 @@ def _dense_record(chunks_full, lidx, dtype):
     flat = chunks.reshape(k * s_slots * rows, e)
     offset = torch.arange(k * s_slots, device=lidx.device).view(k, s_slots, 1, 1) * rows
     gl = (lidx.long() + offset).reshape(-1, s)
-    lib = F.embedding_bag(gl, flat, mode="sum").view(k, s_slots, b, e)
+
+    def library():
+        return F.embedding_bag(gl, flat, mode="sum")
+
+    lib = library().view(k, s_slots, b, e)
     rec = {
         "name": "multi_embedding_bag_dense", "dtype": str(dtype).replace("torch.", ""),
         "shape": {"K": k, "S": s_slots, "R+1": rows, "E": e, "B": b, "s": s},
@@ -594,7 +665,8 @@ def _dense_record(chunks_full, lidx, dtype):
         "library_max_err": float((lib.float() - want).abs().max()),
         "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: multi_embedding_bag_dense_plain(chunks, lidx)),
-        "library_ms": time_ms(lambda: F.embedding_bag(gl, flat, mode="sum")),
+        "library_ms": time_ms(library),
+        **device_times(kernel, library),
     }
     # what the data needs: the distinct rows hit (a slot's zero row R holds
     # nothing to read), the ids, the (K, S, B, E) f32 output
@@ -710,17 +782,81 @@ def access_phase(path_d: dict, recs: dict) -> None:
         rec, _ = _access_record("cache alone", engine, idx, dtype, unique_cap=0, cache=True,
                                 kpath=None)
         recs["multi_embedding_bag_ragged[cache]"].append(rec)
+    recs["batch_dedup"].append(_dedup_record("path D as served", lidx, cap))
+    for case, (ids, case_cap) in dedup_edge_cases().items():
+        recs["batch_dedup"].append(_dedup_record(case, ids, case_cap))
     print(json.dumps({"breakdown": access_breakdown(engine, idx)}))
+
+
+def _dedup_record(case, lidx, cap):
+    """The dedup kernel against ``dedup_indices`` (array-equal uniq, rank
+    and spill), timed beside it; no PyTorch call computes this function."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import DEDUP_WINDOW_BITS, batch_dedup, dedup_indices
+
+    def kernel():
+        return batch_dedup(lidx, cap)
+
+    got = kernel()
+    want = dedup_indices(lidx, cap)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("uniq", "rank", "spill"), got, want):
+        check(torch.equal(a, b), f"[kernel] batch_dedup {case}: {name} differs from dedup_indices")
+    *lead, b, s = lidx.shape
+    rows = lidx.numel() // max(b * s, 1)
+    rec = {
+        "name": "batch_dedup", "case": case, "dtype": "int32",
+        "shape": {"slots": rows, "B": b, "s": s, "unique_cap": cap,
+                  "window_bits": DEDUP_WINDOW_BITS},
+        "max_err": 0.0, "distinct_max": int((got[0] >= 0).sum(dim=-1).max()) if rows else 0,
+        "spilled": int((got[2] >= 0).sum()),
+        "ms": time_ms(kernel), "plain_ms": time_ms(lambda: dedup_indices(lidx, cap)),
+        "library_ms": None, **device_times(kernel),
+    }
+    # ids read once, rank and spill and uniq written once; a few integer
+    # operations per id
+    rec["bound_ms"], rec["bound_by"] = bound(3 * lidx.numel() * 4 + rows * cap * 4, lidx.numel())
+    return rec
+
+
+def dedup_edge_cases() -> dict:
+    """The dedup kernel's edge cases: all padding, one id, a cap of 1, a
+    cap above the distinct count, s = 3, and slots wider than one bitmap
+    window (ids up to 2^31 - 2 with empty stretches between, and the plain
+    op's padding key 2^31 - 1)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(9)
+    wide = rng.integers(0, 3_000_000, size=(4, 8192, 1))
+    wide[:, ::5] = rng.integers(2**31 - 5000, 2**31 - 1, size=wide[:, ::5].shape)
+    wide[:, ::9] = 2**31 - 1
+    cases = {
+        "all padding": (np.full((8, 1024, 1), -1), 64),
+        "one id": (np.full((8, 8192, 1), 1234), 64),
+        "cap 1": (rng.integers(-1, 100_000, size=(8, 8192, 1)), 1),
+        "cap above the distinct count": (rng.integers(-1, 500, size=(8, 8192, 1)), 1856),
+        "s=3": (rng.integers(-3, 20_000, size=(8, 2048, 3)), 1856),
+        "wider than the bitmap": (wide, 3000),
+    }
+    return {k: (torch.from_numpy(v.astype(np.int32)).to(DEVICE), cap)
+            for k, (v, cap) in cases.items()}
 
 
 def access_breakdown(engine, idx, calls: int = 10) -> dict:
     """Where path D's served launch spends its time (f32): the device time
-    of each kernel per call (``torch.profiler``), the event time of the
-    whole wrapper call and of the dedup op alone, and the host time to
-    enqueue one call."""
+    of each kernel per call and the launches per call (``torch.profiler``),
+    the event time of the whole wrapper call, of the dedup kernel alone and
+    of its plain torch op, and the host time to enqueue one call.  Fails if
+    a sort, scan or scatter kernel (the plain op's) runs in the call."""
     import torch
 
-    from repro_torch.kernels.embedding_multi import dedup_indices, multi_embedding_bag_ragged
+    from repro_torch.kernels.embedding_multi import (
+        batch_dedup,
+        dedup_indices,
+        multi_embedding_bag_ragged,
+    )
 
     packed = engine.packed
     lidx, hidx, _ = _access_ids(engine, idx)
@@ -732,16 +868,11 @@ def access_breakdown(engine, idx, calls: int = 10) -> dict:
     def served():
         return multi_embedding_bag_ragged(*args, **kw)
 
-    served()
+    prof = profile_calls(served, calls)
+    plain_ops = [k for k in prof["kernels_ms"]
+                 if any(w in k.lower() for w in ("sort", "scan", "scatter"))]
+    check(not plain_ops, f"[access] the served call still runs the plain dedup op: {plain_ops}")
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            served()
-        torch.cuda.synchronize()
-    kernels = {e.key: e.self_device_time_total / calls / 1e3 for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-               and e.self_device_time_total > 0}
     t0 = time.perf_counter()
     for _ in range(calls):
         served()
@@ -749,11 +880,47 @@ def access_breakdown(engine, idx, calls: int = 10) -> dict:
     torch.cuda.synchronize()
     return {
         "event_ms": time_ms(served),
-        "dedup_op_event_ms": time_ms(lambda: dedup_indices(lidx, packed.unique_cap)),
+        "dedup_kernel_event_ms": time_ms(lambda: batch_dedup(lidx, packed.unique_cap)),
+        "plain_dedup_op_event_ms": time_ms(lambda: dedup_indices(lidx, packed.unique_cap)),
         "host_enqueue_ms": enqueue_ms,
-        "device_ms": sum(kernels.values()),
-        "kernels_ms": dict(sorted(kernels.items(), key=lambda kv: -kv[1])),
+        "launches_per_call": prof["launches_per_call"],
+        "device_ms": prof["device_ms"],
+        "kernels_ms": prof["kernels_ms"],
     }
+
+
+def ub_cases(table, ids, uniform: dict) -> list:
+    """K2's extra cases at path A's shapes: a batch whose ids are all one row
+    and a batch of one id (the sweep of the table alone), both bitwise and
+    timed beside the uniform batch; and s = 3 with ids outside [0, m) and -1
+    padding in every dtype (within TOL)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_ub import embedding_bag_ub
+
+    out = []
+    for case, case_ids in (("one row (every id equal)", torch.full_like(ids, int(ids[0, 0]))),
+                           ("one id (the table sweep alone)", ids[:1].contiguous())):
+        rec = _bag_record("embedding_bag_ub", embedding_bag_ub, table, case_ids, torch.float32,
+                          bitwise=True)
+        rec["case"] = case
+        rec["to_uniform_ms"] = rec["ms"] / uniform["ms"]
+        if isinstance(rec["device_ms"], float) and isinstance(uniform["device_ms"], float):
+            rec["to_uniform_device_ms"] = rec["device_ms"] / uniform["device_ms"]
+        out.append(rec)
+    m, b = table.shape[0], ids.shape[0]
+    rng = np.random.default_rng(11)
+    s3 = rng.integers(0, m, size=(b, 3))
+    s3[rng.random(s3.shape) < 0.2] = -1
+    s3[::7, 1] = m + 5
+    s3[::11, 2] = -9
+    s3 = torch.from_numpy(s3.astype(np.int32)).to(ids.device)
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        rec = _bag_record("embedding_bag_ub", embedding_bag_ub, table, s3, dtype)
+        rec["case"] = "s=3, ids outside [0, m) and -1 padding"
+        out.append(rec)
+    return out
 
 
 def kernel_phase(paths: dict, counts: dict) -> list:
@@ -789,11 +956,11 @@ def kernel_phase(paths: dict, counts: dict) -> list:
             _ragged_record(*ragged_c, dtype), case="path C (shard_rocks)"))
         recs["multi_embedding_bag_ragged"].append(dict(
             _ragged_record(*mixed, dtype), case="every strategy code"))
-        recs["embedding_bag_ub"].append(
-            _bag_record("embedding_bag_ub", embedding_bag_ub, ub_table, ub_ids, dtype))
+        recs["embedding_bag_ub"].append(_bag_record(
+            "embedding_bag_ub", embedding_bag_ub, ub_table, ub_ids, dtype, bitwise=True))
         recs["embedding_bag_ub"].append(dict(_bag_record(
-            "embedding_bag_ub", embedding_bag_ub, l1ub_table, l1ub_ids, dtype, persistent=True),
-            case="persistent (L1-UB)"))
+            "embedding_bag_ub", embedding_bag_ub, l1ub_table, l1ub_ids, dtype, bitwise=True,
+            persistent=True), case="persistent (L1-UB)"))
         recs["embedding_bag_gm"].append(
             _bag_record("embedding_bag_gm", embedding_bag_gm, gm_table, gm_ids, dtype))
         recs["embedding_bag_l1"].append(
@@ -801,6 +968,7 @@ def kernel_phase(paths: dict, counts: dict) -> list:
         recs["embedding_bag_l1"].append(dict(_bag_record(
             "embedding_bag_l1", embedding_bag_l1, l1r_table, l1r_ids, dtype),
             case="resident"))
+    recs["embedding_bag_ub"] += ub_cases(ub_table, ub_ids, recs["embedding_bag_ub"][0])
     out = []
     for name, rs in recs.items():
         for r in rs:
@@ -813,6 +981,7 @@ def kernel_phase(paths: dict, counts: dict) -> list:
             "launches": counts[name], "max_abs_err": max(r["max_err"] for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+            "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
         })
     return out
 
@@ -846,6 +1015,7 @@ def main(argv=None) -> int:
         check(runs["D"]["counts"][f"multi_embedding_bag_ragged[{name}]"] > 0,
               f"{k} ({name}) not launched on path D")
     check(runs["E"]["counts"]["multi_embedding_bag_dense"] > 0, "K8 not launched on path E")
+    check(runs["D"]["counts"]["batch_dedup"] > 0, "the dedup kernel not launched on path D")
     kernels = kernel_phase(runs, counts)
     print(f"[card] {card}")
     print(json.dumps({"kernels": kernels}))

@@ -1,14 +1,15 @@
 // Shared pieces of the port's embedding kernels (sm_90a).
 //
-// Every kernel here computes sum-pooled lookups: for each query row q and
-// embedding lane e, out[q, e] = sum over the query's ids of row[id, e], read
-// from an f32/bf16/f16 table and accumulated in f32.  Ids outside the table
-// (or window) contribute exactly zero.  Work is split the same way in all of
-// them: a CTA of kThreads threads owns kPairs consecutive (query, lane)
-// pairs of the row-major (B, E) output, thread t holding pairs
+// Every embedding kernel here computes sum-pooled lookups: for each query
+// row q and embedding lane e, out[q, e] = sum over the query's ids of
+// row[id, e], read from an f32/bf16/f16 table and accumulated in f32.  Ids
+// outside the table (or window) contribute exactly zero.  Most of them split
+// the work the same way: a CTA of kThreads threads owns kPairs consecutive
+// (query, lane) pairs of the row-major (B, E) output, thread t holding pairs
 // t, t + kThreads, ... so that neighbouring threads read neighbouring lanes
 // of one row (coalesced) and each output element is summed by one thread in
-// a fixed order (no atomics, bitwise reproducible run to run).
+// a fixed order (no atomics, bitwise reproducible run to run).  The UB
+// kernel instead gives each CTA a range of table rows (embedding_ub.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,20 +29,22 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 // Issue the copy of nbytes from global to shared memory by the whole CTA:
-// 16-byte cp.async when both ends and the size are 16-byte aligned, else a
-// plain byte copy.  Completion needs stage_wait() and then __syncthreads().
+// 16-byte cp.async when both ends are 16-byte aligned (a tail of under 16
+// bytes is copied plainly), else a plain byte copy.  Completion needs
+// stage_wait() (or stage_commit() and stage_wait_prior()) and then
+// __syncthreads().
 __device__ __forceinline__ void stage_async(void* smem, const void* gmem, long nbytes) {
   const char* src = static_cast<const char*>(gmem);
   char* dst = static_cast<char*>(smem);
-  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst) |
-        static_cast<uintptr_t>(nbytes)) & 15) == 0) {
-    for (long off = threadIdx.x * 16L; off < nbytes; off += blockDim.x * 16L) {
+  long body = 0;
+  if (((reinterpret_cast<uintptr_t>(src) | reinterpret_cast<uintptr_t>(dst)) & 15) == 0) {
+    body = nbytes & ~15L;
+    for (long off = threadIdx.x * 16L; off < body; off += blockDim.x * 16L) {
       uint32_t saddr = static_cast<uint32_t>(__cvta_generic_to_shared(dst + off));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(saddr), "l"(src + off));
     }
-  } else {
-    for (long off = threadIdx.x; off < nbytes; off += blockDim.x) dst[off] = src[off];
   }
+  for (long off = body + threadIdx.x; off < nbytes; off += blockDim.x) dst[off] = src[off];
 }
 
 __device__ __forceinline__ void stage_wait() {
@@ -49,7 +52,16 @@ __device__ __forceinline__ void stage_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// The tiled sweep shared by the UB kernel and the L1 kernel's fallback:
+// Pipelined staging: close the copies issued so far into one group, and
+// wait until at most `pending` of the most recent groups are in flight.
+__device__ __forceinline__ void stage_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int pending>
+__device__ __forceinline__ void stage_wait_prior() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// The L1 kernel's tiled fallback:
 // rows [row_lo, row_hi) of the table pass through shared memory tile_rows at
 // a time, and every pair adds the rows of its query's ids that fall in the
 // current tile.  Each id is compared against every tile, so the run time

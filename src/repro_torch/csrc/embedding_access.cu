@@ -21,8 +21,9 @@
 // (query, lane) pairs, so gathering inside the per-batch-tile pass would
 // read every unique row once per batch tile.
 //
-// What the design does about it: two kernels, one after the other on the
-// stream.
+// What the design does about it: with dedup, three kernels one after the
+// other on the stream and no torch op between them: the dedup kernel
+// (embedding_dedup.cu) gives uniq, rank and spill, then
 //  1. dedup_gather_kernel, grid (step, core): each real step finds the
 //     range of its slot's sorted unique ids that fall in its window (binary
 //     search) and writes those rows, converted to f32, into rows_u
@@ -32,8 +33,12 @@
 //     ids, and copies the unique rows out of it, as the MXU GEMM read the
 //     whole window.  Sparse (1) copies each unique row straight from device
 //     memory.  Both copy the same elements through the same conversion, so
-//     rows_u, and the output, are bitwise equal either way.
-//  2. access_kernel, grid (batch tile, run): each (query, lane) sums, in id
+//     rows_u, and the output, are bitwise equal either way.  A slot's last
+//     step zeroes the entries past its window (padding, ids past the
+//     region), so rows_u needs no zero fill of its own;
+//  2. access_kernel, grid (batch tile, core x slot): each CTA looks up its
+//     slot's run (a slot without one writes zeros, so the output needs no
+//     zero fill either), and each (query, lane) sums, in id
 //     order, rows_u[rank] for a deduplicated lookup, else the buffer row of
 //     a spilled id (of every id without dedup), and cache[hidx] for a hot
 //     lookup, the cache staged in shared memory.  One thread sums each
@@ -85,6 +90,14 @@ dedup_gather_kernel(const T* __restrict__ buffer, long core_stride, const int* _
   __syncthreads();
   const int lo = range[0];
   const long pairs = static_cast<long>(range[1] - lo) * e;
+  // the slot's last step also zeroes the entries past its window: ids past
+  // the slot's region and the -1 padding, so every rows_u entry is written
+  const bool last = blockIdx.x + 1 == n_steps || step_slot[t + 1] != slot;
+  if (last) {
+    for (long p = static_cast<long>(range[1]) * e + threadIdx.x; p < static_cast<long>(u_cap) * e;
+         p += blockDim.x)
+      dst[p] = 0.f;
+  }
   const T* window = buffer + core * core_stride + static_cast<long>(step_block[t]) * block_r * e;
   const bool onehot = step_kpath == nullptr || step_kpath[t] == 0;
   if (onehot) {
@@ -119,9 +132,27 @@ access_kernel(const T* __restrict__ buffer, long core_stride, const int* __restr
               const int* __restrict__ rank, const float* __restrict__ rows_u,
               const int* __restrict__ hidx, const T* __restrict__ cache, int cache_rows,
               const int* __restrict__ step_block, int n_steps, const int* __restrict__ runs,
-              float* __restrict__ out, int n_slots, int b, int s, int e, int block_r, int u_cap,
+              int n_runs, float* __restrict__ out, int n_slots, int b, int s, int e, int block_r, int u_cap,
               int stage_cache) {
-  const int* run = runs + 5 * blockIdx.y;
+  // this CTA's (core, slot) and its run, if it has one
+  __shared__ int run_of;
+  if (threadIdx.x == 0) run_of = -1;
+  __syncthreads();
+  for (int r = threadIdx.x; r < n_runs; r += blockDim.x)
+    if (runs[5 * r] * n_slots + runs[5 * r + 1] == static_cast<int>(blockIdx.y)) run_of = r;
+  __syncthreads();
+  const long total = static_cast<long>(b) * e;
+  const long pair0 = static_cast<long>(blockIdx.x) * rt::kPairs + threadIdx.x;
+  if (run_of < 0) {  // a slot without a run pools nothing
+    float* out_slot = out + static_cast<long>(blockIdx.y) * total;
+#pragma unroll
+    for (int k = 0; k < rt::kPer; ++k) {
+      const long p = pair0 + static_cast<long>(k) * rt::kThreads;
+      if (p < total) out_slot[p] = 0.f;
+    }
+    return;
+  }
+  const int* run = runs + 5 * run_of;
   const int core = run[0], slot = run[1], first = run[2], n = run[3];
   const long region = static_cast<long>(n) * block_r;
   const T* cbuf = buffer + core * core_stride;
@@ -135,13 +166,11 @@ access_kernel(const T* __restrict__ buffer, long core_stride, const int* __restr
     hot = staged;
   }
   const long cs = static_cast<long>(core) * n_slots + slot;
-  const long total = static_cast<long>(b) * e;
   const int* ids_slot = lidx + cs * b * s;
   const int* rank_slot = rank == nullptr ? nullptr : rank + cs * b * s;
   const int* hidx_slot = hidx == nullptr ? nullptr : hidx + cs * b * s;
   const float* ru = rows_u == nullptr ? nullptr : rows_u + cs * u_cap * e;
   float* out_slot = out + cs * total;
-  const long pair0 = static_cast<long>(blockIdx.x) * rt::kPairs + threadIdx.x;
 #pragma unroll
   for (int k = 0; k < rt::kPer; ++k) {
     const long p = pair0 + static_cast<long>(k) * rt::kThreads;
@@ -177,7 +206,8 @@ access_kernel(const T* __restrict__ buffer, long core_stride, const int* __restr
 // elements; uniq (K, S, U) int32, each (core, slot)'s unique chunk-local ids
 // ascending, -1 padding last; step_slot/step_base/step_block/step_kpath
 // (K, n_steps) int32 (step_kpath may be null: every step one-hot); rows_u
-// (K, S, U, E) f32, zero-filled by the caller (padding ids stay zero).
+// (K, S, U, E) f32: every entry of a slot with steps is written, those past
+// the slot's last window (padding included) as zero.
 // stage_rows is the one-hot tile in rows (<= block_r).
 // Returns cudaGetLastError().
 extern "C" int rt_ragged_dedup_gather(const void* buffer, long core_stride, const int* uniq,
@@ -191,10 +221,14 @@ extern "C" int rt_ragged_dedup_gather(const void* buffer, long core_stride, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH_DTYPE(dtype, {
     const size_t smem = static_cast<size_t>(stage_rows) * e * sizeof(T);
-    const cudaError_t err = cudaFuncSetAttribute(
-        dedup_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    static size_t allowed = 0;  // the largest dynamic shared memory set so far
+    if (smem > allowed) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          dedup_gather_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed = smem;
+    }
     dedup_gather_kernel<T><<<grid, rt::kThreads, smem, st>>>(
         static_cast<const T*>(buffer), core_stride, uniq, step_slot, step_base, step_block,
         step_kpath, n_steps, n_slots, u_cap, e, block_r, stage_rows, rows_u);
@@ -206,30 +240,35 @@ extern "C" int rt_ragged_dedup_gather(const void* buffer, long core_stride, cons
 // the ids (-1 where hidx hits); rank (K, S, B, s) int32 and rows_u
 // (K, S, U, E) f32, both null without dedup; hidx (K, S, B, s) int32 and
 // cache (K, C, E), both null without the cache; runs (n_runs, 5) int32 as
-// for rt_multi_embedding_bag_ragged; out (K, S, B, E) f32 (the caller zeroes
-// slots that have no run).  stage_cache != 0 stages each core's cache in
-// shared memory.  Returns cudaGetLastError().
+// for rt_multi_embedding_bag_ragged; out (K, S, B, E) f32, every element
+// written (slots without a run as zero); grid (batch tiles, K * S), so
+// K * S <= 65535.  stage_cache != 0 stages each core's cache in shared
+// memory.  Returns cudaGetLastError().
 extern "C" int rt_ragged_access(const void* buffer, long core_stride, const int* lidx,
                                 const int* rank, const float* rows_u, const int* hidx,
                                 const void* cache, int cache_rows, const int* step_block,
-                                int n_steps, const int* runs, int n_runs, float* out,
+                                int n_steps, const int* runs, int n_runs, float* out, int k,
                                 int n_slots, int b, int s, int e, int block_r, int u_cap,
                                 int stage_cache, int dtype, void* stream) {
   const long total = static_cast<long>(b) * e;
-  if (total == 0 || n_runs == 0) return 0;
+  if (total == 0 || k * n_slots == 0) return 0;
   const dim3 grid(static_cast<unsigned>((total + rt::kPairs - 1) / rt::kPairs),
-                  static_cast<unsigned>(n_runs));
+                  static_cast<unsigned>(k * n_slots));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   RT_DISPATCH_DTYPE(dtype, {
     const size_t smem =
         cache != nullptr && stage_cache ? static_cast<size_t>(cache_rows) * e * sizeof(T) : 0;
-    const cudaError_t err = cudaFuncSetAttribute(
-        access_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+    static size_t allowed = 0;  // the largest dynamic shared memory set so far
+    if (smem > allowed) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          access_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed = smem;
+    }
     access_kernel<T><<<grid, rt::kThreads, smem, st>>>(
         static_cast<const T*>(buffer), core_stride, lidx, rank, rows_u, hidx,
-        static_cast<const T*>(cache), cache_rows, step_block, n_steps, runs, out, n_slots, b, s,
-        e, block_r, u_cap, stage_cache);
+        static_cast<const T*>(cache), cache_rows, step_block, n_steps, runs, n_runs, out, n_slots,
+        b, s, e, block_r, u_cap, stage_cache);
   });
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,7 @@ per source, all started together.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -23,16 +24,17 @@ from pathlib import Path
 import torch
 
 __all__ = ["SOURCES", "build", "build_dir", "c_function", "check_launch",
-           "dtype_code", "route", "stream_of"]
+           "dtype_code", "route", "sm_count", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("embedding_multi", "embedding_access", "embedding_dense", "embedding_ub",
-           "embedding_gm", "embedding_l1")
+SOURCES = ("embedding_multi", "embedding_access", "embedding_dedup", "embedding_dense",
+           "embedding_ub", "embedding_gm", "embedding_l1")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 _lock = threading.Lock()
 
 
@@ -95,14 +97,19 @@ def build(names=SOURCES) -> dict[str, dict]:
 
 def c_function(name: str, symbol: str, argtypes):
     """The C entry point ``symbol`` of library ``name`` (built on first use),
-    with its argument types set: pointers and the stream as ``c_void_p``."""
+    with its argument types set: pointers and the stream as ``c_void_p``.
+    Looked up once; later calls return the same function object."""
+    fn = _fns.get((name, symbol))
+    if fn is not None:
+        return fn
     with _lock:
         if name not in _libs:
             build([name])
             _libs[name] = ctypes.CDLL(str(_target(name)))
         fn = getattr(_libs[name], symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name, symbol] = fn
     return fn
 
 
@@ -130,6 +137,12 @@ def route(*tensors) -> str:
     if device.type in ("cpu", "cuda"):
         return device.type
     raise ValueError(f"no kernel and no plain version for device {device}")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(device) -> ctypes.c_void_p:

@@ -22,9 +22,11 @@ The legacy dense stacked-slot layout has its own kernel,
 padded to the same ``R+1`` rows, ids pre-clipped to ``[0, R]`` with row
 ``R`` zero, no schedule.
 
-* **batch dedup** (``unique_cap > 0``): :func:`dedup_indices` unique-izes
-  each slot's ids (sort + first-occurrence ranks, a torch op on the ids'
-  device); a first pass gathers every unique row once per batch into
+* **batch dedup** (``unique_cap > 0``): :func:`batch_dedup` unique-izes
+  each slot's ids (``csrc/embedding_dedup.cu``: a presence bitmap and
+  popcount ranks, one CTA per slot; its plain version :func:`dedup_indices`
+  sorts, and :func:`dedup_indices_bitmap` repeats the kernel's arithmetic
+  in plain torch); a first pass gathers every unique row once per batch into
   ``rows_u (K, S, U, E)`` f32, and a second pass sums ``rows_u[rank]`` back
   into batch rows.  Ids past the cap spill and are read row by row.  Where
   the reference carries the dense multiplicity matrix ``cnt (S, B, U)``,
@@ -50,8 +52,11 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
+    "DEDUP_WINDOW_BITS",
+    "batch_dedup",
     "cnt_from_rank",
     "dedup_indices",
+    "dedup_indices_bitmap",
     "gather_unique_rows_plain",
     "multi_embedding_bag_dense",
     "multi_embedding_bag_dense_plain",
@@ -81,7 +86,15 @@ _ACCESS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p]
+_DEDUP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+# the dedup kernel's bitmap window, in ids: 160 KB of bits plus 20 KB of
+# group ranks in shared memory; past taobao's largest chunk (1,141,730 rows),
+# so a served slot takes one window
+DEDUP_WINDOW_BITS = 40 * 32768
+_GROUP_WORDS = 8  # bitmap words per rank group (csrc/embedding_dedup.cu)
 _DENSE_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_void_p]
@@ -181,7 +194,8 @@ def dedup_indices(lidx: torch.Tensor, unique_cap: int):
     elsewhere).  ``-1`` ids never enter the unique set; every lookup lands in
     exactly one of ``rank``/``spill``.  ``uniq`` and ``spill`` equal the
     reference's ``_dedup_indices``; ``cnt_from_rank(rank)`` its ``cnt``.
-    Runs on the ids' device (a sort and a scan per slot).
+    The plain version of :func:`batch_dedup`'s kernel, and the CPU route;
+    runs on the ids' device (a sort and a scan per slot).
     """
     if unique_cap <= 0:
         raise ValueError(f"unique_cap must be positive, got {unique_cap}")
@@ -207,6 +221,102 @@ def dedup_indices(lidx: torch.Tensor, unique_cap: int):
     spill = torch.where((pos_rank >= unique_cap) & (flat >= 0), flat, -1)
     return (uniq[:, :unique_cap].contiguous().reshape(*lead, unique_cap),
             rank.reshape(*lead, b, s), spill.reshape(*lead, b, s))
+
+
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each 32-bit word held in an int64 tensor."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def dedup_indices_bitmap(lidx: torch.Tensor, unique_cap: int, *,
+                         window_bits: int = DEDUP_WINDOW_BITS):
+    """The dedup kernel's arithmetic in plain torch, slot by slot: a
+    presence bitmap of 32-bit words over a window of at most ``window_bits``
+    ids, set-bit counts per 8-word group scanned into group ranks, and each
+    id's rank as the set bits below it; a slot whose ids span more than one
+    window moves on to the smallest id past the last one.  Same results as
+    :func:`dedup_indices` (the tests hold the two, and the reference, equal)."""
+    if unique_cap <= 0:
+        raise ValueError(f"unique_cap must be positive, got {unique_cap}")
+    if window_bits <= 0 or window_bits % (32 * _GROUP_WORDS):
+        raise ValueError(f"window_bits must be a positive multiple of 256, got {window_bits}")
+    *lead, b, s = lidx.shape
+    flat = lidx.reshape(-1, b * s).to(torch.int32).long()
+    dev = flat.device
+    uniq = torch.full((flat.shape[0], unique_cap), -1, dtype=torch.long, device=dev)
+    rank = torch.full_like(flat, -1)
+    spill = torch.full_like(flat, -1)
+    bit = torch.arange(32, device=dev)
+    big = torch.iinfo(torch.int32).max  # sorted with the padding by the plain op, and spilled
+    for row, ids in enumerate(flat):
+        valid = (ids >= 0) & (ids != big)
+        spill[row, ids == big] = big
+        if not bool(valid.any()):
+            continue
+        lo, hi = int(ids[valid].min()), int(ids[valid].max())
+        base = 0
+        while True:
+            span = min(window_bits, -(-(hi - lo + 1) // 256) * 256)
+            inw = valid & (ids >= lo) & (ids < lo + span)
+            d = ids[inw] - lo
+            present = torch.zeros(span, dtype=torch.bool, device=dev)
+            present[d] = True
+            words = (present.view(-1, 32).long() << bit).sum(dim=1)
+            counts = _popcount32(words).view(-1, _GROUP_WORDS)
+            group_rank = torch.cumsum(counts.sum(dim=1), 0) - counts.sum(dim=1)
+            word_rank = (torch.cumsum(counts, dim=1) - counts).reshape(-1)
+            w = d >> 5
+            r = (base + group_rank[w // _GROUP_WORDS] + word_rank[w]
+                 + _popcount32(words[w] & ((1 << (d & 31)) - 1)))
+            pos = inw.nonzero().squeeze(1)
+            rank[row, pos] = torch.where(r < unique_cap, r, -1)
+            spill[row, pos] = torch.where(r < unique_cap, -1, ids[pos])
+            set_bits = present.nonzero().squeeze(1)
+            ur = base + torch.arange(len(set_bits), device=dev)
+            keep = ur < unique_cap
+            uniq[row, ur[keep]] = lo + set_bits[keep]
+            base += int(counts.sum())
+            if lo + span > hi:
+                break
+            lo = int(ids[valid & (ids >= lo + span)].min())
+    return (uniq.to(torch.int32).reshape(*lead, unique_cap),
+            rank.to(torch.int32).reshape(*lead, b, s), spill.to(torch.int32).reshape(*lead, b, s))
+
+
+def batch_dedup(lidx: torch.Tensor, unique_cap: int):
+    """:func:`dedup_indices` through the dedup kernel: the same
+    ``(uniq, rank, spill)``, array-equal.  CPU tensors run the plain version,
+    CUDA tensors the kernel (``csrc/embedding_dedup.cu``, one launch, a
+    bitmap window of :data:`DEDUP_WINDOW_BITS` ids)."""
+    if unique_cap <= 0:
+        raise ValueError(f"unique_cap must be positive, got {unique_cap}")
+    if build.route(lidx) == "cpu":
+        return dedup_indices(lidx, unique_cap)
+    with torch.cuda.device(lidx.device):
+        return _launch_dedup(lidx.to(torch.int32).contiguous(), unique_cap,
+                             build.stream_of(lidx.device))
+
+
+def _launch_dedup(lidx, unique_cap, stream):
+    """The dedup kernel on contiguous int32 ids, on the current device."""
+    *lead, b, s = lidx.shape
+    n_rows = lidx.numel() // max(b * s, 1)
+    uniq = torch.empty((*lead, unique_cap), dtype=torch.int32, device=lidx.device)
+    rank = torch.empty_like(lidx)
+    spill = torch.empty_like(lidx)
+    if n_rows:
+        fn = build.c_function("embedding_dedup", "rt_dedup_indices", _DEDUP_ARGS)
+        rc = fn(lidx.data_ptr(), n_rows, b * s, unique_cap, DEDUP_WINDOW_BITS, uniq.data_ptr(),
+                rank.data_ptr(), spill.data_ptr(), stream)
+        build.check_launch(rc, "batch_dedup")
+        batch_dedup.launches += 1
+    return uniq, rank, spill
+
+
+batch_dedup.launches = 0
 
 
 def cnt_from_rank(rank: torch.Tensor, unique_cap: int) -> torch.Tensor:
@@ -381,8 +491,9 @@ def _launch(buffer, lidx, step_block, runs, block_r, stage_rows):
 
 def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, hidx,
                    step_kpath, step_slot, step_base):
-    """Dedup and/or cache: (1) with dedup, the unique-row gather into
-    ``rows_u``; (2) the scatter pass (ranks, spill or plain ids, hot fold)."""
+    """Dedup and/or cache: (0) with dedup, the dedup kernel; (1) with dedup,
+    the unique-row gather into ``rows_u``; (2) the scatter pass (ranks, spill
+    or plain ids, hot fold).  At most three launches and no torch op."""
     k, _, e = buffer.shape
     _, s_slots, b, seq = lidx.shape
     n_steps = step_block.shape[-1]
@@ -392,6 +503,8 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
     if any(t.shape != step_block.shape for t in per_step):
         raise ValueError("step_kpath, step_slot and step_base must be shaped like step_block")
     _check_ids(lidx, step_block, runs, *per_step)
+    if k * s_slots > _MAX_RUNS:
+        raise ValueError(f"{k * s_slots} slots exceed the grid limit {_MAX_RUNS}")
     cache_rows = 0
     if cache is not None:
         if cache.dtype != buffer.dtype:
@@ -406,23 +519,22 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
     dtype = build.dtype_code(buffer.dtype)
     item = buffer.element_size()
     with torch.cuda.device(dev):
+        stream = build.stream_of(dev)
         rank = rows_u = None
         if unique_cap:
-            uniq, rank, lidx = dedup_indices(lidx, unique_cap)
-            _check_ids(uniq, rank, runs)
-            rows_u = torch.zeros((k, s_slots, unique_cap, e), dtype=torch.float32, device=dev)
+            uniq, rank, lidx = _launch_dedup(lidx, unique_cap, stream)
+            # the gather writes every entry of a slot with steps
+            rows_u = torch.empty((k, s_slots, unique_cap, e), dtype=torch.float32, device=dev)
             stage = max(min(block_r, GATHER_STAGE_BYTES // (e * item)), 1)
             gather = build.c_function("embedding_access", "rt_ragged_dedup_gather", _GATHER_ARGS)
             rc = gather(buffer.data_ptr(), buffer.stride(0), uniq.data_ptr(),
                         step_slot.data_ptr(), step_base.data_ptr(), step_block.data_ptr(),
                         step_kpath.data_ptr() if step_kpath is not None else None,
                         n_steps, k, s_slots, unique_cap, e, block_r, stage,
-                        rows_u.data_ptr(), dtype, build.stream_of(dev))
+                        rows_u.data_ptr(), dtype, stream)
             build.check_launch(rc, "multi_embedding_bag_ragged (dedup gather)")
         stage_cache = int(cache_rows * e * item <= CACHE_STAGE_BYTES)
-        out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=dev)
-        if runs.shape[0] < k * s_slots:
-            out.zero_()  # slots without a run stay zero
+        out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=dev)  # all written
         scatter = build.c_function("embedding_access", "rt_ragged_access", _ACCESS_ARGS)
         rc = scatter(buffer.data_ptr(), buffer.stride(0), lidx.data_ptr(),
                      rank.data_ptr() if rank is not None else None,
@@ -430,8 +542,8 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
                      hidx.data_ptr() if hidx is not None else None,
                      cache.data_ptr() if cache is not None else None, cache_rows,
                      step_block.data_ptr(), n_steps, runs.data_ptr(), runs.shape[0],
-                     out.data_ptr(), s_slots, b, seq, e, block_r, unique_cap, stage_cache,
-                     dtype, build.stream_of(dev))
+                     out.data_ptr(), k, s_slots, b, seq, e, block_r, unique_cap, stage_cache,
+                     dtype, stream)
         build.check_launch(rc, "multi_embedding_bag_ragged (access)")
     modes = multi_embedding_bag_ragged.modes
     multi_embedding_bag_ragged.launches += 1

@@ -1,50 +1,85 @@
-"""GM-UB / L1-UB strategies: conflict-free lookup whose run time does not
-depend on the id values.
+"""GM-UB / L1-UB strategies: conflict-free lookup whose device-memory
+traffic does not depend on the id values.
 
 Paper §II-B: "Performs vectorized look-up operations after moving the table
 in chunks to the shared memory."  The CUDA kernel (``csrc/embedding_ub.cu``)
-sweeps the table through shared memory tile by tile and every (query, lane)
-pair adds the rows its ids hit in the tile — the one-hot count product of
-the TPU kernel without forming the count matrix.  GM-UB
-(``persistent=False``) streams ``block_m``-row tiles; L1-UB
-(``persistent=True``) keeps the whole table in one resident tile when it
-fits a CTA's shared memory, and is tiled like GM-UB otherwise.
+gives each CTA a range of the table's rows and a chunk of the batch's ids:
+it lists the ids that hit its range, streams the range through shared memory
+tile by tile and copies each hit row to its output position — the one-hot
+count product of the TPU kernel without forming the count matrix, reading
+every row of a large table once per launch.  GM-UB (``persistent=False``)
+streams ``block_m``-row tiles; L1-UB (``persistent=True``) keeps a table that
+fits :data:`RESIDENT_BYTES` as one resident tile, and is tiled like GM-UB
+otherwise.  :func:`ub_schedule` sizes the grid.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.embedding_l1 import l1_tile_rows
 from repro_torch.kernels.ref import bag_f32
 
-__all__ = ["embedding_bag_ub", "embedding_bag_ub_plain", "ub_schedule"]
+__all__ = ["UbSchedule", "embedding_bag_ub", "embedding_bag_ub_plain", "ub_schedule"]
 
 _ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-_PAIRS_PER_CTA = 4096  # csrc/common.cuh kPairs
-_CTAS_PER_SM = 2  # splits are added until the grid fills the card this often
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+         ctypes.c_void_p]
+CTAS_PER_SM = 2  # CTAs an SM holds at once (shared memory and registers)
+TILE_BYTES = 8 * 1024  # one streamed tile; a CTA keeps a ring of four
+RESIDENT_BYTES = 96 * 1024  # an L1-UB table up to this size is one resident tile
+MIN_RANGE_ROWS = 128  # below this a range costs more in id reads than rows
+MAX_TILES = 64  # tiles per range (csrc/embedding_ub.cu kMaxTiles)
 
 
+class UbSchedule(NamedTuple):
+    """One launch's grid: ``n_ranges`` contiguous ranges of ``range_rows``
+    table rows times ``n_chunks`` chunks of ``chunk_ids`` lookup positions,
+    each range streamed through shared memory ``tile_rows`` rows at a time."""
+
+    tile_rows: int
+    range_rows: int
+    n_ranges: int
+    chunk_ids: int
+    n_chunks: int
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
 def ub_schedule(
-    m: int, b: int, e: int, row_bytes: int, *, block_m: int, persistent: bool,
-    n_sms: int,
-) -> tuple[int, int, int]:
-    """``(tile_rows, split_rows, n_splits)`` for one launch: the tile that
-    passes through shared memory, and the row ranges the table is cut into
-    so that (batch CTAs x splits) fills the card."""
-    if persistent:
-        tile_rows = l1_tile_rows(m, row_bytes)
+    m: int, n_ids: int, row_bytes: int, *, block_m: int, persistent: bool, n_sms: int,
+) -> UbSchedule:
+    """The grid of one launch over an ``m``-row table and ``n_ids = B * s``
+    lookups, at most ``CTAS_PER_SM * n_sms`` CTAs so that it runs in one
+    wave.  A table that fits one tile is one range, and the ids are cut into
+    that many chunks; a larger table is cut into that many ranges (fewer
+    where a range would fall below :data:`MIN_RANGE_ROWS` rows), and the ids
+    into as few chunks as fill the card with them (one, for a large table,
+    so that every row is read by one CTA)."""
+    target = CTAS_PER_SM * n_sms
+    if persistent and m * row_bytes <= RESIDENT_BYTES:
+        tile_rows = max(m, 1)
     else:
-        tile_rows = max(8, min(block_m, m) // 8 * 8)
-    n_tiles = -(-m // tile_rows)
-    batch_ctas = -(-(b * e) // _PAIRS_PER_CTA)
-    n_splits = min(n_tiles, max(1, -(-(_CTAS_PER_SM * n_sms) // batch_ctas)))
-    split_rows = -(-n_tiles // n_splits) * tile_rows
-    return tile_rows, split_rows, -(-m // split_rows)
+        tile_rows = max(8, min(block_m, TILE_BYTES // row_bytes) // 8 * 8)
+    if m <= tile_rows:
+        range_rows, n_ranges = max(m, 1), 1
+    else:
+        range_rows = max(MIN_RANGE_ROWS, _ceil(_ceil(m, target), 8) * 8)
+        range_rows = min(range_rows, MAX_TILES * tile_rows)
+        n_ranges = _ceil(m, range_rows)
+    want_chunks = max(1, target // n_ranges)
+    # a chunk is a multiple of 4 ids, so that every chunk's 16-byte id loads
+    # stay aligned
+    chunk_ids = max(4, _ceil(_ceil(n_ids, want_chunks), 4) * 4) if want_chunks > 1 else max(n_ids, 1)
+    n_chunks = max(1, _ceil(n_ids, chunk_ids))
+    return UbSchedule(min(tile_rows, range_rows), range_rows, n_ranges, chunk_ids, n_chunks)
 
 
 def embedding_bag_ub_plain(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
@@ -72,21 +107,16 @@ def embedding_bag_ub(
         raise ValueError("table and indices must be contiguous")
     m, e = table.shape
     b, s = indices.shape
-    n_sms = torch.cuda.get_device_properties(table.device).multi_processor_count
-    tile_rows, split_rows, n_splits = ub_schedule(
-        m, b, e, e * table.element_size(), block_m=block_m,
-        persistent=persistent, n_sms=n_sms,
-    )
+    sched = ub_schedule(m, b * s, e * table.element_size(), block_m=block_m,
+                        persistent=persistent, n_sms=build.sm_count(table.device))
     out = torch.empty((b, e), dtype=torch.float32, device=table.device)
-    partial = (
-        torch.empty((n_splits, b, e), dtype=torch.float32, device=table.device)
-        if n_splits > 1 else out
-    )
+    scratch = out if s == 1 else torch.empty((b * s, e), dtype=torch.float32, device=table.device)
     fn = build.c_function("embedding_ub", "rt_embedding_bag_ub", _ARGS)
     with torch.cuda.device(table.device):
-        rc = fn(table.data_ptr(), indices.data_ptr(), out.data_ptr(),
-                partial.data_ptr(), m, b, s, e, tile_rows, split_rows, n_splits,
-                build.dtype_code(table.dtype), build.stream_of(table.device))
+        rc = fn(table.data_ptr(), indices.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                m, b, s, e, sched.tile_rows, sched.range_rows, sched.n_ranges,
+                sched.chunk_ids, sched.n_chunks, build.dtype_code(table.dtype),
+                build.stream_of(table.device))
     build.check_launch(rc, "embedding_bag_ub")
     embedding_bag_ub.launches += 1
     return out

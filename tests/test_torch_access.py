@@ -2,7 +2,9 @@
 
 * ``dedup_indices`` gives the reference's ``uniq`` and ``spill`` array-equal,
   and ``cnt_from_rank`` its ``cnt``, on all-duplicate, all-unique and
-  overflow-spill batches.
+  overflow-spill batches; so does ``dedup_indices_bitmap``, the dedup
+  kernel's arithmetic in plain torch, over generated caps, widths, padding
+  and bitmap windows.
 * ``pack_plan`` gives array-equal ``cache_data``/``cache_remap``/
   ``step_kpath`` and equal ``plan.meta["cache"]``/``["kernel"]`` records on
   hand plans and planner plans, including the deterministic cache ties.
@@ -24,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hypothesis_compat import given, settings, st
 
 from repro.core import autotune as jtune
 from repro.core import partition as jpart
@@ -49,8 +52,11 @@ from repro_torch.data.distributions import RowProbs, Zipf, sample_workload, work
 from repro_torch.data.workloads import small_workload
 from repro_torch.engine import EngineConfig, InferenceEngine
 from repro_torch.kernels.embedding_multi import (
+    DEDUP_WINDOW_BITS,
+    batch_dedup,
     cnt_from_rank,
     dedup_indices,
+    dedup_indices_bitmap,
     gather_unique_rows_plain,
     multi_embedding_bag_ragged,
     ragged_runs,
@@ -110,6 +116,54 @@ def test_dedup_indices_match_reference(name):
 def test_dedup_indices_rejects_zero_cap():
     with pytest.raises(ValueError, match="unique_cap"):
         dedup_indices(torch.zeros((1, 2, 2), dtype=torch.int32), 0)
+
+
+@settings(max_examples=60, deadline=None)
+@given(
+    seq=st.sampled_from([1, 3]),
+    cap=st.sampled_from([1, 7, 40]),
+    width=st.integers(min_value=1, max_value=3000),
+    pad_frac=st.floats(min_value=0.0, max_value=1.0),
+    window=st.sampled_from([256, 512, 1024, DEDUP_WINDOW_BITS]),
+    seed=st.integers(min_value=0, max_value=2**31 - 1),
+)
+def test_dedup_bitmap_twin_matches_reference(seq, cap, width, pad_frac, window, seed):
+    """The dedup kernel's arithmetic in plain torch (bitmap windows, popcount
+    ranks) gives ``uniq``/``rank``/``spill`` array-equal to ``dedup_indices``
+    and ``uniq``/``cnt``/``spill`` array-equal to the reference's, whatever
+    the cap, ``s``, padding share and slot width (up to 12 windows here).
+    Shapes and caps come from short lists: each new one recompiles the
+    reference's ops."""
+    rng = np.random.default_rng(seed)
+    lidx = rng.integers(0, width, size=(2, 16, seq)).astype(np.int32)
+    lidx[rng.random(lidx.shape) < pad_frac] = rng.integers(-3, 0)
+    got = dedup_indices_bitmap(torch.from_numpy(lidx), cap, window_bits=window)
+    for a, b in zip(got, dedup_indices(torch.from_numpy(lidx), cap)):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    uniq, cnt, spill = (np.asarray(a) for a in _dedup_indices(jnp.asarray(lidx), cap))
+    np.testing.assert_array_equal(got[0].numpy(), uniq)
+    np.testing.assert_array_equal(cnt_from_rank(got[1], cap).numpy(), cnt)
+    np.testing.assert_array_equal(got[2].numpy(), spill)
+
+
+@pytest.mark.parametrize("name", ["all_duplicate", "all_unique", "overflow_spill", "padding"])
+def test_batch_dedup_on_cpu_is_the_plain_op(name):
+    """On CPU tensors the kernel's wrapper runs ``dedup_indices`` (no launch)."""
+    lidx, cap = _dedup_case(name)
+    before = batch_dedup.launches
+    for a, b in zip(batch_dedup(torch.from_numpy(lidx), cap),
+                    dedup_indices(torch.from_numpy(lidx), cap)):
+        assert torch.equal(a, b)
+    assert batch_dedup.launches == before
+
+
+def test_dedup_bitmap_window_validation():
+    ids = torch.zeros((1, 2, 2), dtype=torch.int32)
+    for bad in (0, 100, 300):
+        with pytest.raises(ValueError, match="window_bits"):
+            dedup_indices_bitmap(ids, 4, window_bits=bad)
+    with pytest.raises(ValueError, match="unique_cap"):
+        batch_dedup(ids, 0)
 
 
 # --------------------------------------------------------------------------

@@ -9,7 +9,9 @@ runs on a machine with only PyTorch:
 Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
 order).  The dedup gather's two data flows are held bitwise equal, and so
-are the dense kernel and its plain version (both sum in position order).
+are the dense kernel and its plain version (both sum in position order) and
+the UB kernel and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is
+held array-equal to ``dedup_indices``.
 """
 import numpy as np
 import pytest
@@ -22,6 +24,8 @@ from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embedding_gm import embedding_bag_gm
 from repro_torch.kernels.embedding_l1 import embedding_bag_l1
 from repro_torch.kernels.embedding_multi import (
+    batch_dedup,
+    dedup_indices,
     multi_embedding_bag_dense,
     multi_embedding_bag_dense_plain,
     multi_embedding_bag_ragged,
@@ -110,6 +114,80 @@ def test_strategy_kernels_match_plain(cuda, shape, dtype):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL, msg=lambda m_: f"{strategy}: {m_}")
     assert sum(c.launches for c in counters) == before + len(ALL_STRATEGIES)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["uniform", "one_row", "hot_range", "pooled"])
+@pytest.mark.parametrize("persistent", [False, True])
+def test_ub_kernel_skew_and_pooling(cuda, dtype, case, persistent):
+    """K2 on a table larger than one tile and on a resident one: uniform ids,
+    a batch of one repeated row (one CTA takes every hit and walks its ids in
+    pieces), most ids in one range, and s = 3 with ids outside [0, m) and -1
+    padding.  s = 1 is bitwise equal to ``bag_f32``; s = 3 within TOL."""
+    rng = np.random.default_rng(3)
+    m = 100 if persistent else 150_000
+    b, s = 5000, (3 if case == "pooled" else 1)
+    t = torch.from_numpy(rng.standard_normal((m, 16)).astype(np.float32)).to(dtype).to(cuda)
+    ids = rng.integers(0, m, size=(b, s))
+    if case == "one_row":
+        ids[:] = m // 3
+    elif case == "hot_range":
+        ids[: 4 * b // 5] = rng.integers(0, 40, size=(4 * b // 5, s))
+    elif case == "pooled":
+        ids[rng.random(ids.shape) < 0.2] = -1
+        ids[::7, 1] = m + 5
+        ids[::11, 2] = -9
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = embedding_bag_ub.launches
+    got = embedding_bag_ub(t, idx, persistent=persistent)
+    torch.cuda.synchronize()
+    assert embedding_bag_ub.launches == before + 1
+    want = ref.bag_f32(t, idx)
+    if s == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def _dedup_ids(case, rng):
+    """(slots, B, s) ids and the unique cap of one dedup edge case."""
+    if case == "all_padding":
+        return np.full((3, 200, 2), -1, np.int32), 16
+    if case == "one_id":
+        return np.full((3, 200, 2), 77, np.int32), 16
+    if case == "cap_one":
+        return rng.integers(-1, 500, size=(4, 300, 1)).astype(np.int32), 1
+    if case == "cap_above_distinct":
+        return rng.integers(-1, 30, size=(4, 300, 1)).astype(np.int32), 64
+    if case == "seq3":
+        return rng.integers(-3, 5000, size=(5, 700, 3)).astype(np.int32), 600
+    if case == "wide":  # past one bitmap window, with empty stretches between ids
+        ids = rng.integers(0, 3_000_000, size=(3, 4096, 1))
+        ids[:, ::5] = rng.integers(2**31 - 5000, 2**31 - 1, size=ids[:, ::5].shape)
+        ids[:, ::9] = 2**31 - 1  # the plain op's padding key: spilled, never unique
+        return ids.astype(np.int32), 3000
+    return rng.integers(-1, 1_141_730, size=(8, 8192, 1)).astype(np.int32), 1856
+
+
+@pytest.mark.parametrize("case", ["all_padding", "one_id", "cap_one", "cap_above_distinct",
+                                  "seq3", "wide", "taobao_chunk"])
+def test_dedup_kernel_matches_plain(cuda, case):
+    """The dedup kernel's uniq, rank and spill are array-equal to
+    ``dedup_indices`` on the card and on the CPU ("wide" spans several
+    bitmap windows with empty stretches between them)."""
+    ids, cap = _dedup_ids(case, np.random.default_rng(8))
+    lidx = torch.from_numpy(ids).to(cuda)
+    before = batch_dedup.launches
+    got = batch_dedup(lidx, cap)
+    torch.cuda.synchronize()
+    assert batch_dedup.launches == before + 1
+    for a, b, c in zip(got, dedup_indices(lidx, cap), dedup_indices(torch.from_numpy(ids), cap)):
+        assert torch.equal(a, b)
+        assert torch.equal(a.cpu(), c)
+
+
+def test_dedup_source_is_built():
+    assert "embedding_dedup" in build.SOURCES
 
 
 @pytest.mark.parametrize("planner", ["asymmetric", "symmetric"])

@@ -28,7 +28,12 @@ from repro_torch.kernels.embedding_multi import (
     ragged_runs,
     ragged_stage_rows,
 )
-from repro_torch.kernels.embedding_ub import embedding_bag_ub, ub_schedule
+from repro_torch.kernels.embedding_ub import (
+    MAX_TILES,
+    TILE_BYTES,
+    embedding_bag_ub,
+    ub_schedule,
+)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -247,18 +252,67 @@ def test_ref_oracles_match_jax():
         ref.embedding_bag_ref(t, torch.full((2, 2), -1, dtype=torch.int32))
 
 
+def _ub_writes(m, ids, sched):
+    """How often the UB kernel's grid writes each lookup position: CTA
+    (range x, chunk y) writes the positions of chunk y whose id lies in range
+    x, and for s = 1 range 0 also writes the positions of invalid ids."""
+    flat = ids.reshape(-1)
+    writes = np.zeros(flat.size, np.int64)
+    for x in range(sched.n_ranges):
+        lo, hi = x * sched.range_rows, min(m, (x + 1) * sched.range_rows)
+        for y in range(sched.n_chunks):
+            v = flat[y * sched.chunk_ids:(y + 1) * sched.chunk_ids]
+            hit = writes[y * sched.chunk_ids:(y + 1) * sched.chunk_ids]
+            hit += (v >= lo) & (v < hi)
+            if ids.shape[1] == 1 and x == 0:
+                hit += (v < 0) | (v >= m)
+    return writes
+
+
 def test_launch_geometry():
-    """Tile/split choices the CUDA launches use: resident when the table fits,
-    splits that fill the card, tiles a multiple of 8 rows."""
+    """Tile/range choices the CUDA launches use: the L1 kernel resident when
+    the table fits; the UB kernel's grid at path A's shapes (taobao table 1
+    plus its zero row, B = 8192, s = 1) cuts the table into ranges that each
+    row lies in exactly once, with the ids as one chunk (so every row is read
+    by one CTA), 2 x 132 CTAs (two per SM: one wave), and a small table as
+    one range whose ids are split over more than one CTA per SM."""
     assert l1_tile_rows(100, 64) == 100
     tile = l1_tile_rows(1_000_000, 64)
     assert tile % 8 == 0 and tile * 64 <= 64 * 1024
-    tile_rows, split_rows, n_splits = ub_schedule(
-        846_812, 8192, 16, 64, block_m=512, persistent=False, n_sms=132)
-    assert tile_rows == 512 and split_rows % tile_rows == 0
-    assert n_splits * split_rows >= 846_812 > (n_splits - 1) * split_rows
-    assert 32 * n_splits >= 2 * 132
-    assert ub_schedule(98, 8192, 16, 64, block_m=512, persistent=True, n_sms=132) == (98, 98, 1)
+    m = 846_813
+    sched = ub_schedule(m, 8192, 64, block_m=512, persistent=False, n_sms=132)
+    assert sched.tile_rows * 64 == TILE_BYTES and sched.range_rows % 8 == 0
+    assert sched.n_ranges * sched.range_rows >= m > (sched.n_ranges - 1) * sched.range_rows
+    assert (sched.n_chunks, sched.chunk_ids) == (1, 8192)
+    assert sched.n_ranges * sched.n_chunks == 2 * 132
+    assert -(-sched.range_rows // sched.tile_rows) <= MAX_TILES
+    for persistent in (True, False):
+        small = ub_schedule(98, 8192, 64, block_m=512, persistent=persistent, n_sms=132)
+        assert (small.n_ranges, small.range_rows, small.tile_rows) == (1, 98, 98)
+        assert 132 < small.n_ranges * small.n_chunks <= 2 * 132 and small.n_chunks * small.chunk_ids >= 8192
+
+
+@pytest.mark.parametrize("persistent", [False, True])
+@pytest.mark.parametrize("shape", [(846_813, 8192, 1, 512), (12_979, 8192, 1, 512),
+                                   (98, 8192, 1, 512), (200_000, 5000, 1, 64),
+                                   (3000, 700, 2, 64), (513, 33, 5, 16), (0, 5, 1, 64),
+                                   (5000, 8192, 3, 512)])
+def test_ub_schedule_writes_each_output_once(shape, persistent):
+    """Over every (range, chunk) CTA, each lookup position is written exactly
+    once (s = 1: rows and invalid ids alike) or, for s > 1, once if its id is
+    valid; the ranges cover the table with at most MAX_TILES tiles each."""
+    m, b, s, block_m = shape
+    sched = ub_schedule(m, b * s, 64, block_m=block_m, persistent=persistent, n_sms=132)
+    assert 1 <= sched.tile_rows <= sched.range_rows
+    assert sched.n_chunks == 1 or sched.chunk_ids % 4 == 0  # aligned 16-byte id loads
+    assert sched.n_ranges * sched.n_chunks <= 2 * 132 or sched.range_rows == MAX_TILES * sched.tile_rows
+    assert -(-sched.range_rows // sched.tile_rows) <= MAX_TILES
+    assert sched.n_ranges * sched.range_rows >= m
+    assert sched.n_chunks * sched.chunk_ids >= b * s > (sched.n_chunks - 1) * sched.chunk_ids
+    ids = np.random.default_rng(0).integers(-2, m + 3, size=(b, s))
+    writes = _ub_writes(m, ids, sched)
+    want = 1 if s == 1 else ((ids >= 0) & (ids < m)).reshape(-1)
+    np.testing.assert_array_equal(writes, want)
 
 
 def test_wrappers_reject_unhandled_device():
