@@ -45,8 +45,15 @@ Phases (any failure raises and exits non-zero):
    by ``torch.profiler``'s device time of its own kernels (``device_ms``)
    beside its plain version and one PyTorch library call computing the
    same lookups (``F.embedding_bag``, a yardstick only, also in device
-   time); the dense kernel also on a small single-core stack with s=3, a
-   batch tail, the zero row, an empty slot and ids outside [0, R]; the UB
+   time); the L1 kernel (K4) with its mode, cluster size, rows per CTA,
+   grid and CTA width, on path B's tables (table 2 must be served by a
+   thread-block cluster), on one query of table 2 (the staging alone), at
+   every cluster size that schedules and beyond, and on table 2 at each
+   cluster size whose slice fits one CTA and on path B's smallest table
+   resident, at 256 and 1024 threads a CTA (the pick); the GM kernel (K3)
+   also with s=3, -1 padding and invalid ids; the dense kernel also on a
+   small single-core stack with s=3, a batch tail, the zero row, an empty
+   slot and ids outside [0, R]; the UB
    kernel bitwise for s=1, on a batch of one repeated row and on a batch of
    one id (the table sweep alone), each timed over the uniform batch, and
    with s=3, invalid ids and -1 padding; the dedup kernel array-equal to
@@ -268,6 +275,7 @@ def main_path(label: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    l1_modes = dict(wrappers()["embedding_bag_l1"].modes)
     engine, last = res["engine"], res["last"]
     s = res["stats"][args.distribution]
     check(s["submitted"] == s["served"] == args.queries,
@@ -343,7 +351,8 @@ def main_path(label: str) -> dict:
                      {a.strategy.name for a in engine.plan.assignments}),
                  "symmetric": [[t, st.name] for t, st in zip(
                      engine.plan.symmetric_tables, engine.plan.symmetric_strategies)]},
-        "launches": counts, "pooled_max_err": pooled_err, "logit_max_err": logit_err,
+        "launches": counts, "l1_modes": l1_modes,
+        "pooled_max_err": pooled_err, "logit_max_err": logit_err,
     }
     if engine.packed.unique_cap or engine.packed.cache_rows:
         rec["access"] = access_summary(engine, idx)
@@ -354,7 +363,7 @@ def main_path(label: str) -> dict:
         rec["cache"] = engine.plan.meta["cache"]
         rec["kernel"] = engine.plan.meta["kernel"]["packed"]
     print(json.dumps(rec))
-    return {"engine": engine, "indices": idx, "counts": counts}
+    return {"engine": engine, "indices": idx, "counts": counts, "l1_modes": l1_modes}
 
 
 def access_summary(engine, idx) -> dict:
@@ -923,11 +932,134 @@ def ub_cases(table, ids, uniform: dict) -> list:
     return out
 
 
+def _l1_record(table, lidx, dtype, case=None):
+    """K4 through its wrapper, bitwise at s = 1, with the mode, cluster
+    size, rows per CTA, grid and CTA width its schedule gave."""
+    from repro_torch.kernels.embedding_l1 import embedding_bag_l1, schedule_for
+
+    rec = _bag_record("embedding_bag_l1", embedding_bag_l1, table, lidx, dtype,
+                      bitwise=lidx.shape[1] == 1)
+    sched = schedule_for(table.to(dtype).contiguous(), lidx)
+    rec.update(mode=sched.mode, cluster=sched.cluster, rows_per_cta=sched.rows_per_cta,
+               grid=sched.grid, threads=sched.threads)
+    if case:
+        rec["case"] = case
+    return rec
+
+
+def l1_mode_cases() -> list:
+    """K4 at every cluster size ``l1_schedule`` picks and beyond: f32 tables
+    of E = 16 (a zero last row) sized to the largest each size holds within
+    the slice target (C x ``CLUSTER_BYTES``), ``ascend_910``'s largest L1
+    table (1 MiB + the zero row: 16 CTAs past the target), and 200,000 rows
+    (12.8 MB, beyond), at path B's batch shape (B = 8192, s = 1, uniform
+    ids).  A size the card does not schedule (16 may not) is reported."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_l1 import CLUSTER_BYTES, CLUSTER_SIZES, schedule_for
+
+    rng = np.random.default_rng(21)
+    cases = [(c, c * (CLUSTER_BYTES // 64), f"cluster of {c}") for c in CLUSTER_SIZES]
+    cases += [(16, 16_385, "cluster of 16 (ascend_910's largest L1 table)"),
+              (0, 200_000, "beyond (12.8 MB, the UB kernel)")]
+    out = []
+    for c, m, case in cases:
+        table = torch.from_numpy(rng.standard_normal((m, 16)).astype(np.float32))
+        table[-1] = 0
+        table = table.to(DEVICE)
+        ids = torch.from_numpy(rng.integers(0, m - 1, size=(8192, 1)).astype(np.int32)).to(DEVICE)
+        sched = schedule_for(table, ids)
+        if c == 16 and sched.cluster != 16:
+            out.append({"name": "embedding_bag_l1", "case": f"{case}: 16 not scheduled",
+                        "rows": m, "mode": sched.mode, "cluster": sched.cluster})
+            continue
+        check((sched.mode, sched.cluster if c else 0) == ("cluster" if c else "beyond", c),
+              f"[kernel] L1 at {m} rows: {sched}")
+        out.append(_l1_record(table, ids, torch.float32, case))
+    return out
+
+
+def l1_sweep(table, lidx, small, small_ids) -> list:
+    """K4 on path B's table 2 (f32) at every cluster size whose slice fits
+    one CTA's shared memory, and on its smallest L1 table resident, each at
+    256 and 1024 threads a CTA (one thread per item, as many CTAs or
+    clusters as that needs, at most what the card holds): each held bitwise
+    against ``bag_f32`` and timed; the wrapper's own pick is marked."""
+    import torch
+
+    from repro_torch.kernels.embedding_l1 import (
+        CLUSTER_SIZES,
+        CTA_MAX_BYTES,
+        L1Schedule,
+        card_clusters,
+        cluster_schedule,
+        ctas_per_sm,
+        launch,
+        schedule_for,
+    )
+    from repro_torch.kernels.ref import bag_f32
+
+    out = []
+    for tab, ids in ((table, lidx), (small, small_ids)):
+        t = tab.float().contiguous()
+        m, e = t.shape
+        b = ids.shape[0]
+        want = bag_f32(t, ids)
+        pick = schedule_for(t, ids)
+        active = card_clusters(t.device.index, 0)
+        n_sms = torch.cuda.get_device_properties(t.device).multi_processor_count
+        for threads in (256, 1024):
+            if pick.mode == "resident":
+                grid = max(1, min(-(-b * e * 4 // 16 // threads),
+                                  n_sms * ctas_per_sm(m * e * 4, threads)))
+                cands = [L1Schedule("resident", 1, m, grid, m * e * 4, threads)]
+            else:
+                cands = []
+                for c in CLUSTER_SIZES:
+                    smem = -(-m // c) * e * 4
+                    n = active(c, smem, threads) if smem <= CTA_MAX_BYTES else 0
+                    if n >= 1:
+                        cands.append(cluster_schedule(m, e * 4, b, c, n, threads))
+            for sched in cands:
+                got = launch(t, ids, sched)
+                torch.cuda.synchronize()
+                check(torch.equal(got, want), f"[kernel] L1 {sched}: not bitwise")
+                out.append({
+                    "rows": m, "mode": sched.mode, "cluster": sched.cluster,
+                    "threads": threads, "rows_per_cta": sched.rows_per_cta, "grid": sched.grid,
+                    "smem": sched.smem, "picked": sched == pick,
+                    "staged_bytes": sched.grid * sched.smem,
+                    "ms": time_ms(lambda: launch(t, ids, sched)),
+                    "device_ms": profile_calls(lambda: launch(t, ids, sched))["device_ms"]})
+    print(json.dumps({"l1_sweep": out}))
+    return out
+
+
+def gm_pooled_case(table, ids) -> dict:
+    """K3 on path B's table 0 with s = 3: uniform ids, 20% -1 padding, ids
+    at and past m, within TOL of ``bag_f32`` (f32)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_gm import embedding_bag_gm
+
+    m, b = table.shape[0], ids.shape[0]
+    rng = np.random.default_rng(22)
+    s3 = rng.integers(0, m, size=(b, 3))
+    s3[rng.random(s3.shape) < 0.2] = -1
+    s3[::7, 1] = m + 5
+    s3[::11, 2] = -9
+    s3 = torch.from_numpy(s3.astype(np.int32)).to(ids.device)
+    rec = _bag_record("embedding_bag_gm", embedding_bag_gm, table, s3, torch.float32)
+    rec["case"] = "s=3, ids outside [0, m) and -1 padding"
+    return rec
+
+
 def kernel_phase(paths: dict, counts: dict) -> list:
     import torch
 
     from repro_torch.kernels.embedding_gm import embedding_bag_gm
-    from repro_torch.kernels.embedding_l1 import embedding_bag_l1
     from repro_torch.kernels.embedding_ub import embedding_bag_ub
 
     dtypes = (torch.float32, torch.bfloat16, torch.float16)
@@ -946,7 +1078,8 @@ def kernel_phase(paths: dict, counts: dict) -> list:
     l1ub_table, l1ub_ids = _sym_case(  # the smallest table, swept as one resident tile
         a["engine"], a["indices"], _pick(a["engine"], "any", largest=False))
     gm_table, gm_ids = _sym_case(b["engine"], b["indices"], _pick(b["engine"], "GM"))
-    l1_table, l1_ids = _sym_case(b["engine"], b["indices"], _pick(b["engine"], "L1"))
+    l1_big = _pick(b["engine"], "L1")
+    l1_table, l1_ids = _sym_case(b["engine"], b["indices"], l1_big)
     l1r_table, l1r_ids = _sym_case(
         b["engine"], b["indices"], _pick(b["engine"], "L1", largest=False))
     for dtype in dtypes:
@@ -961,13 +1094,22 @@ def kernel_phase(paths: dict, counts: dict) -> list:
         recs["embedding_bag_ub"].append(dict(_bag_record(
             "embedding_bag_ub", embedding_bag_ub, l1ub_table, l1ub_ids, dtype, bitwise=True,
             persistent=True), case="persistent (L1-UB)"))
-        recs["embedding_bag_gm"].append(
-            _bag_record("embedding_bag_gm", embedding_bag_gm, gm_table, gm_ids, dtype))
+        recs["embedding_bag_gm"].append(_bag_record(
+            "embedding_bag_gm", embedding_bag_gm, gm_table, gm_ids, dtype, bitwise=True))
         recs["embedding_bag_l1"].append(
-            _bag_record("embedding_bag_l1", embedding_bag_l1, l1_table, l1_ids, dtype))
-        recs["embedding_bag_l1"].append(dict(_bag_record(
-            "embedding_bag_l1", embedding_bag_l1, l1r_table, l1r_ids, dtype),
-            case="resident"))
+            _l1_record(l1_table, l1_ids, dtype, f"path B's table {l1_big}"))
+        recs["embedding_bag_l1"].append(_l1_record(l1r_table, l1r_ids, dtype, "resident"))
+    head = recs["embedding_bag_l1"][0]
+    check(head["mode"] == "cluster", f"[kernel] path B's table {l1_big} is not served by a "
+          f"cluster: {head['mode']}")
+    head["sweep"] = l1_sweep(l1_table, l1_ids, l1r_table, l1r_ids)
+    one = _l1_record(l1_table, l1_ids[:1].contiguous(), torch.float32,
+                     f"one query on table {l1_big} (the staging alone)")
+    if isinstance(one["device_ms"], float) and isinstance(head["device_ms"], float):
+        one["to_uniform_device_ms"] = one["device_ms"] / head["device_ms"]
+    recs["embedding_bag_l1"].append(one)
+    recs["embedding_bag_l1"] += l1_mode_cases()
+    recs["embedding_bag_gm"].append(gm_pooled_case(gm_table, gm_ids))
     recs["embedding_bag_ub"] += ub_cases(ub_table, ub_ids, recs["embedding_bag_ub"][0])
     out = []
     for name, rs in recs.items():
@@ -978,10 +1120,12 @@ def kernel_phase(paths: dict, counts: dict) -> list:
         _, _, _, src, replaces = KERNELS[name]
         out.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": counts[name], "max_abs_err": max(r["max_err"] for r in rs),
+            "launches": counts[name], "max_abs_err": max(r.get("max_err", 0.0) for r in rs),
             "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"], "library_ms": head["library_ms"],
             "device_ms": head["device_ms"], "library_device_ms": head["library_device_ms"],
+            **{k: head[k] for k in ("mode", "cluster", "rows_per_cta", "grid", "threads")
+               if k in head},
         })
     return out
 
@@ -1011,6 +1155,8 @@ def main(argv=None) -> int:
     check(runs["A"]["counts"]["embedding_bag_ub"] > 0, "K2 not launched on path A")
     check(runs["B"]["counts"]["embedding_bag_gm"] > 0, "K3 not launched on path B")
     check(runs["B"]["counts"]["embedding_bag_l1"] > 0, "K4 not launched on path B")
+    check(runs["B"]["l1_modes"]["cluster"] > 0 and runs["B"]["l1_modes"]["resident"] > 0,
+          f"K4 on path B ran no cluster or no resident launch: {runs['B']['l1_modes']}")
     for name, k in (("dedup", "K5"), ("cache", "K6"), ("sparse", "K7")):
         check(runs["D"]["counts"][f"multi_embedding_bag_ragged[{name}]"] > 0,
               f"{k} ({name}) not launched on path D")

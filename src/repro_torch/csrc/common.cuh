@@ -3,19 +3,23 @@
 // Every embedding kernel here computes sum-pooled lookups: for each query
 // row q and embedding lane e, out[q, e] = sum over the query's ids of
 // row[id, e], read from an f32/bf16/f16 table and accumulated in f32.  Ids
-// outside the table (or window) contribute exactly zero.  Most of them split
-// the work the same way: a CTA of kThreads threads owns kPairs consecutive
-// (query, lane) pairs of the row-major (B, E) output, thread t holding pairs
-// t, t + kThreads, ... so that neighbouring threads read neighbouring lanes
-// of one row (coalesced) and each output element is summed by one thread in
-// a fixed order (no atomics, bitwise reproducible run to run).  The UB
-// kernel instead gives each CTA a range of table rows (embedding_ub.cu).
+// outside the table (or window) contribute exactly zero.  The fused, access
+// and dense kernels split the work the same way: a CTA of kThreads threads
+// owns kPairs consecutive (query, lane) pairs of the row-major (B, E)
+// output, thread t holding pairs t, t + kThreads, ... so that neighbouring
+// threads read neighbouring lanes of one row (coalesced) and each output
+// element is summed by one thread in a fixed order (no atomics, bitwise
+// reproducible run to run).  The GM and L1 kernels give each thread one
+// 16-byte vector of a query's row (embedding_gm.cu, embedding_l1.cu); the UB
+// kernel gives each CTA a range of table rows (embedding_ub.cu).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace rt {
 
@@ -61,35 +65,21 @@ __device__ __forceinline__ void stage_wait_prior() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
-// The L1 kernel's tiled fallback:
-// rows [row_lo, row_hi) of the table pass through shared memory tile_rows at
-// a time, and every pair adds the rows of its query's ids that fall in the
-// current tile.  Each id is compared against every tile, so the run time
-// does not depend on the id values (the UB property).
+// acc[0 .. 16 / sizeof(T)) += the 4 f32 or 8 bf16/f16 lanes of one 16-byte
+// vector of a table row, converted exactly to f32.
 template <typename T>
-__device__ __forceinline__ void sweep_tiles(const T* __restrict__ table, const int* __restrict__ idx,
-                                            T* tile, float (&acc)[kPer], long pair0, long total,
-                                            int s, int e, int row_lo, int row_hi, int tile_rows) {
-  for (int t0 = row_lo; t0 < row_hi; t0 += tile_rows) {
-    const int rows = min(tile_rows, row_hi - t0);
-    __syncthreads();  // the previous tile is no longer read
-    stage_async(tile, table + static_cast<long>(t0) * e, static_cast<long>(rows) * e * sizeof(T));
-    stage_wait();
-    __syncthreads();
+__device__ __forceinline__ void add_vec16(float (&acc)[8], uint4 w) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-    for (int k = 0; k < kPer; ++k) {
-      const long p = pair0 + static_cast<long>(k) * kThreads;
-      if (p < total) {
-        const long q = p / e;
-        const int lane = static_cast<int>(p - q * e);
-        const int* ids = idx + q * s;
-        float a = acc[k];
-        for (int j = 0; j < s; ++j) {
-          const int r = __ldg(ids + j) - t0;
-          if (r >= 0 && r < rows) a += to_f32(tile[static_cast<long>(r) * e + lane]);
-        }
-        acc[k] = a;
-      }
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (std::is_same<T, float>::value) {
+      acc[i] += __uint_as_float(u[i]);
+    } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      acc[2 * i] += __uint_as_float(u[i] << 16);
+      acc[2 * i + 1] += __uint_as_float(u[i] & 0xffff0000u);
+    } else {
+      acc[2 * i] += __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] & 0xffffu)));
+      acc[2 * i + 1] += __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] >> 16)));
     }
   }
 }

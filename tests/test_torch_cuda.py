@@ -10,8 +10,8 @@ Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
 order).  The dedup gather's two data flows are held bitwise equal, and so
 are the dense kernel and its plain version (both sum in position order) and
-the UB kernel and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is
-held array-equal to ``dedup_indices``.
+the UB, GM and L1 kernels and ``bag_f32`` for s = 1 (a row copy).  The
+dedup kernel is held array-equal to ``dedup_indices``.
 """
 import numpy as np
 import pytest
@@ -22,7 +22,12 @@ from repro_torch.data.workloads import small_workload
 from repro_torch.engine import EngineConfig, InferenceEngine
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.embedding_gm import embedding_bag_gm
-from repro_torch.kernels.embedding_l1 import embedding_bag_l1
+from repro_torch.kernels.embedding_l1 import (
+    CLUSTER_BYTES,
+    RESIDENT_BYTES,
+    embedding_bag_l1,
+    schedule_for,
+)
 from repro_torch.kernels.embedding_multi import (
     batch_dedup,
     dedup_indices,
@@ -142,6 +147,154 @@ def test_ub_kernel_skew_and_pooling(cuda, dtype, case, persistent):
     got = embedding_bag_ub(t, idx, persistent=persistent)
     torch.cuda.synchronize()
     assert embedding_bag_ub.launches == before + 1
+    want = ref.bag_f32(t, idx)
+    if s == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+def _table(rng, m, e, dtype, cuda, *, aligned=True):
+    """An (m, e) table on the card; ``aligned=False`` gives a contiguous
+    table whose data starts 4 bytes past a 16-byte boundary."""
+    t = torch.from_numpy(rng.standard_normal((m, e)).astype(np.float32)).to(dtype)
+    if aligned:
+        return t.to(cuda)
+    flat = torch.empty(m * e + 8, dtype=dtype, device=cuda)
+    start = 4 // t.element_size()
+    view = flat[start:start + m * e].view(m, e)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+# table bytes per L1 case: the mode and cluster size l1_schedule gives them
+L1_CASES = {
+    "resident": (RESIDENT_BYTES, "resident", 1),
+    "cluster_4": (4 * CLUSTER_BYTES, "cluster", 4),
+    "cluster_8": (8 * CLUSTER_BYTES, "cluster", 8),
+    "cluster_16": (16 * CLUSTER_BYTES, "cluster", 16),
+    "cluster_16_past_target": (16 * RESIDENT_BYTES, "cluster", 16),
+    "beyond": (12_800_000, "beyond", 0),
+}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(L1_CASES))
+def test_l1_kernel_modes(cuda, dtype, case):
+    """K4 in each mode: resident, a cluster of every size ``l1_schedule``
+    picks (16 where the card schedules it, else 8 or beyond), 16 with
+    slices up to the CTA budget, and beyond (the UB kernel); bitwise equal
+    to ``bag_f32`` at s = 1 with ids outside [0, m); the per-mode counter
+    counts the launch."""
+    from repro_torch.kernels.embedding_l1 import card_clusters
+
+    rng = np.random.default_rng(12)
+    e = 16
+    table_bytes, want_mode, want_c = L1_CASES[case]
+    row_bytes = e * torch.tensor([], dtype=dtype).element_size()
+    m = table_bytes // row_bytes
+    t = _table(rng, m, e, dtype, cuda)
+    ids = rng.integers(0, m, size=(5000, 1))
+    ids[::97] = -1
+    ids[5::101] = m + 7
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    sched = schedule_for(t, idx)
+    active = card_clusters(t.device.index, build.dtype_code(dtype))
+    if want_c == 16 and active(16, -(-m // 16) * row_bytes, sched.threads) < 1:
+        want_mode, want_c = ("cluster", 8) if -(-m // 8) * row_bytes <= RESIDENT_BYTES else (
+            "beyond", 0)
+    assert (sched.mode, sched.cluster if sched.mode != "beyond" else 0) == (want_mode, want_c)
+    before = dict(embedding_bag_l1.modes)
+    launches = embedding_bag_l1.launches
+    got = embedding_bag_l1(t, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag_l1.launches == launches + 1
+    assert {k: v - before[k] for k, v in embedding_bag_l1.modes.items()} == {
+        k: int(k == want_mode) for k in before}
+    assert torch.equal(got, ref.bag_f32(t, idx))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8, 16])
+@pytest.mark.parametrize("threads", [256, 1024])
+@pytest.mark.parametrize("s", [1, 3])
+def test_l1_kernel_any_cluster_size(cuda, cluster, threads, s):
+    """The cluster kernel at every size and CTA width, forced (l1_schedule
+    picks no cluster of 2: two slices of at most 64 KB hold a resident
+    table), on a 400 KB f32 table with ids outside [0, m): bitwise equal to
+    ``bag_f32`` at s = 1, within TOL at s = 3."""
+    from repro_torch.kernels.embedding_l1 import card_clusters, cluster_schedule, launch
+
+    rng = np.random.default_rng(15)
+    m, b = 6400, 3000
+    t = _table(rng, m, 16, torch.float32, cuda)
+    ids = rng.integers(-2, m + 3, size=(b, s))
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    smem = -(-m // cluster) * 64
+    active = card_clusters(t.device.index, 0)(cluster, smem, threads)
+    assert active >= 1
+    got = launch(t, idx, cluster_schedule(m, 64, b, cluster, active, threads))
+    torch.cuda.synchronize()
+    want = ref.bag_f32(t, idx)
+    if s == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["uniform", "one_row", "pooled", "unaligned"])
+def test_l1_kernel_taobao_table2(cuda, dtype, case):
+    """K4 at taobao table 2's shape (12,978 rows plus the zero row, E = 16,
+    B = 8192) in the cluster mode: uniform ids, one repeated row, s = 3 with
+    -1 padding and ids >= m, and a table 4 bytes off a 16-byte boundary (the
+    scalar path).  s = 1 is bitwise equal to ``bag_f32``; s = 3 within TOL."""
+    rng = np.random.default_rng(13)
+    m, b = 12_979, 8192
+    s = 3 if case == "pooled" else 1
+    t = _table(rng, m, 16, dtype, cuda, aligned=case != "unaligned")
+    ids = rng.integers(0, m, size=(b, s))
+    if case == "one_row":
+        ids[:] = 4321
+    elif case == "pooled":
+        ids[rng.random(ids.shape) < 0.2] = -1
+        ids[::7, 1] = m + 5
+        ids[::11, 2] = m
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    assert schedule_for(t, idx).mode == "cluster"
+    before = embedding_bag_l1.modes["cluster"]
+    got = embedding_bag_l1(t, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag_l1.modes["cluster"] == before + 1
+    want = ref.bag_f32(t, idx)
+    if s == 1:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e", [16, 32, 5, 12])
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_gm_kernel_matches_plain(cuda, dtype, e, s, aligned):
+    """K3 with 16-byte vector loads (E = 16 and 32; E = 12 in bf16/f16) and
+    on its scalar path (E = 5, rows of 20 or 10 bytes; E = 12 in f32, three
+    vectors a row; a table 4 bytes off a 16-byte boundary), s = 1 and 3,
+    ids outside [0, m) and -1 padding.  s = 1 is bitwise equal to
+    ``bag_f32``; s = 3 within TOL."""
+    rng = np.random.default_rng(14)
+    m, b = 100_003, 3001
+    t = _table(rng, m, e, dtype, cuda, aligned=aligned)
+    ids = rng.integers(0, m, size=(b, s))
+    ids[rng.random(ids.shape) < 0.1] = -1
+    ids[::13, 0] = m
+    ids[::17, s - 1] = -7
+    idx = torch.from_numpy(ids.astype(np.int32)).to(cuda)
+    before = embedding_bag_gm.launches
+    got = embedding_bag_gm(t, idx)
+    torch.cuda.synchronize()
+    assert embedding_bag_gm.launches == before + 1
     want = ref.bag_f32(t, idx)
     if s == 1:
         assert torch.equal(got, want)

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.kernels import ref as jref
 from repro.kernels.embedding_gm import embedding_bag_gm as jax_gm
@@ -21,7 +23,13 @@ from repro.kernels.embedding_ub import embedding_bag_ub as jax_ub
 from repro_torch.core.strategies import ALL_STRATEGIES
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.embedding_gm import embedding_bag_gm
-from repro_torch.kernels.embedding_l1 import embedding_bag_l1, l1_tile_rows
+from repro_torch.kernels.embedding_l1 import (
+    CLUSTER_BYTES,
+    CLUSTER_SIZES,
+    RESIDENT_BYTES,
+    embedding_bag_l1,
+    l1_schedule,
+)
 from repro_torch.kernels.embedding_multi import (
     multi_embedding_bag_ragged,
     ragged_block_b,
@@ -271,14 +279,19 @@ def _ub_writes(m, ids, sched):
 
 def test_launch_geometry():
     """Tile/range choices the CUDA launches use: the L1 kernel resident when
-    the table fits; the UB kernel's grid at path A's shapes (taobao table 1
+    the table fits, and a table no cluster holds on the UB kernel's grid;
+    the UB kernel's grid at path A's shapes (taobao table 1
     plus its zero row, B = 8192, s = 1) cuts the table into ranges that each
     row lies in exactly once, with the ids as one chunk (so every row is read
     by one CTA), 2 x 132 CTAs (two per SM: one wave), and a small table as
     one range whose ids are split over more than one CTA per SM."""
-    assert l1_tile_rows(100, 64) == 100
-    tile = l1_tile_rows(1_000_000, 64)
-    assert tile % 8 == 0 and tile * 64 <= 64 * 1024
+    l1 = l1_schedule(100, 64, 8192, 1, 132)
+    assert (l1.mode, l1.cluster, l1.rows_per_cta, l1.smem) == ("resident", 1, 100, 6400)
+    assert 0 < l1.grid <= 2 * 132
+    big = l1_schedule(1_000_000, 64, 8192, 1, 132)
+    assert (big.mode, big.cluster, big.smem) == ("beyond", 0, 0)
+    assert big.ub == ub_schedule(1_000_000, 8192, 64, block_m=512, persistent=False, n_sms=132)
+    assert big.grid == big.ub.n_ranges * big.ub.n_chunks
     m = 846_813
     sched = ub_schedule(m, 8192, 64, block_m=512, persistent=False, n_sms=132)
     assert sched.tile_rows * 64 == TILE_BYTES and sched.range_rows % 8 == 0
@@ -290,6 +303,95 @@ def test_launch_geometry():
         small = ub_schedule(98, 8192, 64, block_m=512, persistent=persistent, n_sms=132)
         assert (small.n_ranges, small.range_rows, small.tile_rows) == (1, 98, 98)
         assert 132 < small.n_ranges * small.n_chunks <= 2 * 132 and small.n_chunks * small.chunk_ids >= 8192
+
+
+def _check_l1_slices(m, row_bytes, sched):
+    """Every row of the table lies in exactly one CTA's slice of a cluster
+    (or the resident CTA's), each slice within its budget, ``C`` a power of
+    two up to 16 that divides the grid; beyond: the UB ranges cover the
+    table.  Under the default model of the card, which schedules every
+    cluster size."""
+    if sched.mode == "beyond":
+        assert -(-m // max(CLUSTER_SIZES)) * row_bytes > RESIDENT_BYTES
+        assert sched.ub.n_ranges * sched.ub.range_rows >= m
+        assert sched.rows_per_cta == sched.ub.range_rows
+        assert sched.grid == sched.ub.n_ranges * sched.ub.n_chunks
+        return
+    c, r = sched.cluster, sched.rows_per_cta
+    assert c in (1, *CLUSTER_SIZES) and c & (c - 1) == 0
+    assert sched.grid >= c and sched.grid % c == 0
+    assert sched.smem == r * row_bytes
+    owner = np.minimum(np.arange(m) // max(r, 1), c)
+    np.testing.assert_array_equal(np.bincount(owner, minlength=c)[c:], 0)  # each row in one slice
+    assert (sched.mode == "resident") == (m * row_bytes <= RESIDENT_BYTES)
+    if sched.mode == "resident":
+        assert (c, r) == (1, m) and sched.smem <= RESIDENT_BYTES
+        return
+    assert c > 1 and sched.smem <= RESIDENT_BYTES and (c - 1) * r < m <= c * r
+    if sched.smem <= CLUSTER_BYTES:  # the smallest size whose slice meets the target
+        assert all(-(-m // k) * row_bytes > CLUSTER_BYTES for k in CLUSTER_SIZES if k < c)
+    else:  # no size meets it: the largest
+        assert c == max(CLUSTER_SIZES)
+
+
+@pytest.mark.parametrize("rows,row_bytes,mode,cluster", [
+    (12_979, 64, "cluster", 16),   # taobao table 2 + zero row, f32: 830,656 B
+    (12_979, 32, "cluster", 8),    # the same in bf16/f16
+    (99, 64, "resident", 1),       # a 98-row table + zero row
+    (4_096, 64, "cluster", 4),     # 256 KB
+    (16_385, 64, "cluster", 16),   # ascend_910's largest L1 table (1 MiB) + zero row
+    (200_000, 64, "beyond", 0),    # 12.8 MB
+])
+def test_l1_schedule_cases(rows, row_bytes, mode, cluster):
+    """The modes the main path and the cost-model presets reach: taobao's
+    table 2 goes to a cluster in f32 and bf16, a 98-row table is resident,
+    the largest table ``ascend_910`` (1 MiB of L1) sends at E = 16 f32 takes
+    a cluster of 16 (its slice past the 64 KB target), and a 12.8 MB table
+    goes beyond."""
+    sched = l1_schedule(rows, row_bytes, 8192, 1, 132)
+    assert (sched.mode, sched.cluster) == (mode, cluster)
+    _check_l1_slices(rows, row_bytes, sched)
+    if mode == "cluster":  # one (query, 16-byte vector) per thread, 1024 threads a CTA
+        assert sched.threads == 1024
+        assert sched.grid == cluster * -(-8192 * row_bytes // 16 // (1024 * cluster))
+
+
+def test_l1_schedule_follows_the_card():
+    """The clusters the card holds bound the grid; a portable cluster it
+    cannot schedule raises; where a non-portable one (16) does not schedule,
+    the table takes 8 if its slices fit a CTA, else it goes beyond; a batch
+    that fills no cluster of 1024-thread CTAs takes 256 threads."""
+    one = l1_schedule(12_979, 64, 8192, 1, 132, active_clusters=lambda c, smem, threads: 1)
+    assert (one.mode, one.cluster, one.grid, one.threads) == ("cluster", 16, 16, 1024)
+    with pytest.raises(RuntimeError, match="cannot be scheduled"):
+        l1_schedule(12_979, 64, 8192, 1, 132, active_clusters=lambda c, smem, threads: 0)
+    no16 = dict(active_clusters=lambda c, smem, threads: 0 if c > 8 else 4)
+    assert l1_schedule(16_385, 64, 8192, 1, 132, **no16).cluster == 8
+    rows16 = 16 * (RESIDENT_BYTES // 64)
+    assert l1_schedule(rows16, 64, 8192, 1, 132).cluster == 16
+    assert l1_schedule(rows16, 64, 8192, 1, 132, **no16).mode == "beyond"
+    small = l1_schedule(12_979, 64, 512, 1, 132)
+    assert (small.cluster, small.threads, small.grid) == (16, 256, 16)
+
+
+@settings(max_examples=200, deadline=None)
+@given(
+    m=st.integers(min_value=0, max_value=80_000),
+    row_bytes=st.sampled_from([8, 20, 24, 32, 48, 64, 128, 256]),
+    b=st.integers(min_value=1, max_value=20_000),
+    s=st.integers(min_value=1, max_value=4),
+    n_sms=st.sampled_from([66, 132]),
+)
+def test_l1_schedule_slices_cover_table(m, row_bytes, b, s, n_sms):
+    """Whatever the table and batch, on a card whose SMs hold a cluster of
+    every size: each row in exactly one CTA's slice, each slice within the
+    budget, ``C`` a power of two <= 16 dividing the grid, and the grid at
+    most the clusters the SMs hold."""
+    sched = l1_schedule(m, row_bytes, b, s, n_sms)
+    _check_l1_slices(m, row_bytes, sched)
+    if sched.mode == "cluster":
+        per_sm = min(2048 // sched.threads, (228 * 1024) // (sched.smem + 1024))
+        assert sched.grid // sched.cluster <= max(1, n_sms * per_sm // sched.cluster)
 
 
 @pytest.mark.parametrize("persistent", [False, True])
