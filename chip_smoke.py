@@ -59,8 +59,17 @@ Phases (any failure raises and exits non-zero):
    with s=3, invalid ids and -1 padding; the dedup kernel array-equal to
    its plain op on path D's ids and on edge cases (all padding, one id,
    cap 1, a cap above the distinct count, s=3, slots wider than its bitmap
-   window); and path D's served call profiled for its launches (no sort,
-   scan or scatter kernel may run in it).
+   window); the unique-row gather array-equal to its plain version in f32,
+   bf16 and f16 at path D's cap and at the spill cap of 64; the access
+   calls in f32 bitwise equal to their plain versions (s = 1); path D's
+   served call profiled for its launches (no sort, scan or scatter kernel
+   may run in it) and its device time by kernel; its vector scatter at
+   each count of queries a thread (``scatter_queries``); and
+   ``access_by_block_r``: path D's plan repacked on the card at each block
+   size the sweep tries, the served call's device time by kernel and its
+   launches beside ``F.embedding_bag``'s, each output bitwise equal to its
+   plain version.  Path D's record carries the sweep's ``device_us`` for
+   every candidate, and its pick must be the least.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -154,8 +163,9 @@ def wrappers():
 def reset_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
-        for mode in getattr(fn, "modes", {}):
-            fn.modes[mode] = 0
+        for counts in (getattr(fn, "modes", {}), getattr(fn, "paths", {})):
+            for key in counts:
+                counts[key] = 0
 
 
 def read_counts() -> dict:
@@ -179,22 +189,27 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_calls(fn, calls: int = 10) -> dict:
+def profile_calls(fn, calls: int = 10, sessions: int = 3) -> dict:
     """The card's own time for ``fn``: ``torch.profiler`` device time of the
     CUDA kernels (and copies) it launches, per call, summed over them, the
-    number of such launches per call, and the time of each by name."""
+    number of such launches per call, and the time of each by name.  A
+    profiler session that records no device event is run again, up to
+    ``sessions`` in all."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
-              and e.self_device_time_total > 0]
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation
+                  and e.self_device_time_total > 0]
+        if events:
+            break
     kernels = {e.key: e.self_device_time_total / calls / 1e3 for e in events}
     return {"device_ms": sum(kernels.values()) if kernels else "not measured",
             "launches_per_call": sum(e.count for e in events) / calls,
@@ -276,6 +291,7 @@ def main_path(label: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
     l1_modes = dict(wrappers()["embedding_bag_l1"].modes)
+    access_paths = dict(wrappers()["multi_embedding_bag_ragged"].paths)
     engine, last = res["engine"], res["last"]
     s = res["stats"][args.distribution]
     check(s["submitted"] == s["served"] == args.queries,
@@ -329,13 +345,8 @@ def main_path(label: str) -> dict:
 
     forward_ms = host_ms(forward)
     lookup_ms = host_ms(lambda: (engine.lookup(idx), torch.cuda.synchronize()))
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        forward()
     # kernel events only (as the profiler's own "Self CUDA time total")
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.is_user_annotation) / 1e3
+    device_ms = profile_calls(forward, calls=1)["device_ms"]
     batches = args.queries // args.batch
     layout = engine.bag.layout_summary()
     rec = {
@@ -345,21 +356,26 @@ def main_path(label: str) -> dict:
         "wall_s": wall, "serve_wall_per_batch_ms": res["serve_wall_s"] / batches * 1e3,
         "p50_us": s["p50_us"], "p99_us": s["p99_us"],
         "forward_ms": forward_ms, "lookup_ms": lookup_ms,
-        "forward_device_ms": device_ms if device_ms > 0 else "not measured",
+        "forward_device_ms": device_ms,
         "plan": {"chunks": len(engine.plan.assignments),
                  "chunk_strategies": sorted(
                      {a.strategy.name for a in engine.plan.assignments}),
                  "symmetric": [[t, st.name] for t, st in zip(
                      engine.plan.symmetric_tables, engine.plan.symmetric_strategies)]},
-        "launches": counts, "l1_modes": l1_modes,
+        "launches": counts, "l1_modes": l1_modes, "access_paths": access_paths,
         "pooled_max_err": pooled_err, "logit_max_err": logit_err,
     }
     if engine.packed.unique_cap or engine.packed.cache_rows:
         rec["access"] = access_summary(engine, idx)
         rec["tuning"] = {k: tuning[k] for k in ("best", "backend", "compiled", "iters")}
         rec["tuning"]["candidates"] = [
-            {k: c[k] for k in ("block_r", "n_steps", "padding_frac", "wall_us")}
+            {k: c[k] for k in ("block_r", "n_steps", "padding_frac", "wall_us", "device_us")}
             for c in tuning["candidates"]]
+        times = [c["device_us"] for c in tuning["candidates"]]
+        check(all(isinstance(t, float) and t > 0 for t in times),
+              f"[main {label}] a sweep candidate has no device time: {times}")
+        check(tuning["best"]["device_us"] == min(times),
+              f"[main {label}] the sweep's pick is not its least device time: {tuning['best']}")
         rec["cache"] = engine.plan.meta["cache"]
         rec["kernel"] = engine.plan.meta["kernel"]["packed"]
     print(json.dumps(rec))
@@ -604,8 +620,10 @@ def _access_record(case, engine, idx, dtype, *, unique_cap, cache, kpath):
     want = multi_embedding_bag_ragged_plain(*args, **plain_kw)
     err = float((got - want).abs().max())
     check(torch.allclose(got, want, **TOL), f"[kernel] {case} {dtype}: max err {err}")
-    run_list = packed.step_runs.tolist()
     k, s_slots, b, s = lidx.shape
+    if dtype == torch.float32 and s == 1:  # one term per element, added in the same order
+        check(torch.equal(got, want), f"[kernel] {case} f32: not bitwise equal, max err {err}")
+    run_list = packed.step_runs.tolist()
     e = full.shape[-1]
     flat, gl = _global_rows(full, lidx_all, packed.step_block, run_list, packed.block_r)
 
@@ -791,10 +809,60 @@ def access_phase(path_d: dict, recs: dict) -> None:
         rec, _ = _access_record("cache alone", engine, idx, dtype, unique_cap=0, cache=True,
                                 kpath=None)
         recs["multi_embedding_bag_ragged[cache]"].append(rec)
+        for case_cap in (cap, spill_cap):
+            recs["multi_embedding_bag_ragged[dedup]"].append(
+                _gather_record(engine, lidx, case_cap, dtype))
     recs["batch_dedup"].append(_dedup_record("path D as served", lidx, cap))
     for case, (ids, case_cap) in dedup_edge_cases().items():
         recs["batch_dedup"].append(_dedup_record(case, ids, case_cap))
-    print(json.dumps({"breakdown": access_breakdown(engine, idx)}))
+    breakdown = access_breakdown(engine, idx)
+    breakdown["scatter_queries"] = scatter_sweep(engine, idx)
+    print(json.dumps({"breakdown": breakdown}))
+    print(json.dumps({"access_by_block_r": access_by_block_r(engine, idx)}))
+
+
+def _gather_record(engine, lidx, cap, dtype):
+    """The unique-row gather alone on path D's unique ids at ``cap``: array-
+    equal to ``gather_unique_rows_plain``, timed beside it; its bound is
+    ``rows_u`` written once, the unique ids and the distinct rows read once."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import (
+        batch_dedup,
+        gather_unique_rows,
+        gather_unique_rows_plain,
+    )
+
+    packed = engine.packed
+    buf = packed.chunk_data.to(dtype)[:, :-1]
+    uniq = batch_dedup(lidx, cap)[0]
+    args = (buf, uniq, packed.step_block, packed.step_runs)
+
+    def kernel():
+        return gather_unique_rows(*args, block_r=packed.block_r)
+
+    paths = dict(gather_unique_rows.paths)
+    got = kernel()
+    want = gather_unique_rows_plain(*args, block_r=packed.block_r)
+    torch.cuda.synchronize()
+    path = next(p for p in paths if gather_unique_rows.paths[p] > paths[p])
+    check(torch.equal(got, want),
+          f"[kernel] gather {dtype} cap {cap}: not array-equal to gather_unique_rows_plain")
+    k, s_slots, u = uniq.shape
+    e = buf.shape[-1]
+    rows = int((got.abs().sum(dim=-1) > 0).sum())  # entries with a row (nonzero)
+    rec = {
+        "name": "gather_unique_rows", "case": f"the gather alone, cap {cap}",
+        "dtype": str(dtype).replace("torch.", ""), "path": path,
+        "shape": {"K": k, "S": s_slots, "U": u, "E": e, "block_r": packed.block_r},
+        "max_err": 0.0, "rows_copied": rows,
+        "ms": time_ms(kernel),
+        "plain_ms": time_ms(lambda: gather_unique_rows_plain(*args, block_r=packed.block_r)),
+        "library_ms": None, **device_times(kernel),
+    }
+    rec["bound_ms"], rec["bound_by"] = bound(
+        got.numel() * 4 + uniq.numel() * 4 + rows * e * buf.element_size(), 0)
+    return rec
 
 
 def _dedup_record(case, lidx, cap):
@@ -868,11 +936,8 @@ def access_breakdown(engine, idx, calls: int = 10) -> dict:
     )
 
     packed = engine.packed
-    lidx, hidx, _ = _access_ids(engine, idx)
-    args = (packed.chunk_data[:, :-1], lidx, packed.step_block, packed.step_runs)
-    kw = dict(block_r=packed.block_r, unique_cap=packed.unique_cap, cache=packed.cache_data,
-              hidx=hidx, step_kpath=packed.step_kpath, step_slot=packed.step_slot,
-              step_base=packed.step_base)
+    args, kw = _served_args(packed, idx)
+    lidx = args[1]
 
     def served():
         return multi_embedding_bag_ragged(*args, **kw)
@@ -881,6 +946,7 @@ def access_breakdown(engine, idx, calls: int = 10) -> dict:
     plain_ops = [k for k in prof["kernels_ms"]
                  if any(w in k.lower() for w in ("sort", "scan", "scatter"))]
     check(not plain_ops, f"[access] the served call still runs the plain dedup op: {plain_ops}")
+    by_pass = _by_pass(prof["kernels_ms"])
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(calls):
@@ -894,8 +960,145 @@ def access_breakdown(engine, idx, calls: int = 10) -> dict:
         "host_enqueue_ms": enqueue_ms,
         "launches_per_call": prof["launches_per_call"],
         "device_ms": prof["device_ms"],
+        **{f"{name}_device_ms": ms for name, ms in by_pass.items()},
+        **_pass_bounds(packed, lidx),
         "kernels_ms": prof["kernels_ms"],
     }
+
+
+def _by_pass(kernels_ms: dict) -> dict:
+    """Device ms of the served access call's three kernels by pass."""
+    names = {"dedup": "dedup_kernel", "gather": "gather_kernel", "scatter": "access_"}
+    return {name: sum(ms for k, ms in kernels_ms.items() if key in k)
+            for name, key in names.items()}
+
+
+def _pass_bounds(packed, lidx) -> dict:
+    """The gather's and the scatter's bounds at path D's data (f32): the
+    gather writes rows_u and reads the unique ids and the distinct rows; the
+    scatter writes the (K, S, B, E) output and reads the rank, spill and cache
+    position of every lookup and rows_u."""
+    from repro_torch.kernels.embedding_multi import dedup_indices
+
+    k, s_slots, b, s = lidx.shape
+    e = packed.chunk_data.shape[-1]
+    u = packed.unique_cap
+    uniq = dedup_indices(lidx, u)[0]
+    distinct = int((uniq >= 0).sum())
+    rows_u = k * s_slots * u * e * 4
+    gather = bound(rows_u + uniq.numel() * 4 + distinct * e * 4, 0)[0]
+    scatter = bound(k * s_slots * b * e * 4 + 3 * lidx.numel() * 4 + rows_u, 0)[0]
+    return {"gather_bound_ms": gather, "scatter_bound_ms": scatter}
+
+
+def _served_args(packed, idx):
+    """The served access call's arguments for a pack: (args, kwargs)."""
+    import torch
+
+    from repro_torch.core.partition import _fused_ids
+
+    lidx, hidx = _fused_ids(packed, torch.as_tensor(idx, device=packed.device))
+    kw = dict(block_r=packed.block_r, unique_cap=packed.unique_cap, cache=packed.cache_data,
+              hidx=hidx, step_slot=packed.step_slot, step_base=packed.step_base,
+              step_kpath=packed.step_kpath if packed.kernel_path != "onehot" else None)
+    return (packed.chunk_data[:, :-1], lidx, packed.step_block, packed.step_runs), kw
+
+
+def scatter_sweep(engine, idx) -> list:
+    """The vector scatter of path D's served call at each count of queries a
+    thread, f32 and bf16: device time of the scatter kernel (the dedup and
+    gather kernels run too, unchanged), each output bitwise equal to the
+    wrapper's own pick, which is marked."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.embedding_multi import (
+        SCATTER_QUERIES,
+        _launch_access,
+        multi_embedding_bag_ragged,
+        scatter_queries,
+    )
+
+    out = []
+    args, kw = _served_args(engine.packed, idx)
+    for dtype in (torch.float32, torch.bfloat16):
+        buf = args[0].to(dtype)
+        cache = kw["cache"].to(dtype)
+        b, e = args[1].shape[2], buf.shape[-1]
+        pick = scatter_queries(b, e, buf.element_size(), args[1].shape[0] * args[1].shape[1],
+                               build.sm_count(buf.device))
+        want = multi_embedding_bag_ragged(buf, *args[1:], **dict(kw, cache=cache))
+        for q in SCATTER_QUERIES:
+            def call(q=q):
+                return _launch_access(buf, *args[1:], kw["block_r"], kw["unique_cap"], cache,
+                                      kw["hidx"], kw["step_kpath"], kw["step_slot"],
+                                      kw["step_base"], queries=q)
+
+            got = call()
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"[access] scatter with {q} queries a thread differs")
+            prof = profile_calls(call)
+            out.append({"dtype": str(dtype).replace("torch.", ""), "queries": q,
+                        "picked": q == pick,
+                        "ctas": -(-b // (256 // (e * buf.element_size() // 16) * q))
+                        * args[1].shape[0] * args[1].shape[1],
+                        "scatter_device_ms": _by_pass(prof["kernels_ms"])["scatter"]})
+    return out
+
+
+def access_by_block_r(engine, idx) -> list:
+    """Path D's served access call with its plan repacked on the card at each
+    block size the sweep tries (f32): device time by kernel (dedup, gather,
+    scatter) and launches a call, beside ``F.embedding_bag``'s device time
+    over the same lookups; fails if a candidate's output is not bitwise equal
+    to its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.autotune import _BLOCK_R_CANDIDATES
+    from repro_torch.core.partition import _slot_indices
+    from repro_torch.kernels.embedding_multi import (
+        multi_embedding_bag_ragged,
+        multi_embedding_bag_ragged_plain,
+    )
+
+    meta = copy.deepcopy(engine.plan.meta)  # pack_plan rewrites plan.meta["layout"]
+    ids = torch.as_tensor(idx, device=DEVICE)
+    out = []
+    for br in _BLOCK_R_CANDIDATES:
+        packed = engine.bag.pack(engine.table_data, block_r=br, device=DEVICE)
+        check((packed.unique_cap, packed.cache_rows, packed.kernel_path)
+              == (engine.packed.unique_cap, engine.packed.cache_rows, engine.packed.kernel_path),
+              f"[access] the repack at block_r={br} armed other access modes")
+        args, kw = _served_args(packed, idx)
+
+        def served(args=args, kw=kw):
+            return multi_embedding_bag_ragged(*args, **kw)
+
+        got = served()
+        plain_kw = {k: kw[k] for k in ("block_r", "unique_cap", "cache", "hidx")}
+        want = multi_embedding_bag_ragged_plain(*args, **plain_kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"[access] block_r={br}: not bitwise equal, max err {err}")
+        prof = profile_calls(served)
+        local, valid = _slot_indices(packed, ids)
+        full = packed.chunk_data
+        flat, gl = _global_rows(full, torch.where(valid, local, -1).to(torch.int32),
+                                packed.step_block, packed.step_runs.tolist(), br)
+        library = profile_calls(lambda: F.embedding_bag(gl, flat, mode="sum"))
+        rec = {"block_r": br, "n_steps": int(packed.step_slot.shape[-1]),
+               "runs": int(packed.step_runs.shape[0]), "max_err": err,
+               "device_ms": prof["device_ms"], "launches_per_call": prof["launches_per_call"],
+               **{f"{name}_device_ms": ms for name, ms in _by_pass(prof["kernels_ms"]).items()},
+               "library_device_ms": library["device_ms"]}
+        if isinstance(rec["device_ms"], float) and isinstance(rec["library_device_ms"], float):
+            rec["to_library"] = rec["device_ms"] / rec["library_device_ms"]
+        out.append(rec)
+        del packed, args, kw
+    engine.plan.meta.clear()
+    engine.plan.meta.update(meta)
+    return out
 
 
 def ub_cases(table, ids, uniform: dict) -> list:

@@ -9,13 +9,19 @@ grid tiles the batch itself).
 :func:`autotune_block_sizes` packs the plan abstractly (zero tables) at
 each candidate on the serving device, runs the fused lookup of every core
 with synthetic indices drawn from the histograms, and records the sweep in
-``plan.meta["tuning"]`` with the reference's keys.  On the card it times
-the CUDA kernels (host clock around ``torch.cuda.synchronize()``, with a
-warm-up call that also builds them) and records ``"compiled": True``; on the
-CPU it times the kernels' plain versions and records ``"compiled": False``,
-as the reference records interpret mode: the ranking then reflects step
-count and padding, not the card.  The reference times its heaviest core
-alone; here one launch runs all cores, so the whole launch is timed.
+``plan.meta["tuning"]`` with the reference's keys.  Every candidate carries
+``wall_us``, the host clock around ``iters`` lookups ending in a
+synchronize, and ``device_us``.  On the card ``device_us`` is the card's own
+time for one lookup: ``torch.profiler``'s CUDA self time of the kernels the
+lookup launches, summed over ``iters`` calls after a warm-up call (which
+also builds them), so the host's gaps between launches are left out; the
+sweep ranks by it (:func:`best_candidate`) and records ``"compiled": True``.
+The host clock ranks only the host's enqueue there.  On the CPU
+``device_us`` is ``None``, the sweep times the kernels' plain versions and
+ranks by ``wall_us``, and records ``"compiled": False``, as the reference
+records interpret mode: the ranking then reflects step count and padding,
+not the card.  The reference times its heaviest core alone; here one launch
+runs all cores, so the whole launch is timed.
 
 :class:`TuningCache` memoizes whole sweeps on a (plan shape digest, backend)
 key, the backend being ``"cuda"`` or ``"cpu"``; the access histograms are
@@ -38,7 +44,7 @@ from repro_torch.core.partition import _fused_asym_lookup, pack_plan
 from repro_torch.core.strategies import Plan
 from repro_torch.core.tables import TableSpec
 
-__all__ = ["TuningCache", "autotune_block_sizes", "plan_shape_digest"]
+__all__ = ["TuningCache", "autotune_block_sizes", "best_candidate", "plan_shape_digest"]
 
 _BLOCK_R_CANDIDATES = (64, 128, 256, 512)
 
@@ -131,6 +137,32 @@ def _synthetic_indices(tables, batch, freqs, seed) -> np.ndarray:
     return idx
 
 
+def best_candidate(candidates: Sequence[dict], backend: str) -> dict:
+    """The sweep's pick: the candidate with the least ``device_us`` on the
+    card (``backend == "cuda"``), else the least ``wall_us``."""
+    key = "device_us" if backend == "cuda" else "wall_us"
+    return min(candidates, key=lambda c: c[key])
+
+
+def _device_us(run, calls: int, sessions: int = 3) -> float:
+    """The card's time for one ``run()`` in microseconds: the CUDA self time
+    ``torch.profiler`` records for the kernels of ``calls`` runs, summed,
+    over ``calls``.  A session that records no device time is run again, up
+    to ``sessions`` in all; then it raises."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(sessions):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                run()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation)
+        if total > 0:
+            return total / calls
+    raise RuntimeError("the profiler recorded no device time for the sweep's lookup")
+
+
 def autotune_block_sizes(
     plan: Plan,
     tables: Sequence[TableSpec],
@@ -212,6 +244,7 @@ def autotune_block_sizes(
                             run()
                         sync()
                         wall_us = (time.perf_counter() - t0) / iters * 1e6
+                        device_us = _device_us(run, iters) if backend == "cuda" else None
                         lay = plan.meta["layout"]
                         candidates.append({
                             "block_r": br,
@@ -223,6 +256,7 @@ def autotune_block_sizes(
                             "padding_frac": lay["padding_frac"],
                             "chunk_bytes": lay["chunk_bytes"],
                             "wall_us": wall_us,
+                            "device_us": device_us,
                         })
                         del packed
     if not candidates:
@@ -230,7 +264,7 @@ def autotune_block_sizes(
             "no feasible autotune candidates: every combination was skipped "
             "(kernel_path='sparse' needs a nonzero unique_cap candidate)"
         )
-    best = min(candidates, key=lambda c: c["wall_us"])
+    best = best_candidate(candidates, backend)
     tuning = {
         "candidates": candidates,
         "best": dict(best),

@@ -3,15 +3,16 @@
 // Every embedding kernel here computes sum-pooled lookups: for each query
 // row q and embedding lane e, out[q, e] = sum over the query's ids of
 // row[id, e], read from an f32/bf16/f16 table and accumulated in f32.  Ids
-// outside the table (or window) contribute exactly zero.  The fused, access
-// and dense kernels split the work the same way: a CTA of kThreads threads
-// owns kPairs consecutive (query, lane) pairs of the row-major (B, E)
-// output, thread t holding pairs t, t + kThreads, ... so that neighbouring
-// threads read neighbouring lanes of one row (coalesced) and each output
-// element is summed by one thread in a fixed order (no atomics, bitwise
-// reproducible run to run).  The GM and L1 kernels give each thread one
-// 16-byte vector of a query's row (embedding_gm.cu, embedding_l1.cu); the UB
-// kernel gives each CTA a range of table rows (embedding_ub.cu).
+// outside the table (or window) contribute exactly zero.  The fused and
+// dense kernels, and the access kernels' scalar paths, split the work the
+// same way: a CTA of kThreads threads owns kPairs consecutive (query, lane)
+// pairs of the row-major (B, E) output, thread t holding pairs t,
+// t + kThreads, ... so that neighbouring threads read neighbouring lanes of
+// one row (coalesced) and each output element is summed by one thread in a
+// fixed order (no atomics, bitwise reproducible run to run).  The GM and L1
+// kernels and the access kernels' vector paths give each thread one 16-byte
+// vector of a row (embedding_gm.cu, embedding_l1.cu, embedding_access.cu);
+// the UB kernel gives each CTA a range of table rows (embedding_ub.cu).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -65,23 +66,32 @@ __device__ __forceinline__ void stage_wait_prior() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
 }
 
-// acc[0 .. 16 / sizeof(T)) += the 4 f32 or 8 bf16/f16 lanes of one 16-byte
+// v[0 .. 16 / sizeof(T)) = the 4 f32 or 8 bf16/f16 lanes of one 16-byte
 // vector of a table row, converted exactly to f32.
 template <typename T>
-__device__ __forceinline__ void add_vec16(float (&acc)[8], uint4 w) {
+__device__ __forceinline__ void vec16_to_f32(uint4 w, float (&v)[8]) {
   const uint32_t u[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     if constexpr (std::is_same<T, float>::value) {
-      acc[i] += __uint_as_float(u[i]);
+      v[i] = __uint_as_float(u[i]);
     } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-      acc[2 * i] += __uint_as_float(u[i] << 16);
-      acc[2 * i + 1] += __uint_as_float(u[i] & 0xffff0000u);
+      v[2 * i] = __uint_as_float(u[i] << 16);
+      v[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
     } else {
-      acc[2 * i] += __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] & 0xffffu)));
-      acc[2 * i + 1] += __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] >> 16)));
+      v[2 * i] = __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] & 0xffffu)));
+      v[2 * i + 1] = __half2float(__ushort_as_half(static_cast<unsigned short>(u[i] >> 16)));
     }
   }
+}
+
+// acc[0 .. 16 / sizeof(T)) += the lanes of one 16-byte vector (vec16_to_f32).
+template <typename T>
+__device__ __forceinline__ void add_vec16(float (&acc)[8], uint4 w) {
+  float v[8];
+  vec16_to_f32<T>(w, v);
+#pragma unroll
+  for (int i = 0; i < 16 / static_cast<int>(sizeof(T)); ++i) acc[i] += v[i];
 }
 
 }  // namespace rt

@@ -32,12 +32,13 @@ padded to the same ``R+1`` rows, ids pre-clipped to ``[0, R]`` with row
   the reference carries the dense multiplicity matrix ``cnt (S, B, U)``,
   the port carries each lookup's ``rank (S, B, s)`` (``-1`` for none):
   :func:`cnt_from_rank` rebuilds ``cnt`` for comparisons;
-* **gather path** (``step_kpath``, dedup only): per step, ``0`` streams the
-  step's ``(block_r, E)`` window through shared memory and picks the unique
-  ids in it (the read does not depend on the ids, like the reference's
-  one-hot GEMM), ``1`` copies each in-window unique row straight from
-  device memory (the reference's sparse gather).  Both are exact row
-  copies, so ``rows_u`` and the output are bitwise equal either way;
+* **gather path** (``step_kpath``, dedup only): the reference's per-step
+  choice between a one-hot GEMM over the step's window (``0``) and a sparse
+  gather of the in-window unique rows (``1``).  On the card both run the
+  same unique-row gather (:func:`gather_unique_rows`: one thread group per
+  unique entry copies its buffer row), so ``rows_u`` and the output are
+  bitwise equal either way; the wrapper still validates ``step_kpath`` and
+  counts it (``modes["sparse"]``);
 * **residency cache** (``cache (K, C, E)`` + ``hidx (K, S, B, s)``): hot
   lookups (``hidx >= 0``, already ``-1`` in ``lidx``) are summed from the
   core's resident mini-table once per slot.
@@ -57,6 +58,7 @@ __all__ = [
     "cnt_from_rank",
     "dedup_indices",
     "dedup_indices_bitmap",
+    "gather_unique_rows",
     "gather_unique_rows_plain",
     "multi_embedding_bag_dense",
     "multi_embedding_bag_dense_plain",
@@ -65,6 +67,7 @@ __all__ = [
     "ragged_block_b",
     "ragged_runs",
     "ragged_stage_rows",
+    "scatter_queries",
 ]
 
 # the reference's on-chip budget (bytes) for its batch chunking; kept so
@@ -79,15 +82,15 @@ _ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
          ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _GATHER_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p]
 _ACCESS_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p]
+                ctypes.c_int, ctypes.c_void_p]
 _DEDUP_ARGS = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 # the dedup kernel's bitmap window, in ids: 160 KB of bits plus 20 KB of
@@ -98,10 +101,13 @@ _GROUP_WORDS = 8  # bitmap words per rank group (csrc/embedding_dedup.cu)
 _DENSE_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                ctypes.c_int, ctypes.c_void_p]
-# shared memory (bytes) for one step's window in the one-hot gather, and for
-# the resident cache in the scatter pass (a larger cache is read from L2)
-GATHER_STAGE_BYTES = 64 * 1024
+# shared memory (bytes) for the resident cache in the scatter pass (a larger
+# cache is read from L2)
 CACHE_STAGE_BYTES = 64 * 1024
+# queries a thread of the vector scatter may own (csrc/embedding_access.cu)
+SCATTER_QUERIES = (1, 2, 4, 8)
+_THREADS = 256  # rt::kThreads
+_CTAS_PER_SM = 8  # 256-thread CTAs that fill an SM's 2,048 threads
 
 
 def _align8(n: int) -> int:
@@ -349,8 +355,8 @@ def _window_rows(ids, blocks, first, n, block_r):
 def gather_unique_rows_plain(buffer, uniq, step_block, runs, *, block_r: int) -> torch.Tensor:
     """The dedup gather in plain torch: buffer (K, T, E), uniq (K, S, U) ->
     rows_u (K, S, U, E) f32, each in-window unique id's row copied once
-    (zero for padding and out-of-window ids).  Both of the kernel's gather
-    paths compute exactly this."""
+    (zero for padding, out-of-window ids and slots without a run).  The
+    gather kernel computes exactly this, whatever the steps' gather path."""
     k, s_slots, u = uniq.shape
     rows_u = torch.zeros((k, s_slots, u, buffer.shape[-1]), dtype=torch.float32,
                          device=buffer.device)
@@ -359,6 +365,76 @@ def gather_unique_rows_plain(buffer, uniq, step_block, runs, *, block_r: int) ->
         valid, rows = _window_rows(uniq[core, slot].long(), blocks[core], first, n, block_r)
         rows_u[core, slot] = torch.where(valid[:, None], buffer[core][rows].float(), 0.0)
     return rows_u
+
+
+def gather_unique_rows(buffer, uniq, step_block, runs, *, block_r: int) -> torch.Tensor:
+    """:func:`gather_unique_rows_plain` through the gather kernel
+    (``csrc/embedding_access.cu``): the same ``rows_u (K, S, U, E)`` f32,
+    array-equal.  CPU tensors run the plain version, CUDA tensors the kernel
+    (one launch; 16-byte vectors where :func:`_vector_ok` allows, else the
+    scalar kernel, counted in ``gather_unique_rows.paths``)."""
+    if build.route(buffer, uniq, step_block, runs) == "cpu":
+        return gather_unique_rows_plain(buffer, uniq, step_block, runs, block_r=block_r)
+    if buffer.dim() != 3 or uniq.dim() != 3 or uniq.shape[0] != buffer.shape[0]:
+        raise ValueError(f"buffer (K, T, E) and uniq (K, S, U), got {tuple(buffer.shape)} "
+                         f"and {tuple(uniq.shape)}")
+    if buffer.stride(2) != 1 or buffer.stride(1) != buffer.shape[2]:
+        raise ValueError("buffer rows must be contiguous")
+    _check_ids(uniq, step_block, runs)
+    if buffer.shape[0] * uniq.shape[1] > _MAX_RUNS:
+        raise ValueError(f"{buffer.shape[0] * uniq.shape[1]} slots exceed the grid limit "
+                         f"{_MAX_RUNS}")
+    with torch.cuda.device(buffer.device):
+        rows_u, path = _launch_gather(buffer, uniq, step_block, runs, block_r,
+                                      build.stream_of(buffer.device))
+    gather_unique_rows.launches += 1
+    gather_unique_rows.paths[path] += 1
+    return rows_u
+
+
+gather_unique_rows.launches = 0
+gather_unique_rows.paths = {"vector": 0, "scalar": 0}
+
+
+def _vector_ok(buffer, *more) -> bool:
+    """Whether the access kernels may move 16-byte vectors: a row of the
+    buffer is a whole number of them, at most one per thread of a CTA, and
+    every tensor's rows start 16-byte aligned (its base and, for the
+    buffer, its core stride)."""
+    item = buffer.element_size()
+    row_bytes = buffer.shape[-1] * item
+    return (row_bytes % 16 == 0 and row_bytes <= 16 * _THREADS
+            and (buffer.stride(0) * item) % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (buffer, *more) if t is not None))
+
+
+def scatter_queries(b: int, e: int, itemsize: int, n_slots: int, n_sms: int) -> int:
+    """Queries each thread of the vector scatter owns: the largest of
+    :data:`SCATTER_QUERIES` whose grid (query tiles x ``n_slots``) still
+    offers every SM :data:`_CTAS_PER_SM` CTAs, else 1.  More queries a
+    thread stage the cache and find the run once for more queries; too few
+    CTAs leave SMs idle.  At path D's shapes this picks 4 in f32, the
+    fastest of the four counts there (PERF.md §6)."""
+    group = max(e * itemsize // 16, 1)
+    per_pass = max(_THREADS // group, 1)
+    for q in sorted(SCATTER_QUERIES, reverse=True):
+        if -(-b // (per_pass * q)) * n_slots >= _CTAS_PER_SM * n_sms:
+            return q
+    return 1
+
+
+def _launch_gather(buffer, uniq, step_block, runs, block_r, stream):
+    """The gather kernel on the current device -> (rows_u, "vector" or "scalar")."""
+    k, _, e = buffer.shape
+    _, s_slots, u_cap = uniq.shape
+    rows_u = torch.empty((k, s_slots, u_cap, e), dtype=torch.float32, device=buffer.device)
+    path = "vector" if _vector_ok(buffer, rows_u) else "scalar"
+    fn = build.c_function("embedding_access", "rt_ragged_gather", _GATHER_ARGS)
+    rc = fn(buffer.data_ptr(), buffer.stride(0), uniq.data_ptr(), step_block.data_ptr(),
+            step_block.shape[-1], runs.data_ptr(), runs.shape[0], k, s_slots, u_cap, e, block_r,
+            rows_u.data_ptr(), int(path == "vector"), build.dtype_code(buffer.dtype), stream)
+    build.check_launch(rc, "gather_unique_rows")
+    return rows_u, path
 
 
 def multi_embedding_bag_ragged_plain(
@@ -490,10 +566,14 @@ def _launch(buffer, lidx, step_block, runs, block_r, stage_rows):
 
 
 def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, hidx,
-                   step_kpath, step_slot, step_base):
+                   step_kpath, step_slot, step_base, *, queries=None):
     """Dedup and/or cache: (0) with dedup, the dedup kernel; (1) with dedup,
     the unique-row gather into ``rows_u``; (2) the scatter pass (ranks, spill
-    or plain ids, hot fold).  At most three launches and no torch op."""
+    or plain ids, hot fold).  At most three launches and no torch op.
+    ``step_kpath``/``step_slot``/``step_base`` are validated only: on the
+    card every step's gather is the same unique-row copy.  ``queries`` fixes
+    the vector scatter's queries a thread (default :func:`scatter_queries`);
+    the scalar kernels run where :func:`_vector_ok` refuses."""
     k, _, e = buffer.shape
     _, s_slots, b, seq = lidx.shape
     n_steps = step_block.shape[-1]
@@ -505,6 +585,8 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
     _check_ids(lidx, step_block, runs, *per_step)
     if k * s_slots > _MAX_RUNS:
         raise ValueError(f"{k * s_slots} slots exceed the grid limit {_MAX_RUNS}")
+    if queries is not None and queries not in SCATTER_QUERIES:
+        raise ValueError(f"queries must be one of {SCATTER_QUERIES}, got {queries}")
     cache_rows = 0
     if cache is not None:
         if cache.dtype != buffer.dtype:
@@ -518,23 +600,20 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
     dev = buffer.device
     dtype = build.dtype_code(buffer.dtype)
     item = buffer.element_size()
+    paths = multi_embedding_bag_ragged.paths
     with torch.cuda.device(dev):
         stream = build.stream_of(dev)
         rank = rows_u = None
         if unique_cap:
             uniq, rank, lidx = _launch_dedup(lidx, unique_cap, stream)
-            # the gather writes every entry of a slot with steps
-            rows_u = torch.empty((k, s_slots, unique_cap, e), dtype=torch.float32, device=dev)
-            stage = max(min(block_r, GATHER_STAGE_BYTES // (e * item)), 1)
-            gather = build.c_function("embedding_access", "rt_ragged_dedup_gather", _GATHER_ARGS)
-            rc = gather(buffer.data_ptr(), buffer.stride(0), uniq.data_ptr(),
-                        step_slot.data_ptr(), step_base.data_ptr(), step_block.data_ptr(),
-                        step_kpath.data_ptr() if step_kpath is not None else None,
-                        n_steps, k, s_slots, unique_cap, e, block_r, stage,
-                        rows_u.data_ptr(), dtype, stream)
-            build.check_launch(rc, "multi_embedding_bag_ragged (dedup gather)")
+            rows_u, gather_path = _launch_gather(buffer, uniq, step_block, runs, block_r, stream)
+            paths[f"gather_{gather_path}"] += 1
         stage_cache = int(cache_rows * e * item <= CACHE_STAGE_BYTES)
         out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=dev)  # all written
+        if not _vector_ok(buffer, cache, rows_u):
+            queries = 0  # the scalar kernel
+        elif queries is None:
+            queries = scatter_queries(b, e, item, k * s_slots, build.sm_count(dev))
         scatter = build.c_function("embedding_access", "rt_ragged_access", _ACCESS_ARGS)
         rc = scatter(buffer.data_ptr(), buffer.stride(0), lidx.data_ptr(),
                      rank.data_ptr() if rank is not None else None,
@@ -543,13 +622,14 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
                      cache.data_ptr() if cache is not None else None, cache_rows,
                      step_block.data_ptr(), n_steps, runs.data_ptr(), runs.shape[0],
                      out.data_ptr(), k, s_slots, b, seq, e, block_r, unique_cap, stage_cache,
-                     dtype, stream)
+                     queries, dtype, stream)
         build.check_launch(rc, "multi_embedding_bag_ragged (access)")
     modes = multi_embedding_bag_ragged.modes
     multi_embedding_bag_ragged.launches += 1
     modes["dedup"] += bool(unique_cap)
     modes["cache"] += cache is not None
     modes["sparse"] += step_kpath is not None
+    paths["scatter_vector" if queries else "scatter_scalar"] += 1
     return out
 
 
@@ -557,6 +637,9 @@ multi_embedding_bag_ragged.launches = 0
 # launches by mode: "base" (no access reduction), "dedup", "cache", and
 # "sparse" (given a step_kpath, which callers pass only with sparse steps)
 multi_embedding_bag_ragged.modes = {"base": 0, "dedup": 0, "cache": 0, "sparse": 0}
+# access-mode launches by the kernels' data path: 16-byte vectors or scalar
+multi_embedding_bag_ragged.paths = {"gather_vector": 0, "gather_scalar": 0,
+                                    "scatter_vector": 0, "scatter_scalar": 0}
 
 
 # --------------------------------------------------------------------------

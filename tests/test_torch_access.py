@@ -17,6 +17,9 @@
   equals the reference's for the same backend string; ``TuningCache`` hits
   on a shape-identical replan; the CPU sweep gives the reference's
   candidate list (all but the wall times).
+* ``gather_unique_rows_plain``, which the card's unique-row gather computes,
+  equals the per-step window gather of the TPU kernel's formulation on
+  random schedules; the access wrappers' vector-path and grid choices.
 
 Tolerance: f32 sums in another order than the reference's GEMMs.
 """
@@ -57,10 +60,13 @@ from repro_torch.kernels.embedding_multi import (
     cnt_from_rank,
     dedup_indices,
     dedup_indices_bitmap,
+    gather_unique_rows,
     gather_unique_rows_plain,
     multi_embedding_bag_ragged,
     ragged_runs,
+    scatter_queries,
 )
+from repro_torch.kernels.embedding_multi import _vector_ok
 from repro_torch.launch import serve as serve_cli
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -606,3 +612,140 @@ def test_serve_cli_access_full_sweep_on_cpu(capsys):
     engine = result["engine"]
     assert engine.packed.unique_cap > 0
     assert np.isfinite(result["last"]["logits"]).all()
+
+
+# --------------------------------------------------------------------------
+# the unique-row gather against the per-step window formulation
+# --------------------------------------------------------------------------
+
+
+def _per_step_rows(buf, uniq, step_slot, step_base, step_block, block_r, n_slots):
+    """rows_u the per-step way: each real step copies the unique ids that
+    fall in its window ``[base, base + block_r)`` out of its row block; every
+    entry no window holds stays zero."""
+    k, s_slots, u = uniq.shape
+    out = np.zeros((k, s_slots, u, buf.shape[-1]), np.float32)
+    for core in range(k):
+        for t in range(step_slot.shape[1]):
+            slot, base = int(step_slot[core, t]), int(step_base[core, t])
+            if slot >= n_slots:
+                continue  # schedule padding on the trash slot
+            blk = int(step_block[core, t])
+            window = buf[core, blk * block_r:(blk + 1) * block_r]
+            ids = uniq[core, slot]
+            hit = (ids >= base) & (ids < base + block_r)
+            out[core, slot, hit] = window[ids[hit] - base]
+    return out
+
+
+def _random_schedule(rng, k, n_slots, block_r, u, e=3):
+    """Per core a random order of slots, each with 0-3 consecutive steps
+    (0: no run), trash-slot padding to a common step count, distinct random
+    row blocks; per (core, slot) up to ``u`` sorted distinct ids, some past
+    the slot's region, ``-1`` padding last."""
+    per_core = []
+    for _ in range(k):
+        slots = [(int(s_i), int(rng.integers(0, 4))) for s_i in rng.permutation(n_slots)]
+        per_core.append([(s_i, n) for s_i, n in slots if n])
+    n_steps = max(sum(n for _, n in c) for c in per_core) + int(rng.integers(0, 3))
+    n_blocks = n_steps + 1
+    step_slot = np.full((k, n_steps), n_slots, np.int32)
+    step_base = np.zeros((k, n_steps), np.int32)
+    step_block = np.zeros((k, n_steps), np.int32)
+    uniq = np.full((k, n_slots, u), -1, np.int32)
+    for core, slots in enumerate(per_core):
+        blocks = rng.permutation(n_blocks)
+        t = 0
+        for s_i, n in slots:
+            step_slot[core, t:t + n] = s_i
+            step_base[core, t:t + n] = np.arange(n) * block_r
+            step_block[core, t:t + n] = blocks[t:t + n]
+            t += n
+        for s_i in range(n_slots):
+            region = dict(slots).get(s_i, 0) * block_r
+            pool = np.arange(region + 4)  # ids past the region too
+            m = int(rng.integers(0, min(u, len(pool)) + 1))
+            uniq[core, s_i, :m] = np.sort(rng.choice(pool, size=m, replace=False))
+    buf = rng.standard_normal((k, n_blocks * block_r, e)).astype(np.float32)
+    return buf, uniq, step_slot, step_base, step_block
+
+
+@settings(max_examples=80, deadline=None)
+@given(
+    k=st.integers(min_value=1, max_value=3),
+    n_slots=st.integers(min_value=1, max_value=4),
+    block_r=st.sampled_from([1, 2, 4, 8]),
+    u=st.integers(min_value=1, max_value=6),
+    seed=st.integers(min_value=0, max_value=2**31 - 1),
+)
+def test_unique_row_gather_equals_per_step_windows(k, n_slots, block_r, u, seed):
+    """The equivalence the card's gather rests on: copying each unique id's
+    row through its run (``gather_unique_rows_plain``) gives what the
+    per-step window gather gives, on random schedules with -1 padding, ids
+    past the region, slots without a run and U = 1."""
+    rng = np.random.default_rng(seed)
+    buf, uniq, step_slot, step_base, step_block = _random_schedule(rng, k, n_slots, block_r, u)
+    runs = ragged_runs(step_slot, step_base, np.zeros_like(step_slot), block_r, n_slots)
+    got = gather_unique_rows_plain(torch.from_numpy(buf), torch.from_numpy(uniq),
+                                   torch.from_numpy(step_block), torch.from_numpy(runs),
+                                   block_r=block_r)
+    want = _per_step_rows(buf, uniq, step_slot, step_base, step_block, block_r, n_slots)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["u_one", "no_run", "all_padding", "past_region"])
+def test_unique_row_gather_edge_cases(case):
+    """Fixed edge cases of the same equivalence, each in both formulations,
+    and ``gather_unique_rows`` on CPU tensors is the plain version (no
+    launch)."""
+    block_r, n_slots = 4, 3
+    # slot 0 has two steps, slot 2 one, then a padding step; slot 1 has no run
+    step_slot = np.array([[0, 0, 2, 3]], np.int32)
+    step_base = np.array([[0, 4, 0, 0]], np.int32)
+    step_block = np.array([[3, 0, 1, 0]], np.int32)
+    buf = np.random.default_rng(7).standard_normal((1, 16, 5)).astype(np.float32)
+    uniq = {
+        "u_one": np.array([[[5], [1], [3]]]),
+        "no_run": np.array([[[0, 7], [0, 2], [-1, -1]]]),
+        "all_padding": np.full((1, 3, 2), -1),
+        "past_region": np.array([[[6, 8, 9], [-1, -1, -1], [3, 4, 40]]]),
+    }[case].astype(np.int32)
+    runs = ragged_runs(step_slot, step_base, np.zeros_like(step_slot), block_r, n_slots)
+    args = (torch.from_numpy(buf), torch.from_numpy(uniq), torch.from_numpy(step_block),
+            torch.from_numpy(runs))
+    before = gather_unique_rows.launches
+    got = gather_unique_rows(*args, block_r=block_r)
+    assert gather_unique_rows.launches == before
+    want = _per_step_rows(buf, uniq, step_slot, step_base, step_block, block_r, n_slots)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(gather_unique_rows_plain(*args, block_r=block_r).numpy(), want)
+    assert not got[0, 1].any()  # slot 1 has no run: zeros
+
+
+@pytest.mark.parametrize("dtype,e,offset,want", [
+    (torch.float32, 16, 0, True), (torch.bfloat16, 16, 0, True), (torch.float16, 8, 0, True),
+    (torch.float32, 6, 0, False), (torch.bfloat16, 4, 0, False), (torch.float32, 16, 1, False),
+])
+def test_access_vector_path_needs_whole_aligned_vectors(dtype, e, offset, want):
+    """The access kernels move 16-byte vectors only where a row is a whole
+    number of them and the data starts 16-byte aligned."""
+    flat = torch.zeros(2 * 32 * e + 8, dtype=dtype)
+    buf = flat[offset:offset + 2 * 32 * e].view(2, 32, e)
+    assert _vector_ok(buf) is want
+    assert _vector_ok(buf, torch.zeros(8), None) is want
+
+
+@pytest.mark.parametrize("b,e,item,slots,want", [
+    (8192, 16, 4, 56, 4),  # path D in f32: 1,792 CTAs over 132 SMs
+    (8192, 16, 2, 56, 2),  # path D in bf16: two threads a query
+    (700, 16, 4, 12, 1),  # too few queries to fill the card
+    (8192, 16, 4, 4096, 8),
+])
+def test_scatter_queries_keeps_every_sm_busy(b, e, item, slots, want):
+    """The vector scatter's queries a thread: the most that still give every
+    SM a full set of CTAs."""
+    q = scatter_queries(b, e, item, slots, 132)
+    assert q == want
+    per_pass = 256 // (e * item // 16)
+    if q > 1:
+        assert -(-b // (per_pass * q)) * slots >= 8 * 132

@@ -9,9 +9,11 @@ runs on a machine with only PyTorch:
 Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
 order).  The dedup gather's two data flows are held bitwise equal, and so
-are the dense kernel and its plain version (both sum in position order) and
-the UB, GM and L1 kernels and ``bag_f32`` for s = 1 (a row copy).  The
-dedup kernel is held array-equal to ``dedup_indices``.
+are the access call and its plain version at s = 1, the dense kernel and
+its plain version (both sum in position order) and the UB, GM and L1
+kernels and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is held
+array-equal to ``dedup_indices``, the unique-row gather to
+``gather_unique_rows_plain``.
 """
 import numpy as np
 import pytest
@@ -28,9 +30,14 @@ from repro_torch.kernels.embedding_l1 import (
     embedding_bag_l1,
     schedule_for,
 )
+from repro_torch.kernels import embedding_multi
 from repro_torch.kernels.embedding_multi import (
+    CACHE_STAGE_BYTES,
+    SCATTER_QUERIES,
     batch_dedup,
     dedup_indices,
+    gather_unique_rows,
+    gather_unique_rows_plain,
     multi_embedding_bag_dense,
     multi_embedding_bag_dense_plain,
     multi_embedding_bag_ragged,
@@ -506,3 +513,183 @@ def test_dense_engine_on_card_matches_cpu(cuda):
         gpu.config.reduce_mode = cpu.config.reduce_mode = reduce_mode
         torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
     assert multi_embedding_bag_dense.launches == before + 3
+
+
+# --------------------------------------------------------------------------
+# the served access call's unique-row gather and vector scatter
+# --------------------------------------------------------------------------
+
+ACCESS_BLOCK_R = 16
+# per core, (slot, steps) in schedule order; slot 2 has no run on core 0,
+# slots 1 and 3 none on core 1; padding steps fill core 1 up
+ACCESS_RUNS = [[(0, 3), (3, 2), (1, 1)], [(2, 4), (0, 1)]]
+ACCESS_SLOTS = 4
+
+
+def _unique_case(cuda, dtype, e, *, u=300, unaligned=False, seed=12):
+    """Two cores of the schedule above, a (K, S, U) unique-id array with
+    sorted ids (some past the slot's region) and -1 padding; U = 300 fills no
+    CTA tile evenly.  ``unaligned`` starts the buffer 4 bytes past a 16-byte
+    boundary."""
+    rng = np.random.default_rng(seed)
+    n_steps = max(sum(n for _, n in c) for c in ACCESS_RUNS)
+    step_slot = np.full((2, n_steps), ACCESS_SLOTS, np.int32)
+    step_base = np.zeros((2, n_steps), np.int32)
+    step_block = np.zeros((2, n_steps), np.int32)
+    uniq = np.full((2, ACCESS_SLOTS, u), -1, np.int32)
+    for core, runs in enumerate(ACCESS_RUNS):
+        blocks = rng.permutation(n_steps)
+        t = 0
+        for slot, n in runs:
+            step_slot[core, t:t + n] = slot
+            step_base[core, t:t + n] = np.arange(n) * ACCESS_BLOCK_R
+            step_block[core, t:t + n] = blocks[t:t + n]
+            t += n
+        for slot in range(ACCESS_SLOTS):
+            region = dict(runs).get(slot, 1) * ACCESS_BLOCK_R
+            m = int(rng.integers(u // 2, u + 1))
+            ids = rng.choice(region + 40, size=min(m, region + 40), replace=False)
+            uniq[core, slot, :len(ids)] = np.sort(ids)
+    t_rows = n_steps * ACCESS_BLOCK_R
+    flat = torch.from_numpy(rng.standard_normal(2 * t_rows * e + 8).astype(np.float32))
+    flat = flat.to(dtype).to(cuda)
+    off = 1 if unaligned else 0
+    buf = flat[off:off + 2 * t_rows * e].view(2, t_rows, e)
+    runs = ragged_runs(step_slot, step_base, np.zeros_like(step_slot), ACCESS_BLOCK_R,
+                       ACCESS_SLOTS)
+    d = {n: torch.from_numpy(a).to(cuda) for n, a in
+         (("slot", step_slot), ("base", step_base), ("block", step_block), ("runs", runs),
+          ("uniq", uniq))}
+    return buf, d
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,unaligned,path", [(16, False, "vector"), (6, False, "scalar"),
+                                              (16, True, "scalar")])
+def test_gather_kernel_array_equal_to_plain(cuda, dtype, e, unaligned, path):
+    """The unique-row gather is an exact copy: array-equal to
+    ``gather_unique_rows_plain`` (and to the CPU's) with -1 padding, ids past
+    the region, slots without a run and U off the CTA tile, in the 16-byte
+    vector path and the scalar one (E = 6, or an unaligned buffer)."""
+    buf, d = _unique_case(cuda, dtype, e, unaligned=unaligned)
+    before = dict(gather_unique_rows.paths)
+    got = gather_unique_rows(buf, d["uniq"], d["block"], d["runs"], block_r=ACCESS_BLOCK_R)
+    torch.cuda.synchronize()
+    assert gather_unique_rows.paths[path] == before[path] + 1
+    want = gather_unique_rows_plain(buf, d["uniq"], d["block"], d["runs"],
+                                    block_r=ACCESS_BLOCK_R)
+    assert torch.equal(got, want)
+    cpu = gather_unique_rows_plain(buf.cpu(), d["uniq"].cpu(), d["block"].cpu(),
+                                   d["runs"].cpu(), block_r=ACCESS_BLOCK_R)
+    assert torch.equal(got.cpu(), cpu)
+    assert not got[0, 2].any() and not got[1, 1].any()  # slots without a run
+
+
+def _scatter_case(cuda, dtype, e, s, *, cache_rows, unaligned=False, seed=13):
+    """The gather case's schedule with (K, S, B, s) ids over each slot's
+    region (-1 padding and out-of-window ids included) and, with a cache, 30%
+    of lookups split off to hot rows."""
+    buf, d = _unique_case(cuda, dtype, e, unaligned=unaligned)
+    rng = np.random.default_rng(seed)
+    b = 700
+    lidx = np.full((2, ACCESS_SLOTS, b, s), -1, np.int32)
+    for core, runs in enumerate(ACCESS_RUNS):
+        for slot in range(ACCESS_SLOTS):
+            region = dict(runs).get(slot, 1) * ACCESS_BLOCK_R
+            lidx[core, slot] = rng.integers(-3, region + 9, size=(b, s))
+    kw = dict(block_r=ACCESS_BLOCK_R, step_slot=d["slot"], step_base=d["base"])
+    if cache_rows:
+        hidx = np.where(rng.random(lidx.shape) < 0.3,
+                        rng.integers(0, cache_rows, size=lidx.shape), -1).astype(np.int32)
+        lidx = np.where(hidx >= 0, -1, lidx).astype(np.int32)
+        cache = rng.standard_normal((2, cache_rows, e)).astype(np.float32)
+        kw.update(cache=torch.from_numpy(cache).to(dtype).to(cuda),
+                  hidx=torch.from_numpy(hidx).to(cuda))
+    return (buf, torch.from_numpy(lidx).to(cuda), d["block"], d["runs"]), kw
+
+
+# cache rows: none, staged in shared memory, and past CACHE_STAGE_BYTES (read
+# from L2) at every dtype's row size
+SCATTER_CACHES = {"none": 0, "staged": 24, "l2": 4200}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("cache,unique_cap", [
+    (cache, cap) for cache in SCATTER_CACHES for cap in (0, 256, 8) if cache != "none" or cap])
+def test_access_scatter_matches_plain(cuda, dtype, s, cache, unique_cap):
+    """The served access call (dedup kernel, gather, vector scatter) against
+    its plain version: bitwise at s = 1, within TOL at s = 3; with the
+    dedup's spill (cap 8), the cache staged or read from L2, and the cache
+    alone.  Counted by the wrapper's own counters: one gather and one scatter
+    launch, both 16-byte vector paths."""
+    cache_rows = SCATTER_CACHES[cache]
+    args, kw = _scatter_case(cuda, dtype, 16, s, cache_rows=cache_rows)
+    if cache == "l2":
+        assert cache_rows * 16 * args[0].element_size() > CACHE_STAGE_BYTES
+    paths = multi_embedding_bag_ragged.paths
+    before = dict(paths), batch_dedup.launches
+    got = multi_embedding_bag_ragged(*args, unique_cap=unique_cap, **kw)
+    torch.cuda.synchronize()
+    assert paths["gather_vector"] - before[0]["gather_vector"] == bool(unique_cap)
+    assert paths["scatter_vector"] - before[0]["scatter_vector"] == 1
+    assert batch_dedup.launches - before[1] == bool(unique_cap)
+    plain_kw = {k: v for k, v in kw.items() if k not in ("step_slot", "step_base")}
+    want = multi_embedding_bag_ragged_plain(*args, unique_cap=unique_cap, **plain_kw)
+    if s == 1:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, **TOL)
+    assert not got[0, 2].any() and not got[1, 1].any()  # slots without a run
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("queries", list(SCATTER_QUERIES))
+def test_access_scatter_any_queries_per_thread(cuda, dtype, queries):
+    """The vector scatter at each count of queries a thread (the grid the
+    wrapper may pick), bitwise at s = 1 with dedup, spill and the cache."""
+    args, kw = _scatter_case(cuda, dtype, 16, 1, cache_rows=24)
+    buf, lidx, block, runs = args
+    got = embedding_multi._launch_access(
+        buf, lidx, block, runs, ACCESS_BLOCK_R, 64, kw["cache"], kw["hidx"], None,
+        kw["step_slot"], kw["step_base"], queries=queries)
+    torch.cuda.synchronize()
+    want = multi_embedding_bag_ragged_plain(*args, block_r=ACCESS_BLOCK_R, unique_cap=64,
+                                            cache=kw["cache"], hidx=kw["hidx"])
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,unaligned", [(6, False), (16, True)])
+@pytest.mark.parametrize("s", [1, 3])
+def test_access_scalar_path_matches_plain(cuda, dtype, e, unaligned, s):
+    """Rows that are no whole number of 16-byte vectors, or an unaligned
+    buffer, take the scalar gather and scatter: bitwise at s = 1, within TOL
+    at s = 3, with dedup, spill and the cache."""
+    args, kw = _scatter_case(cuda, dtype, e, s, cache_rows=24, unaligned=unaligned)
+    paths = multi_embedding_bag_ragged.paths
+    before = dict(paths)
+    got = multi_embedding_bag_ragged(*args, unique_cap=8, **kw)
+    torch.cuda.synchronize()
+    assert paths["gather_scalar"] == before["gather_scalar"] + 1
+    assert paths["scatter_scalar"] == before["scatter_scalar"] + 1
+    plain_kw = {k: v for k, v in kw.items() if k not in ("step_slot", "step_base")}
+    want = multi_embedding_bag_ragged_plain(*args, unique_cap=8, **plain_kw)
+    if s == 1:
+        assert torch.equal(got, want)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+def test_sweep_on_the_card_ranks_by_device_time(cuda):
+    """The CUDA sweep times every candidate by the card's own time and picks
+    the least ``device_us``; ``wall_us`` stays recorded beside it."""
+    wl = small_workload(batch=64)
+    config = EngineConfig(mesh_shape=(1, 4), distribution="zipf:1.2", hardware="a100",
+                          access="full", tuning="sweep", planner_options={"shard_rocks": True})
+    eng = InferenceEngine.build(None, wl, config)
+    t = eng.plan.meta["tuning"]
+    assert t["backend"] == "cuda" and t["compiled"] is True
+    assert [c["block_r"] for c in t["candidates"]] == [64, 128, 256, 512]
+    assert all(isinstance(c["device_us"], float) and c["device_us"] > 0
+               and c["wall_us"] > 0 for c in t["candidates"])
+    assert t["best"]["device_us"] == min(c["device_us"] for c in t["candidates"])
+    assert eng.packed.block_r == t["best"]["block_r"]
