@@ -45,7 +45,14 @@ Phases (any failure raises and exits non-zero):
    by ``torch.profiler``'s device time of its own kernels (``device_ms``)
    beside its plain version and one PyTorch library call computing the
    same lookups (``F.embedding_bag``, a yardstick only, also in device
-   time); the L1 kernel (K4) with its mode, cluster size, rows per CTA,
+   time); the fused base kernel (K1, paths A and C and the mixed case) and
+   the dense kernel (K8, path E) bitwise equal to their plain versions in
+   every dtype, each call one kernel on the card (``kernels_ms``), with its
+   vector or scalar path and its queries a thread, K1 with the CTAs an SM
+   its vector kernel holds and also on path A with every region gathered
+   (``stage_rows=0``), and both at each count of queries a thread
+   (``queries_sweep``: the wrapper's pick within 10% of the best); the L1
+   kernel (K4) with its mode, cluster size, rows per CTA,
    grid and CTA width, on path B's tables (table 2 must be served by a
    thread-block cluster), on one query of table 2 (the staging alone), at
    every cluster size that schedules and beyond, and on table 2 at each
@@ -292,6 +299,7 @@ def main_path(label: str) -> dict:
     counts = read_counts()
     l1_modes = dict(wrappers()["embedding_bag_l1"].modes)
     access_paths = dict(wrappers()["multi_embedding_bag_ragged"].paths)
+    dense_paths = dict(wrappers()["multi_embedding_bag_dense"].paths)
     engine, last = res["engine"], res["last"]
     s = res["stats"][args.distribution]
     check(s["submitted"] == s["served"] == args.queries,
@@ -363,6 +371,7 @@ def main_path(label: str) -> dict:
                  "symmetric": [[t, st.name] for t, st in zip(
                      engine.plan.symmetric_tables, engine.plan.symmetric_strategies)]},
         "launches": counts, "l1_modes": l1_modes, "access_paths": access_paths,
+        "dense_paths": dense_paths,
         "pooled_max_err": pooled_err, "logit_max_err": logit_err,
     }
     if engine.packed.unique_cap or engine.packed.cache_rows:
@@ -493,11 +502,39 @@ def _ragged_inputs(engine, idx):
     return packed.chunk_data, lidx, packed.step_block, packed.step_runs, packed.block_r
 
 
-def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
+def _one_kernel(name: str, rec: dict) -> None:
+    """K1's and K8's calls are one kernel each on the card (no fill, no copy):
+    ``kernels_ms`` names one kernel and the call launches at most one (the
+    profiler may drop a record, never add one)."""
+    check(len(rec["kernels_ms"]) == 1 and rec["kernels_per_call"] <= 1,
+          f"[kernel] {name}: not one kernel a call: {rec['kernels_ms']}")
+
+
+def _ragged_ctas_per_sm(dtype, queries: int, smem_bytes: int):
+    """CTAs of the base kernel's vector path an SM holds at ``queries`` a
+    thread and ``smem_bytes`` of staging (the card's occupancy calculator)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    fn = build.c_function("embedding_multi", "rt_ragged_ctas_per_sm",
+                          [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    n = ctypes.c_int(0)
+    build.check_launch(fn(queries, smem_bytes, build.dtype_code(dtype), ctypes.byref(n)),
+                       "rt_ragged_ctas_per_sm")
+    return n.value
+
+
+def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype, *, stage_rows=None):
+    """K1 at a main path's shapes against its plain version, bitwise, timed
+    beside it and beside one ``F.embedding_bag`` over the same lookups;
+    ``stage_rows`` defaults to the pack's (:func:`ragged_stage_rows`), 0
+    gathers every region."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_multi import (
+        _queries,
         multi_embedding_bag_ragged,
         multi_embedding_bag_ragged_plain,
         ragged_stage_rows,
@@ -508,17 +545,20 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
     k, t1, e = full.shape
     zero_row = t1 - 1
     run_list = runs.tolist()
-    stage_rows = ragged_stage_rows(run_list, block_r, e * full.element_size())
+    if stage_rows is None:
+        stage_rows = ragged_stage_rows(run_list, block_r, e * full.element_size())
 
     def kernel():
         return multi_embedding_bag_ragged(buf, lidx, step_block, runs, block_r=block_r,
                                           stage_rows=stage_rows)
 
+    paths = dict(multi_embedding_bag_ragged.paths)
     got = kernel()
     torch.cuda.synchronize()
+    path = next(p for p in paths if multi_embedding_bag_ragged.paths[p] > paths[p])
     want = multi_embedding_bag_ragged_plain(buf, lidx, step_block, runs, block_r=block_r)
     err = float((got - want).abs().max())
-    check(torch.allclose(got, want, **TOL), f"[kernel] ragged {dtype}: max err {err}")
+    check(torch.equal(got, want), f"[kernel] ragged {dtype}: not bitwise equal, max err {err}")
     # library yardstick: one embedding_bag over global buffer rows
     s_slots, b, s = lidx.shape[1:]
     flat, gl = _global_rows(full, lidx, step_block, run_list, block_r)
@@ -528,25 +568,78 @@ def _ragged_record(buffer_full, lidx, step_block, runs, block_r, dtype):
 
     lib = library().view(k, s_slots, b, e)
     lib_err = float((lib.float() - want).abs().max())
+    queries = _queries(None, path == "base_vector", b, e, full.element_size(), k * s_slots,
+                       full.device)
     rec = {
         "name": "multi_embedding_bag_ragged", "dtype": str(dtype).replace("torch.", ""),
         "shape": {"K": k, "T": t1 - 1, "E": e, "S": s_slots, "B": b, "s": s,
                   "block_r": block_r, "runs": len(run_list), "stage_rows": stage_rows,
                   "codes": sorted({r[4] for r in run_list})},
+        "path": path, "queries": queries,
+        "ctas_per_sm": _ragged_ctas_per_sm(dtype, queries, stage_rows * e * full.element_size()),
         "max_err": err, "library_max_err": lib_err,
         "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: multi_embedding_bag_ragged_plain(
             buf, lidx, step_block, runs, block_r=block_r)),
         "library_ms": time_ms(library),
         **device_times(kernel, library),
+        "kernels_ms": profile_calls(kernel)["kernels_ms"],
     }
+    _one_kernel("ragged", rec)
     real = gl.view(k, s_slots, b, s)[[r[0] for r in run_list], [r[1] for r in run_list]]
     uniq = int(torch.unique(real[real % t1 != zero_row]).numel())
     n_runs = len(run_list)
+    row_bytes = uniq * e * full.element_size()
+    # the whole (K, S, B, E) output the call returns, the runs' ids, the rows
+    # they hit; bound_runs_ms counts the runs' outputs only (the older figure)
     rec["bound_ms"], rec["bound_by"] = bound(
-        uniq * e * full.element_size() + n_runs * b * s * 4 + n_runs * b * e * 4,
-        n_runs * b * s * e)
+        row_bytes + n_runs * b * s * 4 + k * s_slots * b * e * 4, n_runs * b * s * e)
+    rec["bound_runs_ms"] = bound(row_bytes + n_runs * b * s * 4 + n_runs * b * e * 4,
+                                 n_runs * b * s * e)[0]
     return rec
+
+
+def ragged_queries_sweep(buffer_full, lidx, step_block, runs, block_r) -> list:
+    """K1 on path A (f32, the pack's staging) at each count of queries a
+    thread (:func:`queries_sweep`)."""
+    from repro_torch.kernels.embedding_multi import _launch, ragged_stage_rows
+
+    buf = buffer_full[:, :-1]
+    k, _, e = buf.shape
+    stage_rows = ragged_stage_rows(runs.tolist(), block_r, e * buf.element_size())
+
+    def call(q):
+        return _launch(buf, lidx, step_block, runs, block_r, stage_rows, queries=q)
+
+    return queries_sweep("ragged", call, call(None), lidx.shape[2], e, buf.element_size(),
+                         k * lidx.shape[1])
+
+
+def queries_sweep(name: str, call, want, b: int, e: int, itemsize: int, n_slots: int) -> list:
+    """K1 or K8 (f32, the main path's shapes) at each count of queries a
+    thread: each output bitwise equal to the wrapper's, the device time of
+    its one kernel; fails unless the wrapper's pick is within 10% of the
+    best."""
+    import torch
+
+    from repro_torch.kernels.embedding_multi import SCATTER_QUERIES, _queries
+
+    pick = _queries(None, True, b, e, itemsize, n_slots, want.device)
+    per_pass = 256 // (e * itemsize // 16)
+    out = []
+    for q in SCATTER_QUERIES:
+        got = call(q)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"[kernel] {name} with {q} queries a thread differs")
+        out.append({"queries": q, "picked": q == pick, "ctas": -(-b // (per_pass * q)) * n_slots,
+                    "device_ms": profile_calls(lambda q=q: call(q))["device_ms"]})
+    times = [r["device_ms"] for r in out]
+    if all(isinstance(t, float) for t in times):
+        best = min(times)
+        picked = next(r["device_ms"] for r in out if r["picked"])
+        check(picked <= 1.1 * best, f"[kernel] {name}: the pick ({pick} queries a thread) "
+              f"is more than 10% above the best: {out}")
+    return out
 
 
 def _global_rows(full, lidx, step_block, run_list, block_r):
@@ -660,6 +753,8 @@ def _dense_record(chunks_full, lidx, dtype):
     import torch.nn.functional as F
 
     from repro_torch.kernels.embedding_multi import (
+        _launch_dense,
+        _queries,
         multi_embedding_bag_dense,
         multi_embedding_bag_dense_plain,
     )
@@ -671,8 +766,10 @@ def _dense_record(chunks_full, lidx, dtype):
     def kernel():
         return multi_embedding_bag_dense(chunks, lidx)
 
+    paths = dict(multi_embedding_bag_dense.paths)
     got = kernel()
     torch.cuda.synchronize()
+    path = next(p for p in paths if multi_embedding_bag_dense.paths[p] > paths[p])
     want = multi_embedding_bag_dense_plain(chunks, lidx)
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"[kernel] dense {dtype}: not bitwise equal, max err {err}")
@@ -688,13 +785,22 @@ def _dense_record(chunks_full, lidx, dtype):
     rec = {
         "name": "multi_embedding_bag_dense", "dtype": str(dtype).replace("torch.", ""),
         "shape": {"K": k, "S": s_slots, "R+1": rows, "E": e, "B": b, "s": s},
+        "path": path,
+        "queries": _queries(None, path == "vector", b, e, chunks.element_size(), k * s_slots,
+                            chunks.device),
         "max_err": err,
         "library_max_err": float((lib.float() - want).abs().max()),
         "ms": time_ms(kernel),
         "plain_ms": time_ms(lambda: multi_embedding_bag_dense_plain(chunks, lidx)),
         "library_ms": time_ms(library),
         **device_times(kernel, library),
+        "kernels_ms": profile_calls(kernel)["kernels_ms"],
     }
+    _one_kernel("dense", rec)
+    if dtype == torch.float32:
+        rec["queries_sweep"] = queries_sweep(
+            "dense", lambda q: _launch_dense(chunks, lidx, queries=q), got, b, e,
+            chunks.element_size(), k * s_slots)
     # what the data needs: the distinct rows hit (a slot's zero row R holds
     # nothing to read), the ids, the (K, S, B, E) f32 output
     uniq = int(torch.unique(gl[(gl % rows) != rows - 1]).numel())
@@ -1302,6 +1408,13 @@ def kernel_phase(paths: dict, counts: dict) -> list:
         recs["embedding_bag_l1"].append(
             _l1_record(l1_table, l1_ids, dtype, f"path B's table {l1_big}"))
         recs["embedding_bag_l1"].append(_l1_record(l1r_table, l1r_ids, dtype, "resident"))
+    head = recs["multi_embedding_bag_ragged"][0]
+    gathered = dict(_ragged_record(*ragged, torch.float32, stage_rows=0),
+                    case="path A, every region gathered (stage_rows=0)")
+    if isinstance(gathered["device_ms"], float) and isinstance(head["device_ms"], float):
+        gathered["to_staged_device_ms"] = gathered["device_ms"] / head["device_ms"]
+    recs["multi_embedding_bag_ragged"].append(gathered)
+    head["queries_sweep"] = ragged_queries_sweep(*ragged)
     head = recs["embedding_bag_l1"][0]
     check(head["mode"] == "cluster", f"[kernel] path B's table {l1_big} is not served by a "
           f"cluster: {head['mode']}")

@@ -55,10 +55,6 @@ constexpr unsigned kBulkChunk = 32 * 1024;  // bytes per cp.async.bulk
 constexpr int kUnroll = 4;                  // row loads in flight per thread
 constexpr int kMaxThreads = 1024;           // threads a CTA (kernels/embedding_l1.py picks)
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
@@ -116,37 +112,16 @@ __device__ __forceinline__ float ld_scalar(uint32_t addr) {
 
 // Start copying `bytes` (a multiple of 16, both ends 16-byte aligned) from
 // device memory into this CTA's shared memory with bulk asynchronous copies
-// started by thread 0, completing on the mbarrier `bar`; bulk_wait waits.
+// started by thread 0, completing on the mbarrier `bar`; rt::bulk_wait waits.
 __device__ __forceinline__ void bulk_start(void* dst, const void* src, uint32_t bytes,
                                            uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
   if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
-                 : "memory");
-    const uint32_t d = smem_addr(dst);
-    const char* s = static_cast<const char*>(src);
-    for (uint32_t off = 0; off < bytes; off += kBulkChunk) {
-      const uint32_t n = min(kBulkChunk, bytes - off);
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-          ::"r"(d + off), "l"(s + off), "r"(n), "r"(b)
-          : "memory");
-    }
+    rt::bulk_expect(bar, bytes);
+    for (uint32_t off = 0; off < bytes; off += kBulkChunk)
+      rt::bulk_copy(static_cast<char*>(dst) + off, static_cast<const char*>(src) + off,
+                    min(kBulkChunk, bytes - off), bar);
   }
   __syncthreads();  // the barrier is initialised before anyone waits on it
-}
-
-__device__ __forceinline__ void bulk_wait(uint64_t* bar) {
-  const uint32_t b = smem_addr(bar);
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(b) : "memory");
-  }
 }
 
 // The ids j0 .. j0 + kUnroll - 1 of a query (-1 past s).
@@ -183,12 +158,12 @@ l1_kernel(const T* __restrict__ table, const int* __restrict__ idx, float* __res
   int first[kUnroll];
   load_ids(idx + (w0 < total ? w0 / per : 0) * s, s, 0, first);
 
-  if constexpr (kVec) bulk_wait(&bar);
+  if constexpr (kVec) rt::bulk_wait(&bar);
   else rt::stage_wait();
   if constexpr (kCluster) cluster_sync();
   else __syncthreads();
 
-  const uint32_t base = smem_addr(tab);
+  const uint32_t base = rt::smem_addr(tab);
   const long row_bytes = static_cast<long>(e) * sizeof(T);
   for (long w = w0; w < total; w += step) {
     const long q = w / per;

@@ -12,7 +12,11 @@ exactly zero.  Steps on the trash slot ``S`` are schedule padding.
 Base mode (no access reduction): ``csrc/embedding_multi.cu``, which reads
 the schedule as per-slot *runs* (:func:`ragged_runs`), computed once at pack
 time and stored on the device with the kernel's staging capacity
-(:func:`ragged_stage_rows`).
+(:func:`ragged_stage_rows`).  One launch writes every output element (slots
+without a run as zero); a group of threads owns a query, each thread one
+16-byte vector of a few queries (:func:`_queries`; the scalar kernel where
+:func:`_vector_ok` refuses; launches by path in
+``multi_embedding_bag_ragged.paths``).
 
 Access-reduction modes (the reference's ``unique_cap``/``cache``/
 ``step_kpath`` branches): ``csrc/embedding_access.cu``.
@@ -73,14 +77,16 @@ __all__ = [
 # the reference's on-chip budget (bytes) for its batch chunking; kept so
 # ragged_block_b returns the JAX package's values
 _VMEM_BUDGET = 8 * 1024 * 1024
-# shared memory (bytes) a CTA may use to stage an L1-coded slot's windows
-STAGE_BYTES = 96 * 1024
+# shared memory (bytes) a CTA may use to stage an L1-coded slot's windows:
+# every CTA of the launch reserves it, and 4 CTAs of 256 threads an SM (the
+# kernel's register limit) need at most 56 KB each (csrc/embedding_multi.cu)
+STAGE_BYTES = 48 * 1024
 _MAX_RUNS = 65535  # grid.y limit
 
 _ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 _GATHER_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
@@ -100,14 +106,19 @@ DEDUP_WINDOW_BITS = 40 * 32768
 _GROUP_WORDS = 8  # bitmap words per rank group (csrc/embedding_dedup.cu)
 _DENSE_ARGS = [ctypes.c_void_p, ctypes.c_long, ctypes.c_void_p, ctypes.c_void_p,
                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-               ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 # shared memory (bytes) for the resident cache in the scatter pass (a larger
 # cache is read from L2)
 CACHE_STAGE_BYTES = 64 * 1024
-# queries a thread of the vector scatter may own (csrc/embedding_access.cu)
+# queries a thread of a vector kernel may own: the access scatter
+# (csrc/embedding_access.cu), the fused base kernel and the dense kernel
 SCATTER_QUERIES = (1, 2, 4, 8)
 _THREADS = 256  # rt::kThreads
 _CTAS_PER_SM = 8  # 256-thread CTAs that fill an SM's 2,048 threads
+# CTAs of the base and dense kernels an SM holds at once (the base kernel's
+# register limit, 64 a thread): their grids aim at one such wave, not 8 CTAs
+# an SM, which the card measured slower (PERF.md §6, queries_sweep)
+_BASE_CTAS_PER_SM = 4
 
 
 def _align8(n: int) -> int:
@@ -408,17 +419,20 @@ def _vector_ok(buffer, *more) -> bool:
             and all(t.data_ptr() % 16 == 0 for t in (buffer, *more) if t is not None))
 
 
-def scatter_queries(b: int, e: int, itemsize: int, n_slots: int, n_sms: int) -> int:
-    """Queries each thread of the vector scatter owns: the largest of
+def scatter_queries(b: int, e: int, itemsize: int, n_slots: int, n_sms: int, *,
+                    ctas_per_sm: int = _CTAS_PER_SM) -> int:
+    """Queries each thread of a vector kernel owns: the largest of
     :data:`SCATTER_QUERIES` whose grid (query tiles x ``n_slots``) still
-    offers every SM :data:`_CTAS_PER_SM` CTAs, else 1.  More queries a
-    thread stage the cache and find the run once for more queries; too few
-    CTAs leave SMs idle.  At path D's shapes this picks 4 in f32, the
-    fastest of the four counts there (PERF.md §6)."""
+    offers every SM ``ctas_per_sm`` CTAs, else 1.  More queries a thread
+    find the run (and stage the cache) once for more queries and keep more
+    row loads in flight a thread; too few CTAs leave SMs idle.  The access
+    scatter aims at 8 CTAs an SM (path D in f32: 4 queries a thread), the
+    base and dense kernels at :data:`_BASE_CTAS_PER_SM` (paths A, C and E:
+    2 in f32, 1 in bf16/f16), each the fastest count there (PERF.md §6)."""
     group = max(e * itemsize // 16, 1)
     per_pass = max(_THREADS // group, 1)
     for q in sorted(SCATTER_QUERIES, reverse=True):
-        if -(-b // (per_pass * q)) * n_slots >= _CTAS_PER_SM * n_sms:
+        if -(-b // (per_pass * q)) * n_slots >= ctas_per_sm * n_sms:
             return q
     return 1
 
@@ -453,7 +467,10 @@ def multi_embedding_bag_ragged_plain(
     ``unique_cap`` it takes the dedup route the kernel takes (unique rows
     gathered once, scattered back by rank, spill read row by row); with
     ``cache``/``hidx`` it adds each slot's hot lookups from the cache.  The
-    gather path (``step_kpath``) does not change the result."""
+    gather path (``step_kpath``) does not change the result.  Each query's
+    positions are summed in id order from 0.0 in f32, one at a time (the
+    buffer or unique-row term, then the hot term), as the kernels sum them,
+    so the base kernel is bitwise equal to it at every ``s``."""
     k, s_slots, b, _ = lidx.shape
     e = buffer.shape[-1]
     out = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=buffer.device)
@@ -465,14 +482,20 @@ def multi_embedding_bag_ragged_plain(
     for core, slot, first, n, _code in runs.tolist():
         valid, rows = _window_rows(lidx[core, slot].long(), blocks[core], first, n, block_r)
         g = torch.where(valid[..., None], buffer[core][rows].float(), 0.0)  # (B, s, E)
-        if rows_u is not None:
+        if rows_u is not None:  # a lookup has a rank or a spilled id, never both
             r = rank[core, slot].long()
             g = g + torch.where((r >= 0)[..., None], rows_u[core, slot][r.clamp(min=0)], 0.0)
+        hot = None
         if cache is not None:
             h = hidx[core, slot].long()
             hit = (h >= 0) & (h < cache.shape[1])
-            g = g + torch.where(hit[..., None], cache[core][torch.where(hit, h, 0)].float(), 0.0)
-        out[core, slot] = g.sum(dim=1)
+            hot = torch.where(hit[..., None], cache[core][torch.where(hit, h, 0)].float(), 0.0)
+        acc = out[core, slot]
+        for j in range(g.shape[1]):
+            acc = acc + g[:, j]
+            if hot is not None:
+                acc = acc + hot[:, j]
+        out[core, slot] = acc
     return out
 
 
@@ -545,23 +568,46 @@ def _check_ids(lidx, step_block, runs, *more):
         raise ValueError(f"{runs.shape[0]} slot runs exceed the grid limit {_MAX_RUNS}")
 
 
-def _launch(buffer, lidx, step_block, runs, block_r, stage_rows):
+def _queries(queries, vector: bool, b: int, e: int, itemsize: int, n_slots: int, device) -> int:
+    """The base or dense kernel's queries a thread: ``queries`` when given
+    (one of :data:`SCATTER_QUERIES`), else :func:`scatter_queries` at
+    :data:`_BASE_CTAS_PER_SM`; 0 (the scalar kernel) where the data refuses
+    16-byte vectors."""
+    if queries is not None and queries not in SCATTER_QUERIES:
+        raise ValueError(f"queries must be one of {SCATTER_QUERIES}, got {queries}")
+    if not vector:
+        return 0
+    if queries is None:
+        return scatter_queries(b, e, itemsize, n_slots, build.sm_count(device),
+                               ctas_per_sm=_BASE_CTAS_PER_SM)
+    return queries
+
+
+def _launch(buffer, lidx, step_block, runs, block_r, stage_rows, *, queries=None):
+    """The base kernel on CUDA tensors: one launch that writes every output
+    element.  ``queries`` fixes the vector kernel's queries a thread
+    (default :func:`_queries`); the scalar kernel runs where
+    :func:`_vector_ok` refuses."""
     k, _, e = buffer.shape
     _, s_slots, b, seq = lidx.shape
     _check_ids(lidx, step_block, runs)
     if buffer.stride(2) != 1 or buffer.stride(1) != e:
         raise ValueError("buffer rows must be contiguous")
-    n_runs = runs.shape[0]
-    out = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=buffer.device)
+    if k * s_slots > _MAX_RUNS:
+        raise ValueError(f"{k * s_slots} slots exceed the grid limit {_MAX_RUNS}")
+    out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=buffer.device)  # all written
+    q = _queries(queries, _vector_ok(buffer, out), b, e, buffer.element_size(), k * s_slots,
+                 buffer.device)
     fn = build.c_function("embedding_multi", "rt_multi_embedding_bag_ragged", _ARGS)
     with torch.cuda.device(buffer.device):
         rc = fn(buffer.data_ptr(), buffer.stride(0), lidx.data_ptr(),
                 step_block.data_ptr(), step_block.shape[-1], runs.data_ptr(),
-                n_runs, out.data_ptr(), s_slots, b, seq, e, block_r, stage_rows,
+                runs.shape[0], out.data_ptr(), k, s_slots, b, seq, e, block_r, stage_rows, q,
                 build.dtype_code(buffer.dtype), build.stream_of(buffer.device))
     build.check_launch(rc, "multi_embedding_bag_ragged")
     multi_embedding_bag_ragged.launches += 1
     multi_embedding_bag_ragged.modes["base"] += 1
+    multi_embedding_bag_ragged.paths["base_vector" if q else "base_scalar"] += 1
     return out
 
 
@@ -637,8 +683,10 @@ multi_embedding_bag_ragged.launches = 0
 # launches by mode: "base" (no access reduction), "dedup", "cache", and
 # "sparse" (given a step_kpath, which callers pass only with sparse steps)
 multi_embedding_bag_ragged.modes = {"base": 0, "dedup": 0, "cache": 0, "sparse": 0}
-# access-mode launches by the kernels' data path: 16-byte vectors or scalar
-multi_embedding_bag_ragged.paths = {"gather_vector": 0, "gather_scalar": 0,
+# launches by the kernels' data path, 16-byte vectors or scalar: the base
+# kernel, and the access modes' gather and scatter
+multi_embedding_bag_ragged.paths = {"base_vector": 0, "base_scalar": 0,
+                                    "gather_vector": 0, "gather_scalar": 0,
                                     "scatter_vector": 0, "scatter_scalar": 0}
 
 
@@ -687,8 +735,11 @@ def multi_embedding_bag_dense(
 
     The CUDA grid tiles the batch itself, so there is no ``block_b``: the
     reference's batch tile is recorded by ``pack_plan`` in ``plan.meta``.
-    CPU tensors run the plain version, CUDA tensors the kernel, which gives
-    zero for an id outside ``[0, R]`` where the plain version raises.
+    CPU tensors run the plain version, CUDA tensors the kernel (16-byte
+    vectors of :func:`_queries` queries a thread where
+    :func:`_vector_ok` allows, else the scalar kernel; launches by path in
+    ``multi_embedding_bag_dense.paths``), which gives zero for an id outside
+    ``[0, R]`` where the plain version raises.
     """
     single, chunks, lidx = _dense_batched(chunks, lidx)
     if build.route(chunks, lidx) == "cpu":
@@ -698,7 +749,8 @@ def multi_embedding_bag_dense(
     return out[0] if single else out
 
 
-def _launch_dense(chunks, lidx):
+def _launch_dense(chunks, lidx, *, queries=None):
+    """The dense kernel on CUDA tensors; ``queries`` as for :func:`_launch`."""
     k, s_slots, rows, e = chunks.shape
     b, seq = lidx.shape[2:]
     if lidx.dtype != torch.int32:
@@ -710,13 +762,19 @@ def _launch_dense(chunks, lidx):
     out = torch.empty((k, s_slots, b, e), dtype=torch.float32, device=chunks.device)
     if not out.numel():
         return out
+    q = _queries(queries, _vector_ok(chunks, out), b, e, chunks.element_size(), k * s_slots,
+                 chunks.device)
     fn = build.c_function("embedding_dense", "rt_multi_embedding_bag_dense", _DENSE_ARGS)
     with torch.cuda.device(chunks.device):
         rc = fn(chunks.data_ptr(), rows * e, lidx.data_ptr(), out.data_ptr(), k * s_slots,
-                rows, b, seq, e, build.dtype_code(chunks.dtype), build.stream_of(chunks.device))
+                rows, b, seq, e, q, build.dtype_code(chunks.dtype),
+                build.stream_of(chunks.device))
     build.check_launch(rc, "multi_embedding_bag_dense")
     multi_embedding_bag_dense.launches += 1
+    multi_embedding_bag_dense.paths["vector" if q else "scalar"] += 1
     return out
 
 
 multi_embedding_bag_dense.launches = 0
+# launches by the kernel's data path: 16-byte vectors or scalar
+multi_embedding_bag_dense.paths = {"vector": 0, "scalar": 0}

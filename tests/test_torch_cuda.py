@@ -9,8 +9,9 @@ runs on a machine with only PyTorch:
 Tolerance: rtol = atol = 1e-5 for every table dtype (bf16/f16 rows convert
 exactly to f32; kernel and plain version differ only in f32 summation
 order).  The dedup gather's two data flows are held bitwise equal, and so
-are the access call and its plain version at s = 1, the dense kernel and
-its plain version (both sum in position order) and the UB, GM and L1
+are the access call and its plain version at s = 1, the fused base kernel
+and the dense kernel and their plain versions at every s (all sum in
+position order from 0.0) and the UB, GM and L1
 kernels and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is held
 array-equal to ``dedup_indices``, the unique-row gather to
 ``gather_unique_rows_plain``.
@@ -103,11 +104,128 @@ def test_ragged_kernel_matches_plain(cuda, dtype):
     assert multi_embedding_bag_ragged.launches == before + 1
     want = multi_embedding_bag_ragged_plain(
         buf.to(cuda)[:, :-1], lidx_d, block_d, runs_d, block_r=BLOCK_R)
-    torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, want)
     cpu = multi_embedding_bag_ragged_plain(buf[:, :-1], torch.from_numpy(lidx),
                                            torch.from_numpy(steps2[2]), torch.from_numpy(runs),
                                            block_r=BLOCK_R)
-    torch.testing.assert_close(got.cpu(), cpu, **TOL)
+    assert torch.equal(got.cpu(), cpu)
+
+
+# --------------------------------------------------------------------------
+# the fused base kernel (K1): vector and scalar paths, run-less slots
+# --------------------------------------------------------------------------
+
+# per core, (slot, strategy code, steps) in schedule order: staged L1 and
+# L1-UB regions, GM and GM-UB regions, an L1 region too large to stage (200
+# steps of 16 rows: 200 KB in f32, 100 KB in bf16/f16); core 0 has no run
+# for slot 2, core 1 none for slots 1, 3 and 4; padding steps fill core 1 up
+BASE_RUNS = [[(0, 2, 3), (1, 0, 1), (3, 3, 2), (4, 2, 200)], [(2, 1, 2), (0, 2, 1)]]
+BASE_SLOTS = 5
+BASE_EMPTY = [(0, 2), (1, 1), (1, 3), (1, 4)]
+
+
+def _base_case(cuda, dtype, e, s, *, unaligned=False, b=700, seed=21):
+    """Two cores of the schedule above: (buffer, lidx, step_block, runs) on
+    the card and the staging capacity, with ids from -3 past each region
+    (slots without a run get ids too).  ``unaligned`` shifts the buffer one
+    element off 16 bytes and gives it an odd core stride."""
+    rng = np.random.default_rng(seed)
+    n_steps = max(sum(n for _, _, n in runs) for runs in BASE_RUNS)
+    slot = np.full((2, n_steps), BASE_SLOTS, np.int32)
+    base = np.zeros((2, n_steps), np.int32)
+    block = np.zeros((2, n_steps), np.int32)
+    code = np.zeros((2, n_steps), np.int32)
+    for core, runs in enumerate(BASE_RUNS):
+        t = 0
+        for sl, c, n in runs:
+            slot[core, t:t + n] = sl
+            base[core, t:t + n] = np.arange(n) * BLOCK_R
+            block[core, t:t + n] = rng.permutation(n_steps)[:n]  # blocks in any order
+            code[core, t:t + n] = c
+            t += n
+    runs = ragged_runs(slot, base, code, BLOCK_R, BASE_SLOTS)
+    t_rows = n_steps * BLOCK_R
+    table = rng.standard_normal((2, t_rows, e)).astype(np.float32)
+    buf = torch.from_numpy(table).to(dtype).to(cuda)
+    if unaligned:
+        stride = t_rows * e + 1
+        flat = torch.zeros(2 * stride + 1, dtype=dtype, device=cuda)
+        view = flat[1:].as_strided((2, t_rows, e), (stride, e, 1))
+        view.copy_(buf)
+        buf = view
+    lidx = np.stack([np.stack([
+        rng.integers(-3, dict((sl, n) for sl, _, n in runs_c).get(sl, 1) * BLOCK_R + 9,
+                     size=(b, s)) for sl in range(BASE_SLOTS)]) for runs_c in BASE_RUNS])
+    stage_rows = ragged_stage_rows(runs, BLOCK_R, e * buf.element_size())
+    return (buf, torch.from_numpy(lidx.astype(np.int32)).to(cuda),
+            torch.from_numpy(block).to(cuda), torch.from_numpy(runs).to(cuda)), stage_rows
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("s", [1, 3])
+@pytest.mark.parametrize("staged", [True, False])
+def test_ragged_base_kernel_bitwise(cuda, dtype, s, staged):
+    """The base kernel's vector path bitwise equal to its plain version at
+    s = 1 and s = 3, with its L1 regions staged in shared memory or all
+    gathered (``stage_rows=0``): one launch, counted on the vector path; the
+    slots without a run come out zero."""
+    args, stage_rows = _base_case(cuda, dtype, 16, s)
+    assert stage_rows > 0  # staged and gathered L1 regions both run
+    paths = multi_embedding_bag_ragged.paths
+    before = dict(paths), multi_embedding_bag_ragged.launches
+    got = multi_embedding_bag_ragged(*args, block_r=BLOCK_R,
+                                     stage_rows=stage_rows if staged else 0)
+    torch.cuda.synchronize()
+    assert multi_embedding_bag_ragged.launches == before[1] + 1
+    assert paths["base_vector"] == before[0]["base_vector"] + 1
+    assert torch.equal(got, multi_embedding_bag_ragged_plain(*args, block_r=BLOCK_R))
+    for core, slot in BASE_EMPTY:
+        assert not got[core, slot].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("queries", list(SCATTER_QUERIES))
+def test_ragged_base_any_queries_per_thread(cuda, dtype, queries):
+    """The base kernel at each count of queries a thread (the grid the
+    wrapper may pick), bitwise at s = 3, staged and gathered regions."""
+    args, stage_rows = _base_case(cuda, dtype, 16, 3, seed=22)
+    got = embedding_multi._launch(*args, BLOCK_R, stage_rows, queries=queries)
+    torch.cuda.synchronize()
+    assert torch.equal(got, multi_embedding_bag_ragged_plain(*args, block_r=BLOCK_R))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,unaligned", [(6, False), (16, True)])
+@pytest.mark.parametrize("s", [1, 3])
+def test_ragged_base_scalar_path(cuda, dtype, e, unaligned, s):
+    """Rows that are no whole number of 16-byte vectors, or a buffer off 16
+    bytes with an odd core stride, take the scalar kernel: bitwise equal to
+    the plain version, staged regions included."""
+    args, stage_rows = _base_case(cuda, dtype, e, s, unaligned=unaligned)
+    paths = multi_embedding_bag_ragged.paths
+    before = dict(paths)
+    got = multi_embedding_bag_ragged(*args, block_r=BLOCK_R, stage_rows=stage_rows)
+    torch.cuda.synchronize()
+    assert paths["base_scalar"] == before["base_scalar"] + 1
+    assert torch.equal(got, multi_embedding_bag_ragged_plain(*args, block_r=BLOCK_R))
+
+
+@pytest.mark.parametrize("e", [16, 6])
+def test_ragged_runless_slots_zero_over_nan_memory(cuda, e):
+    """The kernel writes every output element itself: when the allocator
+    hands back memory that was just filled with NaN, the slots without a run
+    come out exactly zero and no NaN is left (vector and scalar paths)."""
+    args, stage_rows = _base_case(cuda, torch.float32, e, 1)
+    k, s_slots, b, _ = args[1].shape
+    junk = torch.full((k, s_slots, b, e), float("nan"), device=cuda)
+    ptr = junk.data_ptr()
+    del junk
+    got = multi_embedding_bag_ragged(*args, block_r=BLOCK_R, stage_rows=stage_rows)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr  # the NaN block came back
+    assert not torch.isnan(got).any()
+    for core, slot in BASE_EMPTY:
+        assert torch.equal(got[core, slot], torch.zeros_like(got[core, slot]))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -463,10 +581,11 @@ def test_dense_kernel_matches_plain(cuda, dtype, seq):
     chunks, lidx = _dense_case(2, seq)
     chunks = chunks.to(dtype)
     c_d, l_d = chunks.to(cuda), lidx.to(cuda)
-    before = multi_embedding_bag_dense.launches
+    before = multi_embedding_bag_dense.launches, multi_embedding_bag_dense.paths["vector"]
     got = multi_embedding_bag_dense(c_d, l_d)
     torch.cuda.synchronize()
-    assert multi_embedding_bag_dense.launches == before + 1
+    assert multi_embedding_bag_dense.launches == before[0] + 1
+    assert multi_embedding_bag_dense.paths["vector"] == before[1] + 1
     assert torch.equal(got, multi_embedding_bag_dense_plain(c_d, l_d))
     assert torch.equal(got.cpu(), multi_embedding_bag_dense_plain(chunks, lidx))
     assert not got[:, -1].any()
@@ -493,6 +612,38 @@ def test_dense_kernel_single_core_and_ids_outside(cuda, dtype):
     assert torch.equal(multi_embedding_bag_dense(chunks, bad), want)
     with pytest.raises(IndexError):
         multi_embedding_bag_dense_plain(chunks[None], bad[None])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("queries", list(SCATTER_QUERIES))
+def test_dense_kernel_any_queries_per_thread(cuda, dtype, queries):
+    """The dense kernel at each count of queries a thread, bitwise at s = 3."""
+    chunks, lidx = _dense_case(2, 3, seed=8)
+    c_d, l_d = chunks.to(dtype).to(cuda), lidx.to(cuda)
+    got = embedding_multi._launch_dense(c_d, l_d, queries=queries)
+    torch.cuda.synchronize()
+    assert torch.equal(got, multi_embedding_bag_dense_plain(c_d, l_d))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("e,unaligned", [(6, False), (16, True)])
+@pytest.mark.parametrize("seq", [1, 3])
+def test_dense_kernel_scalar_path(cuda, dtype, e, unaligned, seq):
+    """Rows that are no whole number of 16-byte vectors, or a stack off 16
+    bytes, take the scalar kernel: bitwise equal to the plain version."""
+    chunks, lidx = _dense_case(2, seq, seed=9)
+    chunks = chunks[..., :e].contiguous().to(dtype).to(cuda)
+    if unaligned:
+        flat = torch.zeros(chunks.numel() + 1, dtype=dtype, device=cuda)
+        flat[1:].copy_(chunks.reshape(-1))
+        chunks = flat[1:].view(chunks.shape)
+    l_d = lidx.to(cuda)
+    paths = multi_embedding_bag_dense.paths
+    before = dict(paths)
+    got = multi_embedding_bag_dense(chunks, l_d)
+    torch.cuda.synchronize()
+    assert paths["scalar"] == before["scalar"] + 1
+    assert torch.equal(got, multi_embedding_bag_dense_plain(chunks, l_d))
 
 
 def test_dense_engine_on_card_matches_cpu(cuda):

@@ -31,10 +31,15 @@ from repro_torch.kernels.embedding_l1 import (
     l1_schedule,
 )
 from repro_torch.kernels.embedding_multi import (
+    _BASE_CTAS_PER_SM,
+    SCATTER_QUERIES,
+    _queries,
     multi_embedding_bag_ragged,
+    multi_embedding_bag_ragged_plain,
     ragged_block_b,
     ragged_runs,
     ragged_stage_rows,
+    scatter_queries,
 )
 from repro_torch.kernels.embedding_ub import (
     MAX_TILES,
@@ -172,8 +177,61 @@ def test_ragged_stage_rows():
                      [1, 1, 3, 1000, 2]], np.int32)
     assert ragged_stage_rows(runs, 8, 64) == 24
     assert ragged_stage_rows(runs[:1], 8, 64) == 0
-    assert ragged_stage_rows(runs, 512, 64) == 1536  # exactly 96 KiB
-    assert ragged_stage_rows(runs, 512, 128) == 0  # 1024 rows * 128 B > 96 KiB
+    assert ragged_stage_rows(runs, 256, 64) == 768  # exactly 48 KiB
+    assert ragged_stage_rows(runs, 256, 128) == 0  # 512 rows * 128 B > 48 KiB
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [1, 3])
+def test_ragged_plain_sums_in_id_order(dtype, s):
+    """The plain version sums each query's in-window rows one position at a
+    time, in id order from 0.0 in f32: the base kernel's order, so the card
+    holds the two bitwise at every s."""
+    buf_t, _, lidx, steps = _ragged_inputs(5, b=40, s=s, dtype=dtype)
+    runs = _runs(steps)
+    got = multi_embedding_bag_ragged_plain(
+        buf_t[None], torch.from_numpy(lidx)[None], torch.from_numpy(steps[2])[None], runs,
+        block_r=BLOCK_R)[0].numpy()
+    rows = buf_t.float().numpy()
+    want = np.zeros(got.shape, np.float32)
+    for _core, slot, first, n, _code in runs.tolist():
+        for q in range(lidx.shape[1]):
+            acc = np.zeros(rows.shape[1], np.float32)
+            for j in range(s):
+                l = int(lidx[slot, q, j])
+                if 0 <= l < n * BLOCK_R:
+                    acc = acc + rows[steps[2][first + l // BLOCK_R] * BLOCK_R + l % BLOCK_R]
+            want[slot, q] = acc
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("path,k,s_slots", [("A", 8, 2), ("C", 8, 2), ("E", 8, 2)])
+@pytest.mark.parametrize("item,want", [(4, 2), (2, 1)])
+def test_base_and_dense_grids_fill_the_card(path, k, s_slots, item, want):
+    """The fused base kernel (paths A and C) and the dense kernel (path E)
+    take their queries a thread from ``scatter_queries`` at the 4 CTAs an
+    SM their vector kernel holds: at taobao's served shapes (B = 8192,
+    E = 16, K x S slots) the grid offers each of the H100's 132 SMs at least
+    that wave, about 8 CTAs an SM (1,024 CTAs, the fastest count the card
+    measured), and more queries a thread would leave SMs short."""
+    b, e = 8192, 16
+    q = scatter_queries(b, e, item, k * s_slots, 132, ctas_per_sm=_BASE_CTAS_PER_SM)
+    assert q == want
+    per_pass = 256 // (e * item // 16)
+    ctas = -(-b // (per_pass * q)) * k * s_slots
+    assert ctas == 1024 and ctas >= _BASE_CTAS_PER_SM * 132
+    assert -(-b // (per_pass * 2 * q)) * k * s_slots < _BASE_CTAS_PER_SM * 132
+
+
+def test_queries_choice():
+    """A vector kernel's queries a thread: the caller's when it is one of
+    ``SCATTER_QUERIES``, 0 (the scalar kernel) where the data refuses
+    vectors, and anything else refused."""
+    assert _queries(4, True, 8192, 16, 4, 16, None) == 4
+    assert _queries(None, False, 8192, 16, 4, 16, None) == 0
+    assert _queries(8, False, 8192, 16, 4, 16, None) == 0
+    with pytest.raises(ValueError, match="queries"):
+        _queries(3, True, 8192, 16, 4, 16, None)
 
 
 # --------------------------------------------------------------------------
