@@ -12,10 +12,14 @@ with synthetic indices drawn from the histograms, and records the sweep in
 ``plan.meta["tuning"]`` with the reference's keys.  Every candidate carries
 ``wall_us``, the host clock around ``iters`` lookups ending in a
 synchronize, and ``device_us``.  On the card ``device_us`` is the card's own
-time for one lookup: ``torch.profiler``'s CUDA self time of the kernels the
-lookup launches, summed over ``iters`` calls after a warm-up call (which
-also builds them), so the host's gaps between launches are left out; the
-sweep ranks by it (:func:`best_candidate`) and records ``"compiled": True``.
+time for one lookup: CUDA events on a stream the sweep owns, around
+``iters`` lookups (after a warm-up call, which also builds the kernels)
+that wait behind a spin kernel until the host has enqueued them all, so
+the card runs them back to back and neither the host's gaps nor another
+thread's kernels, which run on other streams, are in the time; the sweep
+ranks by it (:func:`best_candidate`) and records ``"compiled": True``.  A
+sweep runs so on a worker thread too (a drift replan's shadow build) while
+the server launches its own kernels; it opens no profiler session.
 The host clock ranks only the host's enqueue there.  On the CPU
 ``device_us`` is ``None``, the sweep times the kernels' plain versions and
 ranks by ``wall_us``, and records ``"compiled": False``, as the reference
@@ -47,6 +51,13 @@ from repro_torch.core.tables import TableSpec
 __all__ = ["TuningCache", "autotune_block_sizes", "best_candidate", "plan_shape_digest"]
 
 _BLOCK_R_CANDIDATES = (64, 128, 256, 512)
+
+# the spin kernel (torch.cuda._sleep) that holds a candidate's lookups on
+# the sweep's stream while the host enqueues them (~5 ms at first); a spin
+# that ended before the enqueue did is run again four times as long, up to
+# _GATES times
+_GATE_CYCLES = 10_000_000
+_GATES = 5
 
 
 class TuningCache:
@@ -144,23 +155,33 @@ def best_candidate(candidates: Sequence[dict], backend: str) -> dict:
     return min(candidates, key=lambda c: c[key])
 
 
-def _device_us(run, calls: int, sessions: int = 3) -> float:
-    """The card's time for one ``run()`` in microseconds: the CUDA self time
-    ``torch.profiler`` records for the kernels of ``calls`` runs, summed,
-    over ``calls``.  A session that records no device time is run again, up
-    to ``sessions`` in all; then it raises."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(sessions):
-        with torch.profiler.profile(activities=acts) as prof:
+def _device_us(run, calls: int, stream) -> float:
+    """The card's time for one ``run()`` in microseconds: CUDA events on
+    ``stream`` around ``calls`` runs that wait behind a spin kernel on it,
+    over ``calls``.  The events count when the spin still held the runs
+    after the host had enqueued them all (the start event not yet reached),
+    so the card ran them back to back; else the spin runs again four times
+    as long, up to ``_GATES`` times, and then it raises.  Only ``stream``'s
+    work is in the time: other threads' kernels run on other streams, and
+    slow it only where they share the card."""
+    cycles = _GATE_CYCLES
+    for _ in range(_GATES):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(cycles)
+            start.record(stream)
             for _ in range(calls):
                 run()
-            torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.is_user_annotation)
-        if total > 0:
-            return total / calls
-    raise RuntimeError("the profiler recorded no device time for the sweep's lookup")
+            end.record(stream)
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) * 1e3 / calls
+        cycles *= 4
+    raise RuntimeError(
+        f"the host's enqueue of {calls} lookups outlasted every gate "
+        f"(the last spun {cycles // 4:,} cycles)")
 
 
 def autotune_block_sizes(
@@ -212,53 +233,57 @@ def autotune_block_sizes(
             }
             return dict(rec["best"])
 
-    idx = torch.from_numpy(_synthetic_indices(tables, batch, freqs, seed)).to(device)
+    # on the card everything the sweep enqueues goes to a stream of its own
+    stream = torch.cuda.Stream(device) if backend == "cuda" else None
 
     def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        if stream is not None:
+            stream.synchronize()
 
     meta_cap = int((plan.meta.get("cache") or {}).get("unique_cap") or 0)
     candidates = []
-    for br in dict.fromkeys(int(c) for c in block_r_candidates):
-        for bb in dict.fromkeys(block_b_candidates):
-            for uc in dict.fromkeys(unique_cap_candidates):
-                for cr in dict.fromkeys(cache_rows_candidates):
-                    for kp in dict.fromkeys(kernel_path_candidates):
-                        eff_cap = meta_cap if uc is None else int(uc)
-                        if kp == "sparse" and not eff_cap:
-                            continue  # no dedup machinery to ride
-                        packed = pack_plan(
-                            plan, tables, None, dtype=dtype, block_r=br, block_b=bb,
-                            unique_cap=uc, cache_rows=cr, freqs=freqs,
-                            kernel_path=kp, device=device,
-                        )
+    with torch.cuda.stream(stream):
+        idx = torch.from_numpy(_synthetic_indices(tables, batch, freqs, seed)).to(device)
+        for br in dict.fromkeys(int(c) for c in block_r_candidates):
+            for bb in dict.fromkeys(block_b_candidates):
+                for uc in dict.fromkeys(unique_cap_candidates):
+                    for cr in dict.fromkeys(cache_rows_candidates):
+                        for kp in dict.fromkeys(kernel_path_candidates):
+                            eff_cap = meta_cap if uc is None else int(uc)
+                            if kp == "sparse" and not eff_cap:
+                                continue  # no dedup machinery to ride
+                            packed = pack_plan(
+                                plan, tables, None, dtype=dtype, block_r=br, block_b=bb,
+                                unique_cap=uc, cache_rows=cr, freqs=freqs,
+                                kernel_path=kp, device=device,
+                            )
 
-                        def run():
-                            _fused_asym_lookup(packed, idx, n_tables=len(tables))
+                            def run():
+                                _fused_asym_lookup(packed, idx, n_tables=len(tables))
 
-                        run()  # warm-up (builds the kernels on first use)
-                        sync()
-                        t0 = time.perf_counter()
-                        for _ in range(iters):
-                            run()
-                        sync()
-                        wall_us = (time.perf_counter() - t0) / iters * 1e6
-                        device_us = _device_us(run, iters) if backend == "cuda" else None
-                        lay = plan.meta["layout"]
-                        candidates.append({
-                            "block_r": br,
-                            "block_b": 0 if bb is None else int(bb),
-                            "unique_cap": int(packed.unique_cap),
-                            "cache_rows": int(packed.cache_rows),
-                            "kernel_path": packed.kernel_path if kp is None else kp,
-                            "n_steps": lay["n_steps"],
-                            "padding_frac": lay["padding_frac"],
-                            "chunk_bytes": lay["chunk_bytes"],
-                            "wall_us": wall_us,
-                            "device_us": device_us,
-                        })
-                        del packed
+                            run()  # warm-up (builds the kernels on first use)
+                            sync()
+                            t0 = time.perf_counter()
+                            for _ in range(iters):
+                                run()
+                            sync()
+                            wall_us = (time.perf_counter() - t0) / iters * 1e6
+                            device_us = (_device_us(run, iters, stream)
+                                         if stream is not None else None)
+                            lay = plan.meta["layout"]
+                            candidates.append({
+                                "block_r": br,
+                                "block_b": 0 if bb is None else int(bb),
+                                "unique_cap": int(packed.unique_cap),
+                                "cache_rows": int(packed.cache_rows),
+                                "kernel_path": packed.kernel_path if kp is None else kp,
+                                "n_steps": lay["n_steps"],
+                                "padding_frac": lay["padding_frac"],
+                                "chunk_bytes": lay["chunk_bytes"],
+                                "wall_us": wall_us,
+                                "device_us": device_us,
+                            })
+                            del packed
     if not candidates:
         raise ValueError(
             "no feasible autotune candidates: every combination was skipped "

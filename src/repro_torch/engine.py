@@ -16,11 +16,12 @@ One object replaces the hand-wired ``plan_asymmetric`` → ``pack_plan`` →
 ``EngineConfig`` is the JAX package's, field for field: a reference config
 JSON loads unchanged.  Stage behavior is pluggable through six named
 registries (placement, access reduction, tuning, drift, validation,
-integrity) holding the builtin policies this slice runs.  A value the JAX
-package accepts but this slice cannot execute yet raises
-``NotImplementedError`` naming its ROADMAP item at validation; none is
-ignored.  The engine builds on the card unless ``device="cpu"`` is passed,
-and raises when CUDA is absent.
+integrity) holding the builtin policies the port runs.  A value the JAX
+package accepts but the port cannot execute yet (a scenario model, the
+hierarchical planner) raises ``NotImplementedError`` naming its ROADMAP
+item when an engine is built from it; none is ignored.  The engine builds
+on the card unless ``device="cpu"`` is passed, and raises when CUDA is
+absent.
 """
 from __future__ import annotations
 
@@ -220,7 +221,25 @@ class _NoDrift:
         return None
 
 
+class _ReplanDrift:
+    """The drift state machine: sketch → hysteresis trigger → shadow re-pack
+    → parity-gated hot swap.  ``options`` are
+    :class:`repro_torch.serving.server.DriftConfig` knobs
+    (threshold/check_every/patience/cooldown/metric/overlap/...)."""
+
+    def drift_config(self, *, baseline, extract_indices, replan, **options):
+        from repro_torch.serving.server import DriftConfig
+
+        return DriftConfig(
+            baseline=baseline,
+            extract_indices=extract_indices,
+            replan=replan,
+            **options,
+        )
+
+
 DRIFT_POLICIES.register("none", _NoDrift)
+DRIFT_POLICIES.register("replan", _ReplanDrift)
 
 
 class _IndexValidation:
@@ -250,7 +269,27 @@ class _NoIntegrity:
         return None
 
 
+class _ChecksumIntegrity:
+    """Builtin ``checksum`` policy: per-region CRC32 manifest at pack time
+    (:class:`repro_torch.core.integrity.IntegrityManifest`), verified on a
+    batch cadence and on drift hot-swaps, with NaN/Inf output guards.
+    Options: ``check_every`` (batches between sweeps, default 64; 0 = only
+    on hot-swap/poisoned output) and ``nan_guard`` (default True)."""
+
+    def manifest(self, packed, plan, **options):
+        from repro_torch.core.integrity import IntegrityManifest
+
+        return IntegrityManifest.from_packed(packed, plan)
+
+    def server_config(self, **options):
+        return {
+            "check_every": int(options.get("check_every", 64)),
+            "nan_guard": bool(options.get("nan_guard", True)),
+        }
+
+
 INTEGRITY_POLICIES.register("none", _NoIntegrity)
+INTEGRITY_POLICIES.register("checksum", _ChecksumIntegrity)
 
 
 # --------------------------------------------------------------------------
@@ -448,8 +487,6 @@ class EngineConfig:
             ("model", self.model in SCENARIO_MODELS, f"model={self.model!r} (scenario towers)",
              "A9"),
             ("planner", self.planner == "hierarchical", "planner='hierarchical'", "A4"),
-            ("drift", self.drift == "replan", "drift='replan'", "A6"),
-            ("integrity", self.integrity == "checksum", "integrity='checksum'", "A8"),
         ]
         return [(field, what, item) for field, bad, what, item in pending if bad]
 
@@ -516,12 +553,12 @@ class InferenceEngine:
     ``packed`` (the :class:`PackedPlan`), ``plan``, ``device``, ``freqs``
     (the histograms the plan was priced under), ``cost_model``,
     ``tuning_cache`` (the sweep memo; another build given it reuses its
-    sweeps).
+    sweeps), ``manifest`` (the pack-time integrity checksums, or ``None``).
     """
 
     def __init__(
         self, *, config, workload, bag, packed, device, freqs, table_data,
-        cost_model, tuning_cache=None,
+        cost_model, manifest=None, tuning_cache=None,
     ):
         self.config = config
         self.workload = workload
@@ -530,6 +567,7 @@ class InferenceEngine:
         self.device = device
         self.freqs = freqs
         self.cost_model = cost_model
+        self.manifest = manifest  # pack-time integrity checksums (or None)
         self.tuning_cache = tuning_cache
         self._table_data = table_data
         self._server = None
@@ -633,6 +671,9 @@ class InferenceEngine:
             table_data, device=device, tuning_cache=tuning_cache,
             **tuning.pack_kwargs(**config.tuning_options),
         )
+        manifest = INTEGRITY_POLICIES.create(config.integrity).manifest(
+            packed, bag.plan, **config.integrity_options
+        )
         return cls(
             config=config,
             workload=workload,
@@ -642,6 +683,7 @@ class InferenceEngine:
             freqs=freqs,
             table_data=table_data,
             cost_model=model,
+            manifest=manifest,
             tuning_cache=tuning_cache,
         )
 
@@ -659,8 +701,46 @@ class InferenceEngine:
             freqs=self.freqs,
             table_data=self._table_data,
             cost_model=self.cost_model,
+            manifest=self.manifest,
             tuning_cache=self.tuning_cache,
         )
+
+    def rebuild(self, freqs) -> "InferenceEngine":
+        """Same config and tables, re-planned and re-packed under new
+        histograms on the same device: the shadow re-pack the drift policy
+        runs off the hot path.  The tables are this engine's own (never
+        re-initialized), and the tuning cache carries over so a
+        shape-identical re-plan skips the block-size sweep."""
+        return InferenceEngine.build(
+            self._table_data if self._table_data is not None else "abstract",
+            self.workload,
+            self.config,
+            device=self.device,
+            freqs=freqs,
+            tuning_cache=self.tuning_cache,
+        )
+
+    # -- data-plane integrity -----------------------------------------------
+
+    def verify_integrity(self) -> list[tuple]:
+        """Re-checksum the packed buffers against the pack-time manifest;
+        returns the corrupt region keys (empty = clean, or no manifest)."""
+        if self.manifest is None:
+            return []
+        return self.manifest.verify(self.packed)
+
+    def heal(self) -> dict:
+        """Targeted repair of corrupt buffer regions, in place on the
+        engine's device: re-materialize them from the source tables
+        (bit-exact) or zero-quarantine regions with no source.  The steps
+        read ``self.packed`` when they run, so the next batch sees the
+        repaired buffers."""
+        if self.manifest is None:
+            return {"healed": [], "quarantined": [], "clean": True}
+        self.packed, report = self.manifest.repair(
+            self.packed, self.plan, self.workload.tables, self._table_data
+        )
+        return report
 
     # -- execution ----------------------------------------------------------
 
@@ -716,41 +796,102 @@ class InferenceEngine:
         **server_kwargs,
     ):
         """Build a :class:`repro_torch.serving.server.Server` driven by this
-        engine: microbatching behind ``submit_request(query) -> handle``.
+        engine: microbatching behind ``submit_request(query) -> handle``,
+        drift replanning per the config's drift policy.
 
         ``make_step(engine) -> step`` customizes what runs per batch (e.g.
-        a full DLRM forward on ``engine.bag``/``engine.packed``).  Default:
-        the pooled embedding lookup, with per-query results split as (N, E)
-        slices.  Robustness semantics come from the config: ``max_queue`` +
-        ``admission`` bound the queue and ``deadline_s`` sheds stale requests.
-        On a CPU engine, when ``degrade_after > 0`` and the primary executor
-        is the fused path, a fallback step built from ``make_step`` over
-        :meth:`reference_view` serves batches in degraded mode after
-        repeated failures.  A CUDA engine gets no such fallback: a batch
-        whose kernels fail fails, and is counted, rather than being served by
-        the plain version on the card.  Fault injection waits for ROADMAP A8.
+        a full DLRM forward on ``engine.bag``/``engine.packed``); it is also
+        how a drift hot-swap rebuilds: the policy calls ``make_step`` again
+        on the re-planned engine.  Default: the pooled embedding lookup,
+        with per-query results split as (N, E) slices.  Each step carries
+        ``engine``, the engine it serves from.
+
+        Robustness semantics come from the config: ``max_queue`` +
+        ``admission`` bound the queue and ``deadline_s`` sheds stale
+        requests.  On a CPU engine, when ``degrade_after > 0`` and the
+        primary executor is the fused path, a fallback step built from
+        ``make_step`` over :meth:`reference_view` serves batches in degraded
+        mode after repeated failures.  A CUDA engine gets no such fallback:
+        a batch whose kernels, integrity check or rebuild fail fails, and is
+        counted, rather than being served by the plain version on the card.
+
+        Data-plane integrity is wired per the config's
+        ``validation``/``integrity`` policies: the validator runs at batch
+        release, and with an integrity manifest the step carries
+        ``integrity_verify``/``integrity_repair`` hooks the server's
+        checksum cadence and NaN guard act through; a repair re-materializes
+        the corrupt regions in place and swaps a freshly built step in.
+        ``fault_injector`` threads a seeded
+        :class:`repro_torch.serving.faults.FaultInjector` through the server
+        and the replan path.
         """
         from repro_torch.serving.server import Server
 
-        if fault_injector is not None:
-            raise NotImplementedError("fault injection is not ported yet: ROADMAP A8")
         maker = make_step or (lambda eng: eng._default_step())
 
-        step0 = maker(self)
-        if getattr(step0, "bag", None) is None:
-            step0.bag = self.bag
-        fallback = server_kwargs.pop("fallback_step_fn", None)
-        if (
-            fallback is None
-            and self.device.type == "cpu"
-            and self.config.degrade_after > 0
-            and self.config.use_kernels == "fused"
-        ):
-            fallback = maker(self.reference_view())
+        def _make_fallback(eng):
+            if (
+                eng.device.type == "cpu"
+                and self.config.degrade_after > 0
+                and self.config.use_kernels == "fused"
+            ):
+                return maker(eng.reference_view())
+            return None
 
+        def _wire(step, eng):
+            """Attach the engine-side hooks the server's integrity machinery
+            (and a drift hot-swap's shadow) act through.  Hooks bind to the
+            step's OWN engine so they stay correct across swaps."""
+            if getattr(step, "bag", None) is None:
+                step.bag = eng.bag
+            step.engine = eng
+            step.rebuild = lambda: _wire(maker(eng), eng)
+            if eng.manifest is not None:
+                step.integrity_verify = eng.verify_integrity
+
+                def _repair(bad):
+                    report = eng.heal()
+                    return {
+                        "step_fn": _wire(maker(eng), eng),
+                        "fallback_step_fn": _make_fallback(eng),
+                        "report": report,
+                    }
+
+                step.integrity_repair = _repair
+            return step
+
+        step0 = _wire(maker(self), self)
+        fallback = server_kwargs.pop("fallback_step_fn", None)
+        if fallback is None:
+            fallback = _make_fallback(self)
+
+        def _replan(measured):
+            if fault_injector is not None:
+                fault_injector.fire("replan", batch=None)
+            shadow_engine = self.rebuild(measured)
+            return _wire(maker(shadow_engine), shadow_engine)
+
+        baseline = self.freqs
+        if baseline is None:
+            # drift needs something to diff against: the uniform assumption
+            # the plan was implicitly priced under.
+            from repro_torch.data.distributions import RowProbs
+
+            baseline = [RowProbs.uniform(t.rows) for t in self.workload.tables]
+        drift_cfg = DRIFT_POLICIES.create(self.config.drift).drift_config(
+            baseline=baseline,
+            extract_indices=lambda payloads: np.stack(
+                [_payload_indices(q) for q in payloads], axis=1
+            ),
+            replan=_replan,
+            **self.config.drift_options,
+        )
         validator = VALIDATION_POLICIES.create(self.config.validation).validator(
             rows=[t.rows for t in self.workload.tables],
             **self.config.validation_options,
+        )
+        integrity_cfg = INTEGRITY_POLICIES.create(self.config.integrity).server_config(
+            **self.config.integrity_options
         )
         kwargs = dict(
             max_batch=max_batch or self.config.max_batch,
@@ -763,6 +904,7 @@ class InferenceEngine:
                 "reduce_mode": self.config.reduce_mode,
             },
             cache=dict(self.plan.meta.get("cache") or {}),
+            drift=drift_cfg,
             split_fn=split_fn or self._default_split,
             max_queue=self.config.max_queue,
             admission=self.config.admission,
@@ -772,6 +914,8 @@ class InferenceEngine:
             degrade_after=self.config.degrade_after,
             probe_every=self.config.probe_every,
             validator=validator,
+            integrity=integrity_cfg,
+            fault_injector=fault_injector,
         )
         kwargs.update(server_kwargs)  # explicit kwargs override the config
         srv = Server(step0, **kwargs)
@@ -899,6 +1043,14 @@ class InferenceEngine:
             f"reduce={self.config.reduce_mode} layout={self.config.layout} "
             f"device={self.device}"
         )
-        if self.config.validation != "clip":
-            lines.append(f"integrity validation={self.config.validation}")
+        if self.config.drift != "none":
+            lines.append(f"drift policy={self.config.drift} "
+                         f"{self.config.drift_options}")
+        if self.config.validation != "clip" or self.config.integrity != "none":
+            regions = len(self.manifest.checksums) if self.manifest else 0
+            lines.append(
+                f"integrity validation={self.config.validation} "
+                f"checksums={self.config.integrity}"
+                + (f" ({regions} regions)" if regions else "")
+            )
         return "\n".join(lines)

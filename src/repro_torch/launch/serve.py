@@ -21,13 +21,24 @@ instead of falling back to the symmetric group); ``--set
 'planner_options={"shard_rocks": false}'`` restores the paper's LIF
 fallback.  ``--set layout=dense`` serves the legacy stacked-slot layout.
 
+``--preset <name>`` loads a shipped deployment recipe
+(:mod:`repro_torch.configs.presets`: ``taobao-zipf12``,
+``huawei-dayparted``, ``tenrec-hotset``) as the base config and fills
+``--workload``/``--distribution`` unless they are given.  ``--drift`` is a
+phase schedule spec (``flip`` = uniform -> zipf-1.2 -> hot-set flip, or
+``zipf:1.2@80,hotset:0.01:0.9:-1@64``) routed through the request-level
+server; a day-parted traffic spec (``huawei-25mb``) and ``drift=replan``
+take the same loop, which prints each replan's batch and the integrity
+counters::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --preset taobao-zipf12 \
+        --drift zipf:1.2@80,hotset:0.01:0.9:-1@64 --queries 73728
+
 Legacy flag spellings (``--planner``, ``--layout``, ``--kernels``,
 ``--reduce``, ``--autotune``, ``--dedup``, ``--cache``, ``--replan``,
 ``--replan-threshold``) still work: each maps onto the corresponding
 ``EngineConfig`` field and emits a ``DeprecationWarning`` naming its
-replacement (see :func:`config_from_args`).  ``--replan`` resolves as in the
-JAX package, and building the engine then raises: drift serving,
-``--preset`` and ``--drift`` are not ported yet (ROADMAP A6).
+replacement (see :func:`config_from_args`).
 """
 from __future__ import annotations
 
@@ -60,15 +71,25 @@ def _resolve_dists(spec: str) -> list[tuple[str, object]]:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
-    p.add_argument("--workload", default="smoke")
+    # --workload / --distribution default to None sentinels so a --preset
+    # can fill them; without one they resolve to "smoke" / "real"
+    p.add_argument("--workload", default=None)
     p.add_argument("--batch", type=int, default=None,
                    help="serving batch size (default: the config's "
                         "max_batch, 256)")
     p.add_argument("--queries", type=int, default=2048)
-    p.add_argument("--distribution", default="real",
+    p.add_argument("--distribution", default=None,
                    help="query stream: uniform | real | fixed | all | "
                         "zipf:<a> | hotset:<frac>:<mass>[:<off>] | "
-                        "<workload preset>")
+                        "<workload preset> (default: real)")
+    p.add_argument("--preset", default=None,
+                   help="shipped preset pack (workload + traffic + "
+                        "EngineConfig) from repro_torch/configs/presets, "
+                        "e.g. taobao-zipf12; explicit flags still override")
+    p.add_argument("--drift", default=None,
+                   help="drift schedule spec routed through the Server, "
+                        "e.g. 'flip' or 'uniform@8,zipf:1.2@8,"
+                        "hotset:0.01:0.9:-1@8'")
     p.add_argument("--config", type=Path, default=None,
                    help="EngineConfig JSON artifact to build from")
     p.add_argument("--set", action="append", default=[], dest="overrides",
@@ -150,14 +171,35 @@ def _apply_legacy_flags(args, config: EngineConfig) -> None:
 
 
 def config_from_args(args) -> EngineConfig:
-    """Resolve the CLI namespace into one :class:`EngineConfig`.
+    """Resolve the CLI namespace into one :class:`EngineConfig`, as the JAX
+    package's CLI resolves it.
 
-    Precedence: ``--config`` base (else defaults) < legacy flags (each with
-    a :class:`DeprecationWarning`) < ``--batch`` < ``--set`` overrides.
+    Precedence: ``--preset`` / ``--config`` base (mutually exclusive, else
+    defaults) < legacy flags (each with a :class:`DeprecationWarning`) <
+    ``--batch`` < ``--set`` overrides.  A preset also fills
+    ``args.workload`` / ``args.distribution`` unless those flags were given.
     Also bakes in the serve CLI's historical choices: ``shard_rocks=True``
     for the asymmetric planner and the drift-trigger cadence.
     """
-    config = EngineConfig.load(args.config) if args.config else EngineConfig()
+    preset = None
+    if getattr(args, "preset", None):
+        if args.config:
+            raise SystemExit("--preset and --config are mutually exclusive")
+        from repro_torch.configs.presets import load_preset
+
+        preset = load_preset(args.preset)
+    if preset is not None:
+        config = EngineConfig.from_dict(preset["config"])
+    elif args.config:
+        config = EngineConfig.load(args.config)
+    else:
+        config = EngineConfig()
+    # explicit flag > preset > historical default; main() reads the
+    # resolved values back off the namespace
+    if args.workload is None:
+        args.workload = preset["workload"] if preset else "smoke"
+    if args.distribution is None:
+        args.distribution = (preset.get("distribution") if preset else None) or "real"
     _apply_legacy_flags(args, config)
     if args.batch is not None:
         config.max_batch = args.batch
@@ -189,12 +231,15 @@ def config_from_args(args) -> EngineConfig:
 
 def main(argv=None) -> dict:
     """Serve ``--queries`` requests in batches of ``max_batch`` and print the
-    plan report and per-distribution latency.  Returns what a caller needs
-    to check the run: the engine, the DLRM config and parameters, each
-    traffic label's server stats, the last server, and the last batch
-    served (its inputs and per-request logits)."""
+    plan report and per-distribution latency (or, under a drift schedule or
+    ``drift=replan``, the drift loop's latency and replans).  Returns what a
+    caller needs to check the run: the engine, the DLRM config and
+    parameters, each traffic label's server stats, the last server, the
+    serving wall time, the logits of every request the last server served,
+    and the last batch submitted (its inputs and the logits of the requests
+    of it that were served)."""
     args = build_parser().parse_args(argv)
-    config = config_from_args(args)
+    config = config_from_args(args)  # also resolves --preset into args
     from repro_torch.data.workloads import WORKLOADS
 
     if args.workload not in ["smoke", *WORKLOADS]:
@@ -217,9 +262,27 @@ def main(argv=None) -> dict:
     params = init_dlrm(cfg, torch.Generator().manual_seed(0), device)
     n_batches = max(args.queries // batch, 1)
 
+    # size "flip"-style default phases to a third of the run so every phase
+    # is visited (explicit "@N" specs override per phase)
+    schedule = (
+        dist_lib.parse_drift(args.drift, phase_batches=max(n_batches // 3, 1))
+        if args.drift else None
+    )
+    resolved = _resolve_dists(args.distribution)[0][1]
+    if schedule is None and isinstance(resolved, dist_lib.DriftSchedule):
+        # a day-parted traffic spec (e.g. huawei-25mb) routes through the
+        # drift serving loop like an explicit --drift spec
+        schedule = resolved
+    # a schedule prices the initial plan under its phase 0 (explicit freqs,
+    # like the drift engine's measured rebuilds); otherwise the engine
+    # prices under config.distribution
+    freqs0 = dist_lib.workload_probs(wl, schedule.at(0)) if schedule is not None else None
+    dist0 = schedule.at(0) if schedule else resolved
+
     def make_step(engine):
         """One serving step over request payloads: the full DLRM forward on
-        the engine's packed embeddings."""
+        the engine's packed embeddings.  Re-invoked on every drift hot-swap
+        and heal."""
 
         def step(payloads):
             dense = torch.as_tensor(np.stack([q["dense"] for q in payloads]), device=device)
@@ -237,7 +300,7 @@ def main(argv=None) -> dict:
         return step
 
     t0 = time.perf_counter()
-    engine = InferenceEngine.build(params["tables"], wl, config, device=device)
+    engine = InferenceEngine.build(params["tables"], wl, config, device=device, freqs=freqs0)
     build_s = time.perf_counter() - t0
     for line in engine.plan_report().splitlines():
         print(f"[serve] {line}")
@@ -245,20 +308,37 @@ def main(argv=None) -> dict:
 
     # (B,) logits -> one scalar per request handle
     split = lambda out, n: [out[i] for i in range(n)]  # noqa: E731
+    result = {"engine": engine, "cfg": cfg, "params": params, "stats": {},
+              "build_s": build_s, "n_batches": n_batches}
+    if schedule is not None or config.drift != "none":
+        schedule = schedule or dist_lib.DriftSchedule([(1, dist0)], cycle=True)
+        return _serve(result, [("drift", schedule)], engine, make_step, split, wl,
+                      batch, n_batches, drift=True)
+    return _serve(result, _resolve_dists(args.distribution), engine, make_step, split,
+                  wl, batch, n_batches, drift=False)
+
+
+def _serve(result, legs, engine, make_step, split, wl, batch, n_batches, *, drift):
+    """Serve ``n_batches`` batches of each traffic leg through a fresh
+    engine-built server.  A drift leg's distribution is a schedule read at
+    each batch index; its server replans per the config's drift policy."""
+    from repro_torch.data import distributions as dist_lib
+
+    n_dense = result["cfg"].n_dense
     rng = np.random.default_rng(0)
-    result = {"engine": engine, "cfg": cfg, "params": params, "stats": {}}
-    for label, dist in _resolve_dists(args.distribution):
+    for label, dist in legs:
         srv = engine.serve(make_step=make_step, split_fn=split)
+        every = []
         t0 = time.perf_counter()
-        for _ in range(n_batches):
-            b = dist_lib.sample_workload(rng, wl, dist, batch)
-            dense = rng.standard_normal((batch, cfg.n_dense)).astype(np.float32)
+        for b in range(n_batches):
+            idx = dist_lib.sample_workload(rng, wl, dist.at(b) if drift else dist, batch)
+            dense = rng.standard_normal((batch, n_dense)).astype(np.float32)
             handles = [
-                srv.submit_request({"dense": dense[q], "indices": b[:, q]})
+                srv.submit_request({"dense": dense[q], "indices": idx[:, q]})
                 for q in range(batch)
             ]
+            every += handles
             srv.pump()
-            assert handles[0].done()
         wall_s = time.perf_counter() - t0
         unserved = srv.drain()
         if unserved:
@@ -267,15 +347,28 @@ def main(argv=None) -> dict:
         result["stats"][label] = s
         result["server"] = srv
         result["serve_wall_s"] = wall_s
-        result["last"] = {
-            "indices": b, "dense": dense,
-            "logits": np.asarray([h.result() for h in handles], np.float32),
-        }
-        print(f"[serve] dist={label:8s} p50={_fmt_us(s['p50_us'])} "
-              f"p99={_fmt_us(s['p99_us'])} tps={s['tps']:9.0f} "
-              f"wall/batch={wall_s / n_batches * 1e3:.2f}ms ({n_batches} batches)")
+        result["served_logits"] = _served(every)
+        result["last"] = {"indices": idx, "dense": dense, "logits": _served(handles)}
+        line = (f"[serve] dist={label:8s} p50={_fmt_us(s['p50_us'])} "
+                f"p99={_fmt_us(s['p99_us'])} tps={s['tps']:9.0f} "
+                f"wall/batch={wall_s / n_batches * 1e3:.2f}ms ({n_batches} batches)")
+        if "replan" in s:
+            r = s["replan"]
+            line += (f" replans={r['replans']} parity_failures="
+                     f"{r['parity_failures']} last_drift={r['last_drift']:.3f}")
+        print(line)
         _print_robustness(s)
+        for ev in s.get("replan", {}).get("events", []):
+            print(f"[serve]   replan@batch={ev['batch']} drift={ev['drift']:.3f} "
+                  f"parity_ok={ev['parity_ok']}")
     return result
+
+
+def _served(handles) -> np.ndarray:
+    """The results of the handles that were served (not shed, rejected or
+    failed), in submission order."""
+    return np.asarray([h.result() for h in handles if h.done() and h._error is None],
+                      np.float32)
 
 
 def _fmt_us(v) -> str:
@@ -299,6 +392,12 @@ def _print_robustness(s: dict) -> None:
     if val.get("oov_indices") or val.get("negative_indices"):
         print(f"[serve]   validation mode={val['mode']} "
               f"oov={val['oov_indices']} negative={val['negative_indices']}")
+    integ = s.get("integrity") or {}
+    if integ.get("corruptions_detected") or integ.get("poisoned_batches"):
+        print(f"[serve]   integrity corruptions={integ['corruptions_detected']} "
+              f"heals={integ['heals']} "
+              f"quarantined={integ['quarantined_regions']} "
+              f"poisoned_batches={integ['poisoned_batches']}")
 
 
 if __name__ == "__main__":

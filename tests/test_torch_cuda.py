@@ -844,3 +844,92 @@ def test_sweep_on_the_card_ranks_by_device_time(cuda):
                and c["wall_us"] > 0 for c in t["candidates"])
     assert t["best"]["device_us"] == min(c["device_us"] for c in t["candidates"])
     assert eng.packed.block_r == t["best"]["block_r"]
+
+
+@pytest.mark.parametrize("field", ["chunk_data", "cache_data"])
+def test_bitflip_on_the_card_detected_and_healed_bitwise(cuda, field):
+    """A bit flipped in a packed buffer on the card: the manifest (equal to
+    the CPU engine's) finds the region the CPU engine reports for the same
+    flip, and the in-place heal leaves every buffer bitwise equal to a
+    fresh pack; the served batch after it equals the CPU's."""
+    from repro_torch.data.distributions import Zipf, sample_workload
+    from repro_torch.serving.faults import FaultInjector, FaultPlan, FaultSpec, \
+        arm_buffer_corruption
+
+    wl = small_workload(batch=16)
+    rng = np.random.default_rng(0)
+    tables = [rng.standard_normal((t.rows, t.dim)).astype(np.float32) for t in wl.tables]
+    config = EngineConfig(mesh_shape=(1, 4), distribution="zipf:1.2", hardware="a100",
+                          access="full", integrity="checksum",
+                          planner_options={"shard_rocks": True})
+    card = InferenceEngine.build(tables, wl, config)
+    cpu = InferenceEngine.build(tables, wl, config, device="cpu")
+    assert card.packed.cache_rows > 0
+    assert card.manifest.checksums == cpu.manifest.checksums
+    fields = ("chunk_data", "cache_data", "sym_data")
+    pristine = {f: getattr(card.packed, f).clone() for f in fields}
+    bad = {}
+    for name, eng in (("card", card), ("cpu", cpu)):
+        if field == "chunk_data":
+            inj = FaultInjector(FaultPlan([FaultSpec("buffer", mode="bitflip", count=3)], seed=5))
+            arm_buffer_corruption(inj, eng, type("NoServer", (), {"step_fn": None}))
+            inj.fire("buffer", batch=0)
+        else:
+            eng.packed.cache_data[1, 2, 3:4].view(torch.int32).bitwise_xor_(1 << 27)
+        bad[name] = eng.verify_integrity()
+        report = eng.heal()
+        assert report["clean"] and report["healed"] and not report["quarantined"]
+    assert bad["card"] == bad["cpu"] and bad["card"]
+    for f in fields:
+        assert torch.equal(getattr(card.packed, f), pristine[f]), f
+        assert torch.equal(getattr(card.packed, f).cpu(), getattr(cpu.packed, f)), f
+    idx = sample_workload(rng, wl, Zipf(1.2), 16)
+    torch.testing.assert_close(card.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
+
+
+def test_sweep_on_a_worker_thread_counts_only_its_own_kernels(cuda):
+    """The block-size sweep of a shadow build runs on a worker thread while
+    the server launches its own kernels: each candidate's ``device_us``
+    (CUDA events on the sweep's own stream) stays within 20% of the same
+    sweep run alone, and two sweeps at once raise no error."""
+    import copy
+    import threading
+
+    from repro_torch.core.autotune import autotune_block_sizes
+    from repro_torch.data.workloads import get_workload
+
+    wl = get_workload("taobao", 512)
+    config = EngineConfig(distribution="zipf:1.2", access="full", mesh_shape=(1, 1),
+                          planner_options={"shard_rocks": True})
+    eng = InferenceEngine.build(None, wl, config)
+
+    def sweep(out, key):
+        plan = copy.deepcopy(eng.plan)  # each sweep records into its own plan
+        try:
+            autotune_block_sizes(plan, wl.tables, batch=wl.batch, freqs=eng.freqs,
+                                 device="cuda")
+            out[key] = [c["device_us"] for c in plan.meta["tuning"]["candidates"]]
+        except Exception as e:  # reported below
+            out[key] = e
+
+    res = {}
+    sweep(res, "warm")
+    sweep(res, "alone")
+    workers = [threading.Thread(target=sweep, args=(res, k)) for k in ("loaded", "second")]
+    for w in workers:
+        w.start()
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, t.rows, (wl.batch, 1)) for t in wl.tables]).astype(np.int32)
+    lookups = 0
+    while any(w.is_alive() for w in workers):
+        eng.lookup(idx)
+        torch.cuda.synchronize()
+        lookups += 1
+    for w in workers:
+        w.join()
+    assert lookups > 0
+    for key in ("alone", "loaded", "second"):
+        assert not isinstance(res[key], Exception), res[key]
+        assert len(res[key]) == 4 and all(v > 0 for v in res[key])
+    for a, b in zip(res["alone"], res["loaded"]):
+        assert abs(b - a) <= 0.2 * a, (res["alone"], res["loaded"])

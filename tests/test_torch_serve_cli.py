@@ -2,7 +2,7 @@
 package's does: the same ``EngineConfig`` (``to_dict()`` equal across the
 two packages, and equal to the canonical ``--set`` spelling) with the same
 number of ``DeprecationWarning``s.  ``--replan`` resolves like the JAX
-package's and then refuses to build (drift serving is not ported)."""
+package's and serves through the drift loop."""
 import warnings
 
 import pytest
@@ -70,11 +70,18 @@ def test_defaults_and_replan_cadence_like_reference():
 
 
 def test_replan_refuses_to_build():
-    with pytest.raises(NotImplementedError, match="A6"):
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", DeprecationWarning)
-            serve.main(["--device", "cpu", "--workload", "smoke", "--batch", "8",
-                        "--queries", "8", "--replan"])
+    """``--replan`` once refused to build (drift serving was not ported);
+    now it builds and serves through the drift loop, with the CLI's
+    historical trigger cadence."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        res = serve.main(["--device", "cpu", "--workload", "smoke", "--batch", "8",
+                          "--queries", "64", "--replan"])
+    (label,) = res["stats"]
+    s = res["stats"][label]
+    assert label == "drift" and s["served"] == s["submitted"] == 64
+    assert s["replan"]["drift_checks"] == 2 and s["replan"]["replan_errors"] == 0
+    assert res["engine"].config.drift_options == {"check_every": 4, "patience": 2, "cooldown": 8}
 
 
 def test_legacy_layout_dense_serves_on_cpu():

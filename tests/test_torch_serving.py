@@ -135,8 +135,10 @@ def test_serve_cli_on_cpu(capsys, tmp_path):
 def test_cli_shard_rocks_default_and_unknown_flags():
     args = serve_cli.build_parser().parse_args(["--workload", "taobao"])
     assert serve_cli.config_from_args(args).planner_options == {"shard_rocks": True}
+    # --preset is a flag now (ported with the presets); others still fail
+    assert serve_cli.build_parser().parse_args(["--preset", "taobao-zipf12"]).preset
     with pytest.raises(SystemExit):
-        serve_cli.build_parser().parse_args(["--preset", "taobao-zipf12"])
+        serve_cli.build_parser().parse_args(["--no-such-flag", "1"])
     with pytest.raises(SystemExit):
         serve_cli.main(["--workload", "nope", "--device", "cpu"])
 
@@ -158,8 +160,20 @@ def test_reference_config_json_loads_unchanged():
 ])
 def test_unported_config_values_raise(field, value, item):
     """A value this port does not run yet validates, as in the JAX package,
-    and building an engine from it raises, naming its ROADMAP item."""
+    and building an engine from it raises, naming its ROADMAP item.  Drift
+    replanning (A6) and buffer checksums (A8) are ported: those values
+    build and serve."""
     EngineConfig(**{field: value}).validate()
+    if item in ("A6", "A8"):
+        engine = _engine(**{field: value}, max_batch=8)
+        srv = engine.serve()
+        for q in _queries(engine.workload, 16):
+            srv.submit_request(q)
+        srv.drain()
+        s = srv.stats()
+        assert s["served"] == 16 and s["batch_failures"] == 0
+        assert ("replan" if field == "drift" else "integrity") in s
+        return
     with pytest.raises(NotImplementedError, match=item):
         _engine(**{field: value})
 

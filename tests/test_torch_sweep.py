@@ -6,11 +6,18 @@
 * :func:`best_candidate` ranks by ``device_us`` for ``"cuda"`` and by
   ``wall_us`` for ``"cpu"`` when the two disagree.
 * ``TuningCache`` keeps ``device_us`` through ``save``/``load``.
+* The card's ``device_us`` is CUDA-event time of lookups held behind a
+  spin kernel on the sweep's stream: the events are scripted here (a spin
+  that ended before the host's enqueue did is run again, four times as
+  long, and the sweep raises when none held).
 
 The record's top-level keys and its candidate list against the reference's
 are held in ``tests/test_torch_access.py``.
 """
+import contextlib
+
 import pytest
+import torch
 
 from repro_torch.core import autotune as tune
 from repro_torch.data.workloads import small_workload
@@ -73,3 +80,52 @@ def test_tuning_cache_round_trip_keeps_device_us(tmp_path, record):
     assert [c["device_us"] for c in got["tuning"]["candidates"]] == \
         [c["device_us"] for c in want["tuning"]["candidates"]]
     assert "device_us" in got["tuning"]["best"]
+
+
+
+class _FakeEvent:
+    """A CUDA event whose ``query()`` follows a script: True when the card
+    had reached it by the time the host asked (the spin did not hold)."""
+
+    def __init__(self, script, times, log):
+        self.script, self.times, self.log = script, times, log
+
+    def record(self, stream):
+        self.log.append("record")
+
+    def query(self):
+        return next(self.script)
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return next(self.times)
+
+
+@pytest.mark.parametrize("reached,want,spins", [
+    ([False], 0.5, [10_000_000]),  # the spin held the lookups: one try
+    ([True, False], 0.5, [10_000_000, 40_000_000]),  # too short: 4x longer
+    ([True, True, True, False], 0.5, [10_000_000 * 4**k for k in range(4)]),
+    ([True] * 5, None, [10_000_000 * 4**k for k in range(5)]),  # never held: raises
+])
+def test_device_us_counts_the_lookups_held_behind_the_spin(monkeypatch, reached, want, spins):
+    """The sweep's time on the card: CUDA events around lookups queued behind
+    a spin kernel on the sweep's stream, counted only when the spin still
+    held them once the host had enqueued them all (the start event not yet
+    reached); a spin that ended first is run again four times as long."""
+    script, log, slept = iter(reached), [], []
+    times = iter([1.0] * 5)  # ms for 2 lookups -> 500 us each
+    events = iter(range(100))
+    monkeypatch.setattr(torch.cuda, "Event", lambda enable_timing: _FakeEvent(
+        script if next(events) % 2 == 0 else iter([True]), times, log))
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "_sleep", slept.append)
+    runs = []
+    if want is None:
+        with pytest.raises(RuntimeError, match="outlasted every gate"):
+            tune._device_us(lambda: runs.append(1), 2, object())
+    else:
+        assert tune._device_us(lambda: runs.append(1), 2, object()) == pytest.approx(want * 1e3)
+    assert slept == spins and len(runs) == 2 * len(spins)
+    assert log == ["record", "record"] * len(spins)
