@@ -100,14 +100,15 @@ X] <message>`` before it raises):
    replans none either; path D and X gate the cache mode), and every
    engine the run built (its first and each finished rebuild) held against
    the same plan built on the CPU, under the engine's own histograms and
-   swept block sizes, on the last batch's inputs: the same packed
+   block sizes (a rebuild on the card keeps the first engine's), on the
+   last batch's inputs: the same packed
    schedule, the pooled output within 1e-5 and the logits within 1e-4.
    Replans and their batches, abandoned builds, sheds, deadline misses,
-   latency, wall per batch, each rebuild's seconds and sweep pick, and the
+   latency, wall per batch, each rebuild's seconds and block size, and the
    integrity sweep's cost are recorded and not gated;
    R. F replayed deterministically (no overlap, no deadline, 128 batches)
       on the card and then on the CPU with the same seed, the CPU twin
-      packing the block sizes the card's sweeps chose: the same replan
+      packing the block sizes the card's engines packed: the same replan
       batches, the last batch's pooled output within 1e-5 and its logits
       within 1e-4, served by the engine of the last swap on both;
    X. faults on taobao-zipf12's plan with a fixed fault plan and seed: a
@@ -118,7 +119,23 @@ X] <message>`` before it raises):
       launch and its heal rebuilds, then held against its CPU twin; a step
       crash failing only its batch;
       one stalled replan (overlap on) abandoned after
-      ``build_timeout_batches``, the stall released only after that.
+      ``build_timeout_batches``, the stall released only after that;
+6. the two-level mesh and the scenario towers, last:
+   M. the serve CLI on full-width taobao at batch 8192 (16,384 requests)
+      with ``planner=hierarchical`` on a ``[2,4]`` mesh, ``access=dedup``
+      and ``zipf:1.2`` priced under ``a100`` (whose plan row-shards tables
+      0, 1, 3, 4 and 5 over both hosts): one card holds the whole mesh, a
+      host being a group of plan cores.  Gated as the main path (the CPU
+      twin included), and: two hosts and those five tables in the plan's
+      mesh record, an owner core on each host for a row-sharded table, no
+      cross-host send and no symmetric group, the dedup kernels launched,
+      the report's host tree and mesh line;
+   S. each registered scenario tower (dlrm, mamba2, moe, transformer) built
+      by name from its registry config and served for 16 batches of 64:
+      every request served, the last batch's scores bitwise equal to the
+      scenario's reference forward on the card and within 1e-4 of its CPU
+      twin, and every kernel whose wrapper the CPU twin's lookup calls
+      launched.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -171,6 +188,16 @@ PRESETS = {
 R_ARGS = ["--preset", "taobao-zipf12", "--drift", F_DRIFT, "--queries", "65536",
           "--set", 'drift_options={"overlap": false}', "--set", "deadline_s=null"]
 FAULT_SEED = 5
+# the two-level mesh (M): taobao's hierarchical plan on a 2x4 mesh, priced
+# under a100, whose plan row-shards five tables over both hosts (under
+# tpu_v5e every table would sit whole on one host)
+M_ARGS = ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
+          "--distribution", ZIPF, "--set", f"distribution={ZIPF}",
+          "--set", "planner=hierarchical", "--set", "mesh_shape=[2,4]",
+          "--set", "access=dedup", "--set", "hardware=a100", "--set", "degrade_after=0"]
+M_ROCKS = [0, 1, 3, 4, 5]
+# the scenario towers (S): 16 batches of 64 each, fixed arrivals
+S_BATCHES = 16
 ACCESS_SRC = "src/repro_torch/csrc/embedding_access.cu"
 KERNELS = {
     # name: (wrapper module, wrapper, launch mode counted (None = every
@@ -374,7 +401,7 @@ def build_kernels() -> None:
         print(f"[build] {name} {rec['seconds']:.1f}s | " + " | ".join(usage))
 
 
-def main_path(label: str) -> dict:
+def main_path(label: str, argv=None) -> dict:
     import numpy as np
     import torch
 
@@ -382,11 +409,12 @@ def main_path(label: str) -> dict:
     from repro_torch.launch import serve
     from repro_torch.models.dlrm import forward_packed
 
-    print(f"[main {label}] python -m repro_torch.launch.serve {' '.join(PATHS[label])}")
-    args = serve.build_parser().parse_args(PATHS[label])
+    argv = PATHS[label] if argv is None else argv
+    print(f"[main {label}] python -m repro_torch.launch.serve {' '.join(argv)}")
+    args = serve.build_parser().parse_args(argv)
     reset_counts()
     t0 = time.perf_counter()
-    res = serve.main(PATHS[label])
+    res = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
@@ -469,6 +497,9 @@ def main_path(label: str) -> dict:
     }
     if engine.packed.unique_cap or engine.packed.cache_rows:
         rec["access"] = access_summary(engine, idx)
+        rec["cache"] = engine.plan.meta["cache"]
+        rec["kernel"] = engine.plan.meta["kernel"]["packed"]
+    if tuning:
         rec["tuning"] = {k: tuning[k] for k in ("best", "backend", "compiled", "iters")}
         rec["tuning"]["candidates"] = [
             {k: c[k] for k in ("block_r", "n_steps", "padding_frac", "wall_us", "device_us")}
@@ -478,10 +509,9 @@ def main_path(label: str) -> dict:
               f"[main {label}] a sweep candidate has no device time: {times}")
         check(tuning["best"]["device_us"] == min(times),
               f"[main {label}] the sweep's pick is not its least device time: {tuning['best']}")
-        rec["cache"] = engine.plan.meta["cache"]
-        rec["kernel"] = engine.plan.meta["kernel"]["packed"]
     print(json.dumps(rec))
-    return {"engine": engine, "indices": idx, "counts": counts, "l1_modes": l1_modes}
+    return {"engine": engine, "indices": idx, "counts": counts, "l1_modes": l1_modes,
+            "record": rec}
 
 
 def access_summary(engine, idx) -> dict:
@@ -1654,7 +1684,7 @@ def _replan_record(s: dict, rebuilds: list) -> dict:
     return {"replans": r["replans"], "abandoned": r["abandoned"],
             "drift_checks": r["drift_checks"], "events": r["events"],
             "rebuilds": [{"thread": b["thread"], "seconds": b.get("seconds"),
-                          "sweep": _sweep_pick(b["engine"]) if "engine" in b else None,
+                          "block_r": b["engine"].packed.block_r if "engine" in b else None,
                           **({"error": b["error"]} if "error" in b else {})}
                          for b in rebuilds]}
 
@@ -1671,7 +1701,7 @@ def _twin_check(label: str, res: dict, rebuilds: list) -> list:
     built on the CPU (the kernels' plain versions) on the last batch's
     inputs: the same packed schedule, the pooled output within ``TOL`` and
     the logits within ``LOGIT_TOL``.  The CPU twin packs under the card
-    engine's own histograms and the block sizes its sweep chose, so the
+    engine's own histograms and block sizes, so the
     comparison holds whichever engine the clock let serve."""
     import numpy as np
     import torch
@@ -1688,10 +1718,9 @@ def _twin_check(label: str, res: dict, rebuilds: list) -> list:
     for i, eng in enumerate(engines):
         config = eng.config
         if config.tuning == "sweep":
-            best = eng.plan.meta["tuning"]["best"]
             config = dataclasses.replace(config, tuning="fixed", tuning_options={
-                "block_r": best["block_r"],
-                **({"block_b": best["block_b"]} if best["block_b"] else {})})
+                "block_r": eng.packed.block_r,
+                **({"block_b": eng.packed.block_b} if eng.packed.block_b else {})})
         cpu = InferenceEngine.build(cpu_params["tables"], eng.workload, config,
                                     device="cpu", freqs=eng.freqs)
         sched = lambda e: (e.packed.block_r, e.packed.unique_cap,  # noqa: E731
@@ -1712,8 +1741,13 @@ def _twin_check(label: str, res: dict, rebuilds: list) -> list:
         logit_err = float(np.abs(logits - cpu_logits).max())
         check(np.isfinite(logits).all() and np.allclose(logits, cpu_logits, **LOGIT_TOL),
               f"[{label}] engine {i}: logits max err {logit_err}")
+        # the error beside the logits' own size (f32 reduction order scales
+        # with it; tests/test_torch_logit_order.py)
+        largest = float(np.abs(cpu_logits).max())
         out.append({"engine": i, "served_last": eng is serving, "schedule": sched(eng),
-                    "pooled_max_err": pooled_err, "logit_max_err": logit_err})
+                    "pooled_max_err": pooled_err, "logit_max_err": logit_err,
+                    "logit_rel_err": logit_err / largest if largest else 0.0,
+                    "logit_max_abs": largest})
         del cpu
     return out
 
@@ -1726,7 +1760,7 @@ def preset_path(label: str) -> dict:
     batch, ``_twin_check``).
     Recorded and not gated: replans and their batches, abandoned builds,
     sheds, deadline misses, latency, wall per batch, the integrity sweep's
-    cost and each rebuild's seconds and sweep pick."""
+    cost and each rebuild's seconds and block size."""
     import torch
 
     from repro_torch.launch import serve
@@ -1781,8 +1815,8 @@ def preset_path(label: str) -> dict:
 def replay_path() -> dict:
     """F's preset and drift spec, replanned inline (no overlap, no
     deadline) over 128 batches on the card, then on the CPU with the same
-    seed, the CPU twin packing the block sizes the card's sweeps chose (its
-    first engine and each rebuild).  Gates: every request served, the same
+    seed, the CPU twin packing the block sizes the card's engines packed
+    (its first engine and each rebuild).  Gates: every request served, the same
     replan batches, the last batch's pooled output within 1e-5 and logits
     within 1e-4 of the CPU's, and the last batch served by the engine of
     the last swap, on both."""
@@ -1799,8 +1833,8 @@ def replay_path() -> dict:
     (s,) = res["stats"].values()
     _served_checks("R", s, res["served_logits"])
     check(s["served"] == s["submitted"], f"[R] served {s['served']} of {s['submitted']}")
-    picks = [b["engine"].plan.meta["tuning"]["best"]["block_r"] for b in card_log]
-    first = res["engine"].plan.meta["tuning"]["best"]["block_r"]
+    picks = [b["engine"].packed.block_r for b in card_log]
+    first = res["engine"].packed.block_r
     cpu_args = R_ARGS + ["--device", "cpu", "--set", "tuning=fixed",
                          "--set", f'tuning_options={{"block_r": {first}}}']
     with rebuild_log(picks) as cpu_log:
@@ -2014,6 +2048,172 @@ def faults_path() -> dict:
     return {"counts": counts}
 
 
+# --------------------------------------------------------------------------
+# the two-level mesh and the scenario towers
+# --------------------------------------------------------------------------
+
+
+def mesh_path() -> dict:
+    """M: the serve CLI on the hierarchical plan of a 2x4 mesh (one card
+    holds the whole mesh: a host is a group of plan cores).  Gated: the
+    main path's checks (accounting, the CPU twin's pooled output and
+    logits, no fallback step), the plan's mesh record (two hosts, the five
+    row-sharded tables), an owner on each host for a row-sharded table in
+    the rejoin buckets, no cross-host send, no symmetric group, the dedup
+    kernels launched and the report's host tree and mesh line.  Recorded:
+    wall per batch, the lookup's device time, and the modeled cross-host
+    bytes against a flat all-gather (a model priced under ``a100``)."""
+    import numpy as np
+    import torch
+
+    run = main_path("M", M_ARGS)
+    engine, idx, counts = run["engine"], run["indices"], run["counts"]
+    mesh = engine.plan.meta["mesh"]
+    check(mesh["hosts"] == 2 and mesh["cores_per_host"] == 4 and mesh["rocks"] == M_ROCKS,
+          f"[M] mesh record {mesh}")
+    cph = mesh["cores_per_host"]
+    bucket = engine.packed.rejoin_bucket.cpu().numpy()
+    split = [ti for ti in range(len(engine.workload.tables))
+             if {int(c) // cph for c in np.nonzero((bucket == ti).any(axis=1))[0]} == {0, 1}]
+    check(split, "[M] no table has an owner core on each host")
+    rejoin = engine.plan.meta["rejoin"]
+    check(rejoin["hosts"] == 2 and rejoin["cross_host_sends"] == 0, f"[M] rejoin {rejoin}")
+    check(not engine.plan.symmetric_tables, "[M] the hierarchical plan has a symmetric group")
+    check(counts["multi_embedding_bag_ragged[dedup]"] > 0 and counts["batch_dedup"] > 0,
+          f"[M] the dedup kernels not launched: {counts}")
+    report = engine.plan_report()
+    check(all(k in report for k in ("host 0", "host 1", "mesh 2x4")),
+          "[M] the plan report lacks its host tree or mesh line")
+    lookup = profile_calls(lambda: engine.lookup(idx))
+    xh = engine.stats()["cross_host"]
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "mesh_path": "M", "serve_wall_per_batch_ms": run["record"]["serve_wall_per_batch_ms"],
+        "lookup_ms": run["record"]["lookup_ms"], "lookup_device_ms": lookup["device_ms"],
+        "lookup_launches": lookup["launches_per_call"], "lookup_kernels_ms": lookup["kernels_ms"],
+        "chunks": len(engine.plan.assignments), "rocks": mesh["rocks"],
+        "host_tables": mesh["host_tables"], "tables_on_both_hosts": split,
+        "unique_cap": engine.packed.unique_cap, "rejoin": rejoin,
+        "modeled_under": engine.config.hardware, **xh}), flush=True)
+    return {"counts": counts}
+
+
+def kernels_called(run) -> tuple:
+    """``(names, run())``: the kernels whose wrappers ``run()`` calls, named
+    as their launch counts name them.  Run on a CPU engine (each wrapper's
+    plain route), it shows what the executor's own dispatch reaches for a
+    config, which the card's counts are then held to.  The fused kernel's
+    modes are those its arguments arm, as its launch counts them: dedup
+    (with the dedup kernel), a cache with rows, the sparse path, else
+    base."""
+    wrapped = {fn.__code__: fn.__name__ for fn in wrappers().values()}
+    names = set()
+
+    def hook(frame, event, arg):
+        name = wrapped.get(frame.f_code) if event == "call" else None
+        if name != "multi_embedding_bag_ragged":
+            if name:
+                names.add(name)
+            return
+        a = frame.f_locals
+        cache = a["cache"]
+        modes = [m for m, on in (("dedup", a["unique_cap"]),
+                                 ("cache", cache is not None and cache.shape[-2]),
+                                 ("sparse", a["step_kpath"] is not None)) if on]
+        names.update(f"{name}[{m}]" for m in modes)
+        if a["unique_cap"]:
+            names.add("batch_dedup")
+        if not modes:
+            names.add(name)
+
+    sys.setprofile(hook)
+    try:
+        out = run()
+    finally:
+        sys.setprofile(None)
+    return sorted(names), out
+
+
+def scenario_path(name: str) -> dict:
+    """S: one scenario tower, built by name from its registry config on the
+    card and served for ``S_BATCHES`` batches of 64 (fixed arrivals, no
+    deadline, no overlap).  Gated: every request served, no failed or
+    degraded batch, the last batch's served scores bitwise equal to the
+    scenario's reference forward on the card (plain lookups, then the same
+    tower module) and within ``LOGIT_TOL`` of its CPU twin (the same tables
+    and tower values, the same config built on the CPU), and every kernel
+    the CPU twin's lookup calls (:func:`kernels_called`) launched on the
+    card.  Recorded: wall per batch and the tower's share of one step
+    (host clock around synchronized work)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.distributions import get_distribution
+    from repro_torch.engine import EngineConfig, InferenceEngine
+    from repro_torch.models.registry import SCENARIOS
+
+    config = EngineConfig(**SCENARIOS[name].default_config)
+    reset_counts()
+    t0 = time.perf_counter()
+    engine = InferenceEngine.build_scenario(name, config, device=DEVICE)
+    build_s = time.perf_counter() - t0
+    scenario = engine.scenario
+    b = scenario.workload.batch
+    srv = engine.serve(max_batch=b, max_wait_s=0.0)
+    check(srv.fallback_step_fn is None, f"[S {name}] the server on the card has a fallback step")
+    dist = get_distribution(config.distribution or "uniform")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(S_BATCHES):
+        last = scenario.sample_batch(rng, dist)
+        handles = [srv.submit_request(q) for q in scenario.payloads(last)]
+        srv.pump()
+    srv.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    s = srv.stats()
+    check(s["submitted"] == s["served"] == S_BATCHES * b,
+          f"[S {name}] submitted {s['submitted']} served {s['served']}")
+    check(s["batch_failures"] == s["degraded_batches"] == 0,
+          f"[S {name}] failures {s['batch_failures']} degraded {s['degraded_batches']}")
+    served = np.asarray([h.result() for h in handles], np.float32)
+    want = scenario.reference_forward(last)
+    check(served.shape == (b,) and np.isfinite(served).all() and np.array_equal(served, want),
+          f"[S {name}] served scores not bitwise equal to the reference forward: "
+          f"max err {float(np.abs(served - want).max())}")
+    twin = scenario.on("cpu")
+    cpu = InferenceEngine.from_scenario(twin, engine.config, device="cpu")
+    sched = lambda e: (e.packed.block_r, e.packed.unique_cap,  # noqa: E731
+                       e.packed.cache_rows, e.packed.kernel_path)
+    check(sched(cpu) == sched(engine),
+          f"[S {name}] the CPU twin packed {sched(cpu)}, the card {sched(engine)}")
+    cpu_scores = twin.make_step(cpu)(twin.payloads(last))
+    score_err = float(np.abs(served - cpu_scores).max())
+    check(np.allclose(served, cpu_scores, **LOGIT_TOL), f"[S {name}] scores max err {score_err}")
+    expected, cpu_pooled = kernels_called(lambda: cpu.lookup(last["indices"]))
+    pooled_err = float((engine.lookup(last["indices"]).cpu() - cpu_pooled).abs().max())
+    check(expected, f"[S {name}] the CPU lookup called no kernel wrapper")
+    check(all(counts[k] > 0 for k in expected),
+          f"[S {name}] expected {expected} launched, counts {counts}")
+    step = scenario.make_step(engine)
+    payloads = scenario.payloads(last)
+    idx = last["indices"]
+    step_ms = host_ms(lambda: (step(payloads), torch.cuda.synchronize()))
+    lookup_ms = host_ms(lambda: (engine.lookup(idx), torch.cuda.synchronize()))
+    rec = {"scenario_path": name, "config": SCENARIOS[name].default_config,
+           "workload": engine.workload.summary(), "build_s": build_s,
+           "batches": S_BATCHES, "serve_wall_per_batch_ms": wall / S_BATCHES * 1e3,
+           "p50_us": s["p50_us"], "p99_us": s["p99_us"],
+           "step_ms": step_ms, "lookup_ms": lookup_ms,
+           "tower_share_of_step": max(step_ms - lookup_ms, 0.0) / step_ms,
+           "schedule": sched(engine), "expected_kernels": expected, "launches": counts,
+           "score_max_err_vs_cpu": score_err, "pooled_max_err_vs_cpu": pooled_err,
+           "max_abs_score": float(np.abs(served).max())}
+    print(json.dumps(rec, default=str), flush=True)
+    return {"counts": counts}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     try:
@@ -2063,6 +2263,13 @@ def main(argv=None) -> int:
         runs["R"] = replay_path()
     with phase("X"):
         runs["X"] = faults_path()
+    with phase("M"):
+        runs["M"] = mesh_path()
+    from repro_torch.models.registry import list_scenarios
+
+    with phase("S"):
+        for name in list_scenarios():
+            runs[f"S {name}"] = scenario_path(name)
     for rec in kernels:
         rec["launches"] = sum(r["counts"][rec["name"]] for r in runs.values())
     print(f"[card] {card}")

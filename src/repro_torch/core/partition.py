@@ -168,40 +168,94 @@ def _rejoin_maps(
     Each asymmetric table is owned by the core holding most of its rows (ties
     break to the lowest core id); ``send_table[c, d]`` lists the tables core
     ``c`` holds partials for that core ``d`` owns (deduplicated — a core
-    pre-sums all its slots of one table before sending).  Only the
-    single-host map is ported: a ``mesh_shape`` with ``hosts > 1`` comes from
-    the hierarchical planner (ROADMAP A4) and raises.
+    pre-sums all its slots of one table before sending).
+
+    ``mesh_shape=(hosts, cores_per_host)`` with ``hosts > 1`` builds the
+    two-level variant: each table gets one owner core *per host that holds
+    rows of it* (a globally row-sharded rock appears in every host's
+    buckets), every core sends only to its own host's owner, and a table's
+    bucket position is chosen to be free in ALL of its owners' buckets, so
+    ``owned_pos`` keeps the flat ``(N,)`` shape with one globally
+    consistent position.  :func:`_sparse_rejoin` adds each owner's bucket
+    into the output by table id, so it sums a multi-host table's per-host
+    partials unchanged.  ``owner`` keeps one primary owner per table, for
+    reporting only.  ``hosts == 1`` (or ``None``) is the single-level map.
+    The maps equal the reference's, table and host order included.
     """
-    hosts = mesh_shape[0] if mesh_shape is not None else 1
-    if hosts > 1:
-        raise NotImplementedError(
-            "multi-host rejoin maps (hierarchical planner) are not ported "
-            "yet: ROADMAP A4"
-        )
     rows_by: dict[tuple[int, int], int] = {}
     for a in plan.assignments:
         key = (a.table_idx, a.core)
         rows_by[key] = rows_by.get(key, 0) + a.rows
-    owner = -np.ones(n_tables, np.int32)
-    for ti in {a.table_idx for a in plan.assignments}:
-        cores = [c for (t, c) in rows_by if t == ti]
-        owner[ti] = min(cores, key=lambda c: (-rows_by[(ti, c)], c))
-    owned: dict[int, list[int]] = {c: [] for c in range(k)}
-    for ti in range(n_tables):
-        if owner[ti] >= 0:
-            owned[int(owner[ti])].append(ti)
-    o_max = max(1, max((len(v) for v in owned.values()), default=0))
-    bucket = -np.ones((k, o_max), np.int32)
-    owned_pos = -np.ones(n_tables, np.int32)
-    for c, lst in owned.items():
-        for p, ti in enumerate(lst):
-            bucket[c, p] = ti
+    hosts, cph = mesh_shape if mesh_shape is not None else (1, k)
+    if hosts > 1:
+        # owner per (table, holding host): the in-host core with most rows.
+        host_owner: dict[tuple[int, int], int] = {}
+        owners_of: dict[int, list[int]] = {}
+        for ti in sorted({a.table_idx for a in plan.assignments}):
+            by_host: dict[int, list[int]] = {}
+            for (t, c) in rows_by:
+                if t == ti:
+                    by_host.setdefault(c // cph, []).append(c)
+            owners_of[ti] = []
+            for h in sorted(by_host):
+                oc = min(by_host[h], key=lambda c: (-rows_by[(ti, c)], c))
+                host_owner[(ti, h)] = oc
+                owners_of[ti].append(oc)
+        # one globally consistent bucket position per table: the smallest
+        # position free in every one of its owners' buckets (greedy in
+        # table order — deterministic, and N tables keep owned_pos (N,)).
+        used: dict[int, set[int]] = {c: set() for c in range(k)}
+        owner = -np.ones(n_tables, np.int32)
+        owned_pos = -np.ones(n_tables, np.int32)
+        for ti, ocs in owners_of.items():
+            p = 0
+            while any(p in used[c] for c in ocs):
+                p += 1
             owned_pos[ti] = p
-    send_sets: dict[tuple[int, int], set[int]] = {}
-    for a in plan.assignments:
-        send_sets.setdefault((a.core, int(owner[a.table_idx])), set()).add(
-            a.table_idx
+            for c in ocs:
+                used[c].add(p)
+            # primary owner (reporting only): the owner on the host with
+            # the most rows of the table.
+            owner[ti] = max(
+                ocs,
+                key=lambda c: (
+                    sum(r for (t, cc), r in rows_by.items()
+                        if t == ti and cc // cph == c // cph),
+                    -c,
+                ),
+            )
+        o_max = max(
+            1, max((max(s) + 1 for s in used.values() if s), default=0)
         )
+        bucket = -np.ones((k, o_max), np.int32)
+        for ti, ocs in owners_of.items():
+            for c in ocs:
+                bucket[c, int(owned_pos[ti])] = ti
+        send_sets: dict[tuple[int, int], set[int]] = {}
+        for a in plan.assignments:
+            d = host_owner[(a.table_idx, a.core // cph)]
+            send_sets.setdefault((a.core, d), set()).add(a.table_idx)
+    else:
+        owner = -np.ones(n_tables, np.int32)
+        for ti in {a.table_idx for a in plan.assignments}:
+            cores = [c for (t, c) in rows_by if t == ti]
+            owner[ti] = min(cores, key=lambda c: (-rows_by[(ti, c)], c))
+        owned: dict[int, list[int]] = {c: [] for c in range(k)}
+        for ti in range(n_tables):
+            if owner[ti] >= 0:
+                owned[int(owner[ti])].append(ti)
+        o_max = max(1, max((len(v) for v in owned.values()), default=0))
+        bucket = -np.ones((k, o_max), np.int32)
+        owned_pos = -np.ones(n_tables, np.int32)
+        for c, lst in owned.items():
+            for p, ti in enumerate(lst):
+                bucket[c, p] = ti
+                owned_pos[ti] = p
+        send_sets = {}
+        for a in plan.assignments:
+            send_sets.setdefault((a.core, int(owner[a.table_idx])), set()).add(
+                a.table_idx
+            )
     n_send = max([1] + [len(v) for v in send_sets.values()])
     send = -np.ones((k, k, n_send), np.int32)
     for (c, d), tis in send_sets.items():

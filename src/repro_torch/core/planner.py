@@ -759,16 +759,17 @@ def plan_asymmetric(
     return plan
 
 
-def _plan_hierarchical(workload, n_cores, model, **kw):
-    raise NotImplementedError(
-        "planner='hierarchical' (the two-level mesh planner) is not ported "
-        "yet: ROADMAP A4"
-    )
+def _plan_hierarchical_lazy(workload, n_cores, model, **kw):
+    # late import: mesh.py builds on plan_asymmetric, so importing it at
+    # module load would be circular.
+    from repro_torch.core.mesh import plan_hierarchical
+
+    return plan_hierarchical(workload, n_cores, model, **kw)
 
 
 PLANNERS = {
     "baseline": plan_baseline,
     "symmetric": plan_symmetric,
     "asymmetric": plan_asymmetric,
-    "hierarchical": _plan_hierarchical,
+    "hierarchical": _plan_hierarchical_lazy,
 }

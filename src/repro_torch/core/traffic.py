@@ -14,10 +14,11 @@ port's kernels do not have):
   ``cache_rows=``); ``InferenceEngine.plan_report`` reads its per-chunk
   bytes;
 * :func:`modeled_kernel_path_traffic` — the dedup'd gather priced one-hot
-  and sparse per chunk, against the plan's recorded choices.
+  and sparse per chunk, against the plan's recorded choices;
+* :func:`modeled_cross_host_traffic` — the bytes a two-level mesh's
+  rejoin puts on the cross-host tier, against a flat pooled all-gather.
 
-The cross-host model waits for the hierarchical planner (ROADMAP A4).  All
-figures are modeled from the plan's geometry; none is measured.
+All figures are modeled from the plan's geometry; none is measured.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.core.tables import TableSpec
 from repro_torch.kernels.embedding_multi import ragged_block_b
 
 __all__ = [
+    "modeled_cross_host_traffic",
     "modeled_hbm_traffic",
     "modeled_kernel_path_traffic",
     "modeled_plan_traffic",
@@ -349,4 +351,118 @@ def modeled_kernel_path_traffic(
         **{k: float(v) for k, v in tot.items()},
         "auto_never_worse": tot["auto_us"]
         <= min(tot["onehot_us"], tot["sparse_us"]) * (1 + 1e-9) + 1e-12,
+    }
+
+
+def modeled_cross_host_traffic(
+    plan: Plan,
+    tables: Sequence[TableSpec],
+    batch: int,
+    freqs=None,
+    *,
+    mesh_shape: tuple[int, int] | None = None,
+    out_itemsize: int = 4,
+) -> dict:
+    """Modeled per-batch bytes crossing host boundaries on a two-level mesh,
+    the reference's model, equal to its figures for the same plan.
+
+    The hierarchical data flow crosses the slow host tier exactly once: the
+    ``all_gather`` of the per-host owner buckets.  In the unique-row wire
+    format the model prices, each ``(table, holding host)`` bucket entry
+    carries the host's post-dedup payload —
+    ``min(E[unique rows], unique_cap, rows held)`` rows of
+    ``row_bytes + 4`` (the row plus its batch-position id) — and an
+    H-host all-gather moves every entry to the ``H - 1`` other hosts:
+
+    ``cross_host_bytes = (H-1) · Σ_(t,h) min(U_th, cap, rows_th) · (row_bytes + 4)``
+
+    ``U_th`` is :meth:`RowProbs.expected_unique` over the batch's
+    ``B · seq`` draws restricted to host ``h``'s row spans of table ``t``
+    (uniform assumption when no histogram is given); ``cap`` is the plan's
+    packed dedup width (``plan.meta["cache"]["unique_cap"]``, the clamp
+    that makes the figure FLAT in batch size past dedup saturation —
+    absent/0 means no clamp and the bytes keep growing with the batch).
+
+    The flat baseline is the host-oblivious placement's pooled rejoin: the
+    dense per-table ``(B, E)`` partials all-gathered across hosts,
+    ``flat_allgather_bytes = (H-1) · N · B · E · out_itemsize`` — batch-
+    scaled by construction.  ``reduction_vs_flat`` is their ratio.
+
+    ``mesh_shape`` defaults to ``plan.meta["mesh"]`` (a flat plan models as
+    one host: zero cross-host bytes, reduction 1.0).  The executable rejoin
+    adds pooled ``(B, E)`` bucket entries (on one card, inside one device);
+    this function prices the unique-row wire format a cross-host transport
+    would use.  Modeled, not measured on the card.
+    """
+    from repro_torch.data.distributions import RowProbs
+
+    if mesh_shape is None:
+        mesh_meta = plan.meta.get("mesh") or {}
+        mesh_shape = (
+            int(mesh_meta.get("hosts", 1)),
+            int(mesh_meta.get("cores_per_host", plan.n_cores)),
+        )
+    hosts, cph = int(mesh_shape[0]), int(mesh_shape[1])
+    cap = int((plan.meta.get("cache") or {}).get("unique_cap") or 0)
+    n_tables = len(tables)
+    e = tables[0].dim if tables else 0
+
+    # rows each (table, host) holds, merged over the host's chunks
+    spans: dict[tuple[int, int], list[tuple[int, int]]] = {}
+    for a in plan.assignments:
+        h = a.core // max(cph, 1)
+        spans.setdefault((a.table_idx, h), []).append(
+            (a.row_offset, a.row_offset + a.rows)
+        )
+
+    entries = []
+    hier = 0.0
+    unique_total = 0.0
+    per_host = [0.0] * hosts
+    for (ti, h), sp in sorted(spans.items()):
+        t = tables[ti]
+        f = freq_of(freqs, ti)
+        if f is None:
+            f = RowProbs.uniform(t.rows)
+        n = batch * t.seq
+        rows_held = sum(hi - lo for lo, hi in sp)
+        u = sum(f.expected_unique(lo, hi, n) for lo, hi in sp)
+        payload_rows = min(u, float(rows_held), float(n))
+        if cap:
+            payload_rows = min(payload_rows, float(cap))
+        nbytes = payload_rows * (t.row_bytes + 4)
+        hier += nbytes
+        unique_total += u
+        per_host[h] += nbytes
+        entries.append({
+            "table": ti,
+            "host": h,
+            "rows_held": int(rows_held),
+            "expected_unique": float(u),
+            "payload_rows": float(payload_rows),
+            "bytes": float(nbytes),
+        })
+    # symmetric-group tables rejoin with a batch-split all_gather that is
+    # inherently batch-scaled and crosses hosts: charge them at the flat
+    # rate (hierarchical plans have no symmetric group for exactly this
+    # reason).
+    sym_bytes = len(plan.symmetric_tables) * batch * e * out_itemsize
+
+    factor = max(hosts - 1, 0)
+    cross = factor * (hier + sym_bytes)
+    flat = factor * n_tables * batch * e * out_itemsize
+    return {
+        "hosts": hosts,
+        "cores_per_host": cph,
+        "batch": int(batch),
+        "unique_cap": cap,
+        "bucket_entries": len(entries),
+        "expected_unique_rows": float(unique_total),
+        "cross_host_bytes": float(cross),
+        "flat_allgather_bytes": float(flat),
+        "reduction_vs_flat": (
+            flat / cross if cross > 0 else 1.0
+        ),
+        "per_host_bytes": [float(factor * b) for b in per_host],
+        "per_entry": entries,
     }

@@ -16,12 +16,12 @@ One object replaces the hand-wired ``plan_asymmetric`` → ``pack_plan`` →
 ``EngineConfig`` is the JAX package's, field for field: a reference config
 JSON loads unchanged.  Stage behavior is pluggable through six named
 registries (placement, access reduction, tuning, drift, validation,
-integrity) holding the builtin policies the port runs.  A value the JAX
-package accepts but the port cannot execute yet (a scenario model, the
-hierarchical planner) raises ``NotImplementedError`` naming its ROADMAP
-item when an engine is built from it; none is ignored.  The engine builds
-on the card unless ``device="cpu"`` is passed, and raises when CUDA is
-absent.
+integrity) holding the builtin policies; every value the JAX package's
+``EngineConfig`` accepts builds and serves.  A scenario model
+(``config.model``, :data:`SCENARIO_MODELS`) is served through
+:meth:`InferenceEngine.build_scenario`, whose engine runs the scenario's
+tower over the lookups.  The engine builds on the card unless
+``device="cpu"`` is passed, and raises when CUDA is absent.
 """
 from __future__ import annotations
 
@@ -32,6 +32,8 @@ from typing import Any, Callable, Mapping, Protocol, Sequence, runtime_checkable
 
 import numpy as np
 import torch
+
+from repro_torch.models.registry import list_scenarios
 
 __all__ = [
     "ACCESS_POLICIES",
@@ -167,7 +169,7 @@ class _PlannerPlacement:
         return PLANNERS[self.planner_name](workload, n_cores, model, **options)
 
 
-for _name in ("baseline", "symmetric", "asymmetric"):
+for _name in ("baseline", "symmetric", "asymmetric", "hierarchical"):
     PLACEMENT_POLICIES.register(
         _name, (lambda n: lambda: _PlannerPlacement(n))(_name)
     )
@@ -298,10 +300,8 @@ INTEGRITY_POLICIES.register("checksum", _ChecksumIntegrity)
 
 
 HARDWARE_PRESETS = ("tpu_v5e", "a100", "ascend_910")
-
-# the JAX package's scenario towers (its repro.models.registry.SCENARIOS),
-# which this port does not serve yet
-SCENARIO_MODELS = ("dlrm", "mamba2", "moe", "transformer")
+# the scenario towers of repro_torch.models.registry.SCENARIOS
+SCENARIO_MODELS = tuple(list_scenarios())
 
 
 def _hardware_presets() -> dict:
@@ -325,8 +325,8 @@ class EngineConfig:
     on.
     """
 
-    # scenario model: "pooled" = the raw embedding lookup (the scenario
-    # towers are not ported yet, ROADMAP A9)
+    # scenario model: "pooled" = the raw embedding lookup; a SCENARIO_MODELS
+    # name serves that scenario's tower over the lookups (build_scenario)
     model: str = "pooled"
     model_options: dict = dataclasses.field(default_factory=dict)
     # placement
@@ -464,10 +464,7 @@ class EngineConfig:
                     f"integrity_options['check_every'] must be an int >= 0, "
                     f"got {check_every!r}"
                 )
-        # fail early on unknown policy names (before any planning work); a
-        # value this port does not run yet is left to require_ported, which
-        # InferenceEngine.build calls
-        unported = {field for field, _, _ in self._unported()}
+        # fail early on unknown policy names (before any planning work)
         for reg, field in (
             (PLACEMENT_POLICIES, "planner"),
             (ACCESS_POLICIES, "access"),
@@ -476,28 +473,7 @@ class EngineConfig:
             (VALIDATION_POLICIES, "validation"),
             (INTEGRITY_POLICIES, "integrity"),
         ):
-            if field not in unported:
-                reg.create(getattr(self, field))
-
-    def _unported(self) -> list[tuple[str, str, str]]:
-        """``(field, description, ROADMAP item)`` for each value the JAX
-        package runs and this port does not run yet (only the JAX package's
-        own names: any other name fails :meth:`validate` as it does there)."""
-        pending = [
-            ("model", self.model in SCENARIO_MODELS, f"model={self.model!r} (scenario towers)",
-             "A9"),
-            ("planner", self.planner == "hierarchical", "planner='hierarchical'", "A4"),
-        ]
-        return [(field, what, item) for field, bad, what, item in pending if bad]
-
-    def require_ported(self) -> None:
-        """Raise ``NotImplementedError`` for a value the JAX package accepts
-        but this port cannot execute yet, naming the ROADMAP item that ports
-        it (the registries hold only what runs).  :meth:`validate` accepts
-        such a config, as the JAX package does, so that a config resolves
-        alike in both packages; building an engine from it raises here."""
-        for _, what, item in self._unported():
-            raise NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
+            reg.create(getattr(self, field))
 
     # -- JSON round-trip ----------------------------------------------------
 
@@ -553,12 +529,14 @@ class InferenceEngine:
     ``packed`` (the :class:`PackedPlan`), ``plan``, ``device``, ``freqs``
     (the histograms the plan was priced under), ``cost_model``,
     ``tuning_cache`` (the sweep memo; another build given it reuses its
-    sweeps), ``manifest`` (the pack-time integrity checksums, or ``None``).
+    sweeps), ``manifest`` (the pack-time integrity checksums, or ``None``),
+    ``scenario`` (the :class:`repro_torch.models.scenarios.ScenarioModel`
+    whose tower :meth:`serve` runs, or ``None`` for the pooled lookup).
     """
 
     def __init__(
         self, *, config, workload, bag, packed, device, freqs, table_data,
-        cost_model, manifest=None, tuning_cache=None,
+        cost_model, manifest=None, scenario=None, tuning_cache=None,
     ):
         self.config = config
         self.workload = workload
@@ -568,6 +546,7 @@ class InferenceEngine:
         self.freqs = freqs
         self.cost_model = cost_model
         self.manifest = manifest  # pack-time integrity checksums (or None)
+        self.scenario = scenario  # ScenarioModel wrapper (or None = pooled)
         self.tuning_cache = tuning_cache
         self._table_data = table_data
         self._server = None
@@ -585,6 +564,7 @@ class InferenceEngine:
         freqs=None,
         rng: torch.Generator | None = None,
         tuning_cache=None,
+        block_sizes: dict | None = None,
     ) -> "InferenceEngine":
         """Build the pipeline from a declarative config on ``device``
         (``None`` = ``"cuda"``, which raises when CUDA is absent).
@@ -598,7 +578,10 @@ class InferenceEngine:
         CUDA devices (1 on the CPU), as the JAX package defaults to its
         device count.  ``tuning_cache`` (a
         :class:`repro_torch.core.autotune.TuningCache`; default: a fresh one)
-        memoizes ``tuning="sweep"`` sweeps across builds.
+        memoizes ``tuning="sweep"`` sweeps across builds;
+        ``block_sizes`` (``block_r``/``block_b``) packs at those sizes in
+        place of the tuning policy's, with no sweep (:meth:`rebuild` on the
+        card passes its own).
         """
         from repro_torch.core.cost_model import analytic_model
         from repro_torch.core.embedding import PartitionedEmbeddingBag
@@ -607,7 +590,6 @@ class InferenceEngine:
 
         config = config if config is not None else EngineConfig()
         config.validate()
-        config.require_ported()
         device = resolve_device(device)
 
         hosts, cores_per_host = resolve_mesh_shape(
@@ -640,9 +622,11 @@ class InferenceEngine:
         planner_kwargs.update(access.planner_kwargs(**config.access_options))
         if freqs is not None:
             planner_kwargs["freqs"] = freqs
-        if config.planner == "asymmetric":
+        if config.planner in ("asymmetric", "hierarchical"):
             # the per-chunk gather-path record lands in plan.meta["kernel"]
             planner_kwargs.setdefault("kernel_path", config.kernel_path)
+        if config.planner == "hierarchical":
+            planner_kwargs.setdefault("hosts", hosts)
 
         bag = PartitionedEmbeddingBag(
             workload,
@@ -669,7 +653,8 @@ class InferenceEngine:
             tuning_cache = TuningCache()
         packed = bag.pack(
             table_data, device=device, tuning_cache=tuning_cache,
-            **tuning.pack_kwargs(**config.tuning_options),
+            **(block_sizes if block_sizes is not None
+               else tuning.pack_kwargs(**config.tuning_options)),
         )
         manifest = INTEGRITY_POLICIES.create(config.integrity).manifest(
             packed, bag.plan, **config.integrity_options
@@ -687,6 +672,45 @@ class InferenceEngine:
             tuning_cache=tuning_cache,
         )
 
+    @classmethod
+    def from_scenario(
+        cls, scenario, config: EngineConfig | None = None, *, device=None, freqs=None,
+    ) -> "InferenceEngine":
+        """An engine over a :class:`~repro_torch.models.scenarios.ScenarioModel`:
+        the wrapper's workload and tables go through :meth:`build`, and the
+        engine carries the wrapper, so :meth:`serve` runs its tower step
+        (and drift hot-swaps rebuild it).  ``device=None`` is the
+        wrapper's own device."""
+        config = config if config is not None else EngineConfig()
+        name = getattr(scenario, "name", None)
+        if config.model == "pooled" and name in SCENARIO_MODELS:
+            config = dataclasses.replace(config, model=name)  # stamp the recipe
+        engine = cls.build(
+            scenario.table_data(), scenario.workload, config,
+            device=scenario.device if device is None else device, freqs=freqs,
+        )
+        engine.scenario = scenario
+        return engine
+
+    @classmethod
+    def build_scenario(
+        cls, name: str | None = None, config: EngineConfig | None = None, *,
+        device=None, freqs=None, **factory_kwargs,
+    ) -> "InferenceEngine":
+        """Resolve a registered scenario by name (default: ``config.model``)
+        on ``device`` (``None`` = the card) and build it.
+        ``factory_kwargs`` override ``config.model_options``
+        (``batch=``/``seed=``)."""
+        from repro_torch.models.registry import get_scenario
+
+        config = config if config is not None else EngineConfig()
+        name = name or (config.model if config.model != "pooled" else None)
+        if name is None:
+            raise ValueError("build_scenario needs a scenario name (argument or config.model)")
+        opts = {**config.model_options, **factory_kwargs}
+        scenario = get_scenario(name, device=device, **opts)
+        return cls.from_scenario(scenario, config, device=scenario.device, freqs=freqs)
+
     def reference_view(self) -> "InferenceEngine":
         """A shallow engine view over the SAME bag/packed tables whose
         executor runs the plain gather path (``use_kernels="xla"``): equal
@@ -702,6 +726,7 @@ class InferenceEngine:
             table_data=self._table_data,
             cost_model=self.cost_model,
             manifest=self.manifest,
+            scenario=self.scenario,
             tuning_cache=self.tuning_cache,
         )
 
@@ -710,15 +735,28 @@ class InferenceEngine:
         histograms on the same device: the shadow re-pack the drift policy
         runs off the hot path.  The tables are this engine's own (never
         re-initialized), and the tuning cache carries over so a
-        shape-identical re-plan skips the block-size sweep."""
-        return InferenceEngine.build(
+        shape-identical re-plan skips the block-size sweep.  On the card a
+        swept engine's rebuild keeps its block sizes and runs no sweep: the
+        candidates lie within the noise of one another there, and a sweep
+        under serving load would pick among equals and outlast a drift
+        policy's build timeout.  The CPU sweeps as the reference does.  The
+        scenario wrapper carries over, so a hot-swap re-invokes the same
+        tower's ``make_step``."""
+        block_sizes = None
+        if self.device.type == "cuda" and self.config.tuning == "sweep":
+            block_sizes = {"block_r": self.packed.block_r,
+                           "block_b": self.packed.block_b or None}
+        engine = InferenceEngine.build(
             self._table_data if self._table_data is not None else "abstract",
             self.workload,
             self.config,
             device=self.device,
             freqs=freqs,
             tuning_cache=self.tuning_cache,
+            block_sizes=block_sizes,
         )
+        engine.scenario = self.scenario
+        return engine
 
     # -- data-plane integrity -----------------------------------------------
 
@@ -802,9 +840,10 @@ class InferenceEngine:
         ``make_step(engine) -> step`` customizes what runs per batch (e.g.
         a full DLRM forward on ``engine.bag``/``engine.packed``); it is also
         how a drift hot-swap rebuilds: the policy calls ``make_step`` again
-        on the re-planned engine.  Default: the pooled embedding lookup,
-        with per-query results split as (N, E) slices.  Each step carries
-        ``engine``, the engine it serves from.
+        on the re-planned engine.  Default: the scenario's tower step and
+        split when the engine carries a scenario, else the pooled embedding
+        lookup, with per-query results split as (N, E) slices.  Each step
+        carries ``engine``, the engine it serves from.
 
         Robustness semantics come from the config: ``max_queue`` +
         ``admission`` bound the queue and ``deadline_s`` sheds stale
@@ -827,6 +866,12 @@ class InferenceEngine:
         """
         from repro_torch.serving.server import Server
 
+        if make_step is None and self.scenario is not None:
+            # the scenario's tower over the lookups, re-invoked on every
+            # drift hot-swap and heal rebuild
+            make_step = self.scenario.make_step
+            if split_fn is None:
+                split_fn = self.scenario.split
         maker = make_step or (lambda eng: eng._default_step())
 
         def _make_fallback(eng):
@@ -951,39 +996,73 @@ class InferenceEngine:
         for key in ("cache", "tuning", "distribution", "kernel", "mesh"):
             if plan.meta.get(key) is not None:
                 out[key] = plan.meta[key]
-        out["mesh_shape"] = [1, plan.n_cores]
+        mesh_meta = plan.meta.get("mesh") or {}
+        out["mesh_shape"] = [
+            int(mesh_meta.get("hosts", 1)),
+            int(mesh_meta.get("cores_per_host", plan.n_cores)),
+        ]
+        if out["mesh_shape"][0] > 1:
+            from repro_torch.core.traffic import modeled_cross_host_traffic
+
+            xh = modeled_cross_host_traffic(
+                plan, self.workload.tables, self.workload.batch, self.freqs
+            )
+            out["cross_host"] = {
+                k: xh[k] for k in (
+                    "cross_host_bytes", "flat_allgather_bytes",
+                    "reduction_vs_flat", "bucket_entries", "unique_cap",
+                )
+            }
         if self._server is not None:
             out["server"] = self._server.stats()
         return out
 
     def _placement_tree(self, kern: dict) -> list[str]:
-        """Placement as a core → chunk tree with per-level modeled lookup
-        bytes (single host: the multi-host tree waits for ROADMAP A4)."""
-        from repro_torch.core.traffic import modeled_plan_traffic
+        """Placement as a host → core → chunk tree with per-level modeled
+        bytes: each chunk line carries its modeled lookup bytes, each core
+        and host line the sum over its children, and on a multi-host mesh
+        each host line adds the bytes its owner buckets put on the modeled
+        cross-host tier (on one card, a host is a group of plan cores)."""
+        from repro_torch.core.traffic import (
+            modeled_cross_host_traffic,
+            modeled_plan_traffic,
+        )
 
         plan = self.plan
-        traffic = modeled_plan_traffic(
-            plan, self.workload.tables, self.workload.batch, self.freqs
+        tables, batch = self.workload.tables, self.workload.batch
+        traffic = modeled_plan_traffic(plan, tables, batch, self.freqs)
+        mesh_meta = plan.meta.get("mesh") or {}
+        hosts = int(mesh_meta.get("hosts", 1))
+        cph = int(mesh_meta.get("cores_per_host", plan.n_cores))
+        xh = (
+            modeled_cross_host_traffic(plan, tables, batch, self.freqs)
+            if hosts > 1 else None
         )
         recs = list(zip(plan.assignments, kern["per_chunk"], traffic["per_chunk_bytes"]))
-        lines = [
-            f"  host 0: {len(recs)} chunks, "
-            f"modeled lookup {sum(b for *_, b in recs):,}B"
-        ]
-        for core in sorted({r[0].core for r in recs}):
-            core_recs = [r for r in recs if r[0].core == core]
-            lines.append(
-                f"    core {core}: {len(core_recs)} chunks, "
-                f"modeled lookup {sum(b for *_, b in core_recs):,}B"
+        lines: list[str] = []
+        for h in range(hosts):
+            host_recs = [r for r in recs if r[0].core // cph == h]
+            host_line = (
+                f"  host {h}: {len(host_recs)} chunks, "
+                f"modeled lookup {sum(b for *_, b in host_recs):,}B"
             )
-            for a, rec, b in core_recs:
+            if xh is not None:
+                host_line += f", cross-host {xh['per_host_bytes'][h]:,.0f}B"
+            lines.append(host_line)
+            for core in sorted({r[0].core for r in host_recs}):
+                core_recs = [r for r in host_recs if r[0].core == core]
                 lines.append(
-                    f"      chunk table={rec['table']} "
-                    f"rows={rec['rows']} strategy={a.strategy.name} "
-                    f"kernel={rec['path']} "
-                    f"(modeled onehot {rec['onehot_us']:.2f}us / "
-                    f"sparse {rec['sparse_us']:.2f}us, lookup {b:,}B)"
+                    f"    core {core}: {len(core_recs)} chunks, "
+                    f"modeled lookup {sum(b for *_, b in core_recs):,}B"
                 )
+                for a, rec, b in core_recs:
+                    lines.append(
+                        f"      chunk table={rec['table']} "
+                        f"rows={rec['rows']} strategy={a.strategy.name} "
+                        f"kernel={rec['path']} "
+                        f"(modeled onehot {rec['onehot_us']:.2f}us / "
+                        f"sparse {rec['sparse_us']:.2f}us, lookup {b:,}B)"
+                    )
         return lines
 
     def plan_report(self) -> str:
@@ -1043,6 +1122,16 @@ class InferenceEngine:
             f"reduce={self.config.reduce_mode} layout={self.config.layout} "
             f"device={self.device}"
         )
+        xh = s.get("cross_host")
+        if xh:
+            h, c = s["mesh_shape"]
+            lines.append(
+                f"mesh {h}x{c} (hosts x cores/host): modeled cross-host "
+                f"{xh['cross_host_bytes']:,.0f}B vs flat all-gather "
+                f"{xh['flat_allgather_bytes']:,.0f}B "
+                f"({xh['reduction_vs_flat']:.1f}x reduction, "
+                f"{xh['bucket_entries']} bucket entries)"
+            )
         if self.config.drift != "none":
             lines.append(f"drift policy={self.config.drift} "
                          f"{self.config.drift_options}")

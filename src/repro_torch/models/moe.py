@@ -1,0 +1,95 @@
+"""Capacity-based top-k routed MoE (GShard/Mixtral style), the JAX
+package's formulation in PyTorch.
+
+Dispatch and combine are dense one-hot einsums over fixed-size token groups;
+tokens beyond an expert's capacity are dropped.  Capacity positions come
+from an f32 cumulative sum of the routing one-hots in ``(G, T*k, E)``
+layout, as in the JAX package, so that the same routing gives the same
+positions.  ``constrain`` is the JAX package's hook for sharding
+annotations; on one device there is nothing to shard, so it is accepted and
+ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models.layers import Params, dense_init
+
+__all__ = ["MoESpec", "moe_apply", "moe_init"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    """The JAX package's spec without its expert-parallel knobs
+    (``virtual_factor``, ``tokens_per_call``): they split work over a
+    device mesh, and on one device both stay at their defaults."""
+
+    n_experts: int
+    top_k: int
+    d_ff: int
+    capacity_factor: float = 1.25
+    group_size: int = 2048  # tokens per routing group
+
+
+def moe_init(generator: torch.Generator | None, d_model: int, spec: MoESpec) -> dict:
+    e, f = spec.n_experts, spec.d_ff
+    return {
+        "router": dense_init(generator, (d_model, e)),
+        "wi": dense_init(generator, (e, d_model, f), in_axis=1),
+        "wg": dense_init(generator, (e, d_model, f), in_axis=1),
+        "wo": dense_init(generator, (e, f, d_model), in_axis=1),
+    }
+
+
+def moe_apply(
+    params: Params, x: torch.Tensor, spec: MoESpec, constrain=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """x (..., T, d) -> (out (..., T, d), aux_loss scalar).  ``constrain``
+    is accepted and ignored (see the module docstring)."""
+    lead, (t, d) = x.shape[:-2], x.shape[-2:]
+    xf = x.reshape(-1, t, d)  # (G, T, d): groups = flattened leading dims
+    if t > spec.group_size and t % spec.group_size == 0:
+        xf = xf.reshape(-1, spec.group_size, d)
+    out, aux = _moe_groups(params, xf, spec)
+    return out.reshape(*lead, t, d), aux
+
+
+def _moe_groups(params: Params, xf: torch.Tensor, spec: MoESpec):
+    """Route and compute one batch of token groups (G, gs, d)."""
+    dt = xf.dtype
+    g, t = xf.shape[0], xf.shape[-2]
+    e, k = spec.n_experts, spec.top_k
+    cap = max(int(math.ceil(t * k / e * spec.capacity_factor)), 1)
+
+    logits = (xf @ params["router"].to(dt)).float()  # (G, T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)  # (G, T, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # load-balancing aux loss (Switch): e * sum_e f_e * p_e
+    me = probs.mean(dim=1)
+    ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=1)
+    aux = (me * ce).sum(dim=-1).mean() * e
+
+    onehot = F.one_hot(gate_idx, e).float()  # (G, T, k, E)
+    # position of each (token, slot) in its expert's buffer: f32 cumsum
+    pos = torch.cumsum(onehot.reshape(g, t * k, e), dim=1).reshape(g, t, k, e)
+    pos = pos * onehot - 1.0  # -1 where not routed
+    keep = (pos >= 0) & (pos < cap)
+    pos = torch.clamp(pos, 0, cap - 1)
+    cap_oh = F.one_hot(pos.to(torch.int64), cap).to(dt)
+    routed = (onehot * keep).to(dt)
+    dispatch = (routed[..., None] * cap_oh).sum(dim=2)  # (G, T, E, C)
+    combine = ((gate_vals.to(dt)[..., None] * routed)[..., None] * cap_oh).sum(dim=2)
+
+    xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), xf)  # (G, E, C, d)
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["wg"].to(dt)))
+    h = h * torch.einsum("gecd,edf->gecf", xe, params["wi"].to(dt))
+    ye = torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt))  # (G, E, C, d)
+    out = torch.einsum("gtec,gecd->gtd", combine.to(dt), ye)
+    return out, aux.float()
+

@@ -16,6 +16,8 @@ kernels and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is held
 array-equal to ``dedup_indices``, the unique-row gather to
 ``gather_unique_rows_plain``.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -933,3 +935,58 @@ def test_sweep_on_a_worker_thread_counts_only_its_own_kernels(cuda):
         assert len(res[key]) == 4 and all(v > 0 for v in res[key])
     for a, b in zip(res["alone"], res["loaded"]):
         assert abs(b - a) <= 0.2 * a, (res["alone"], res["loaded"])
+
+
+def test_rebuild_keeps_its_block_sizes_under_load(cuda):
+    """A drift replan's shadow build on the card: taobao-zipf12's first
+    engine (swept) is rebuilt under the hot-set histogram twice, once alone
+    and once on a worker thread while the main thread launches lookups.
+    Both rebuilds pack the live engine's block sizes and run no sweep, so
+    the pick cannot follow the load; each rebuilt engine's lookup equals
+    its plain view's within 1e-5.  The seconds of each are printed."""
+    import threading
+    import time
+
+    from repro_torch.configs.presets import load_preset
+    from repro_torch.core.autotune import TuningCache
+    from repro_torch.data.distributions import get_distribution, workload_probs
+    from repro_torch.data.workloads import get_workload
+
+    preset = load_preset("taobao-zipf12")
+    config = EngineConfig.from_dict(preset["config"])
+    assert config.tuning == "sweep"
+    wl = get_workload(preset["workload"], config.max_batch)
+    eng = InferenceEngine.build(None, wl, config)
+    assert eng.plan.meta["tuning"]["best"]["block_r"] == eng.packed.block_r
+    hot = workload_probs(wl, get_distribution("hotset:0.01:0.9:-1"))
+    built = {}
+
+    def rebuild(key):
+        eng.tuning_cache = TuningCache()  # no cached pick to fall back on
+        t0 = time.perf_counter()
+        try:
+            built[key] = (eng.rebuild(hot), time.perf_counter() - t0)
+        except Exception as e:  # reported below
+            built[key] = (e, None)
+
+    rebuild("alone")
+    worker = threading.Thread(target=rebuild, args=("loaded",))
+    worker.start()
+    rng = np.random.default_rng(1)
+    idx = np.stack([rng.integers(0, t.rows, (wl.batch, 1)) for t in wl.tables]).astype(np.int32)
+    lookups = 0
+    while worker.is_alive():
+        eng.lookup(idx)
+        torch.cuda.synchronize()
+        lookups += 1
+    worker.join(timeout=600)
+    assert not worker.is_alive() and lookups > 0
+    print(json.dumps({"block_r": eng.packed.block_r, "lookups_beside": lookups,
+                      **{k: s for k, (_, s) in built.items()}}))
+    for key, (new, _) in built.items():
+        assert not isinstance(new, Exception), new
+        assert "tuning" not in new.plan.meta, key
+        assert (new.packed.block_r, new.packed.block_b) == (eng.packed.block_r,
+                                                             eng.packed.block_b), key
+        got, want = new.lookup(idx), new.reference_view().lookup(idx)
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), key

@@ -66,13 +66,18 @@ def test_taobao_k8_uniform_engages_the_fallback():
     assert {a.strategy.name for a in plan.assignments} == {"L1"}
 
 
-def test_mesh_shape_resolution_and_hierarchical_stub():
+def test_mesh_shape_resolution_and_hierarchical_plan():
     assert resolve_mesh_shape((1, 8), None) == (1, 8)
     assert resolve_mesh_shape(None, None, default_cores=1) == (1, 1)
     with pytest.deprecated_call():
         assert resolve_mesh_shape(None, 4) == (1, 4)
     with pytest.raises(MeshShapeError):
         resolve_mesh_shape((2, 4), 6)
-    with pytest.raises(NotImplementedError, match="A4"):
-        TPLANNERS["hierarchical"](tget("taobao", 64), 8, tcm.analytic_model())
+    for hosts in (1, 2, 4):
+        tplan = TPLANNERS["hierarchical"](tget("taobao", 64), 8, tcm.analytic_model(),
+                                          hosts=hosts)
+        jplan = JPLANNERS["hierarchical"](jget("taobao", 64), 8, jcm.analytic_model(),
+                                          hosts=hosts)
+        assert _plan_key(tplan) == _plan_key(jplan), hosts
+        assert tplan.meta == jplan.meta, hosts
     np.testing.assert_equal(sorted(TPLANNERS), sorted(JPLANNERS))

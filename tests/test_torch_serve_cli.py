@@ -69,7 +69,7 @@ def test_defaults_and_replan_cadence_like_reference():
     assert cfg.drift_options == {"patience": 5, "check_every": 4, "cooldown": 8}
 
 
-def test_replan_refuses_to_build():
+def test_replan_serves_through_drift_loop():
     """``--replan`` once refused to build (drift serving was not ported);
     now it builds and serves through the drift loop, with the CLI's
     historical trigger cadence."""

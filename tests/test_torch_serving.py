@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from repro.engine import EngineConfig as JEngineConfig
+from repro_torch.data.distributions import get_distribution
 from repro_torch.data.workloads import small_workload
 from repro_torch.engine import SCENARIO_MODELS, EngineConfig, InferenceEngine
 from repro_torch.launch import serve as serve_cli
@@ -154,28 +155,37 @@ def test_reference_config_json_loads_unchanged():
         f for f in JEngineConfig.__dataclass_fields__]
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("drift", "replan", "A6"), ("integrity", "checksum", "A8"),
-    ("planner", "hierarchical", "A4"), ("model", "dlrm", "A9"),
+@pytest.mark.parametrize("field,value", [
+    ("drift", "replan"), ("integrity", "checksum"),
+    ("planner", "hierarchical"), ("model", "dlrm"),
 ])
-def test_unported_config_values_raise(field, value, item):
-    """A value this port does not run yet validates, as in the JAX package,
-    and building an engine from it raises, naming its ROADMAP item.  Drift
-    replanning (A6) and buffer checksums (A8) are ported: those values
-    build and serve."""
+def test_every_config_value_builds_and_serves(field, value):
+    """Every value the JAX package's EngineConfig accepts validates, and an
+    engine built from it serves on the CPU: drift replanning, buffer
+    checksums, the two-level mesh (on a 2x2 mesh) and a scenario tower
+    (through ``build_scenario``, which reads ``config.model``)."""
     EngineConfig(**{field: value}).validate()
-    if item in ("A6", "A8"):
-        engine = _engine(**{field: value}, max_batch=8)
-        srv = engine.serve()
-        for q in _queries(engine.workload, 16):
-            srv.submit_request(q)
-        srv.drain()
-        s = srv.stats()
-        assert s["served"] == 16 and s["batch_failures"] == 0
+    if field == "model":
+        cfg = EngineConfig(model=value, max_batch=8, mesh_shape=(1, 1))
+        engine = InferenceEngine.build_scenario(config=cfg, device="cpu", batch=8)
+        scenario = engine.scenario
+        queries = scenario.payloads(scenario.sample_batch(np.random.default_rng(0),
+                                                          get_distribution("zipf:1.2"), 16))
+    else:
+        extra = {"mesh_shape": (2, 2)} if field == "planner" else {}
+        engine = _engine(**{field: value}, max_batch=8, **extra)
+        queries = _queries(engine.workload, 16)
+    assert getattr(engine.config, field) == value
+    srv = engine.serve()
+    for q in queries:
+        srv.submit_request(q)
+    srv.drain()
+    s = srv.stats()
+    assert s["served"] == 16 and s["batch_failures"] == 0
+    if field in ("drift", "integrity"):
         assert ("replan" if field == "drift" else "integrity") in s
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        _engine(**{field: value})
+    if field == "planner":
+        assert engine.stats()["mesh_shape"] == [2, 2]
 
 
 @pytest.mark.parametrize("field,value", [

@@ -6,6 +6,9 @@
 * :func:`best_candidate` ranks by ``device_us`` for ``"cuda"`` and by
   ``wall_us`` for ``"cpu"`` when the two disagree.
 * ``TuningCache`` keeps ``device_us`` through ``save``/``load``.
+* ``block_sizes`` packs at the given sizes with no sweep, and a rebuild
+  passes the live engine's only on the card: the CPU sweeps again, as the
+  reference does.
 * The card's ``device_us`` is CUDA-event time of lookups held behind a
   spin kernel on the sweep's stream: the events are scripted here (a spin
   that ended before the host's enqueue did is run again, four times as
@@ -15,6 +18,7 @@ The record's top-level keys and its candidate list against the reference's
 are held in ``tests/test_torch_access.py``.
 """
 import contextlib
+import types
 
 import pytest
 import torch
@@ -129,3 +133,44 @@ def test_device_us_counts_the_lookups_held_behind_the_spin(monkeypatch, reached,
         assert tune._device_us(lambda: runs.append(1), 2, object()) == pytest.approx(want * 1e3)
     assert slept == spins and len(runs) == 2 * len(spins)
     assert log == ["record", "record"] * len(spins)
+
+
+
+@pytest.mark.parametrize("block_r", [64, 128, 256, 512])
+def test_pinned_block_sizes_skip_the_sweep(block_r):
+    """A build given ``block_sizes`` records no sweep, packs at that
+    ``block_r`` with the planner's access sizes (those of a sweep over the
+    default candidates), and looks up what the swept engine does (pooled
+    within 1e-5: the block size moves only the plain version's order)."""
+    swept = _cpu_sweep()
+    pinned = InferenceEngine.build(None, swept.workload, swept.config, device="cpu",
+                                   block_sizes={"block_r": block_r, "block_b": None})
+    assert "tuning" not in pinned.plan.meta and pinned.packed.block_r == block_r
+    sched = lambda e: (e.packed.unique_cap, e.packed.cache_rows, e.packed.kernel_path)  # noqa: E731
+    assert sched(pinned) == sched(swept)
+    idx = torch.from_numpy(tune._synthetic_indices(swept.workload.tables, swept.workload.batch,
+                                                   swept.freqs, 0))
+    assert torch.allclose(pinned.lookup(idx), swept.lookup(idx), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("device,tuning,pinned", [
+    ("cpu", "sweep", False), ("cuda", "sweep", True), ("cuda", "fixed", False)])
+def test_rebuild_pins_block_sizes_on_the_card_only(monkeypatch, device, tuning, pinned):
+    """``rebuild`` hands ``build`` the live engine's block sizes only where a
+    swept engine serves on the card (``build`` is recorded here, so the
+    card's branch runs on the CPU)."""
+    cfg = EngineConfig(mesh_shape=(1, 2), distribution="zipf:1.2", access="full",
+                       tuning=tuning, tuning_options={} if tuning == "sweep" else {"block_r": 128})
+    eng = InferenceEngine.build(None, small_workload(batch=16), cfg, device="cpu")
+    seen = {}
+
+    def build(*args, **kwargs):
+        seen.update(kwargs)
+        return types.SimpleNamespace()
+
+    monkeypatch.setattr(eng, "device", torch.device(device))
+    monkeypatch.setattr(InferenceEngine, "build", build)
+    eng.rebuild(eng.freqs)
+    want = {"block_r": eng.packed.block_r, "block_b": eng.packed.block_b or None}
+    assert seen["device"] == torch.device(device)
+    assert seen["block_sizes"] == (want if pinned else None)
