@@ -135,7 +135,27 @@ X] <message>`` before it raises):
       every request served, the last batch's scores bitwise equal to the
       scenario's reference forward on the card and within 1e-4 of its CPU
       twin, and every kernel whose wrapper the CPU twin's lookup calls
-      launched.
+      launched;
+7. training, T (each gate independent of the clock):
+   T-grad. ``ops.embedding_bag``'s table gradient (the strategy kernel's
+      forward, the ``index_add_`` scatter-add backward) on path B's three
+      strategy tables of taobao (table 0 GM, 1,141,730 rows; table 1
+      GM-UB, 846,812; table 2 L1, 12,978), E = 16, batch 8192, s = 1 and
+      3 in f32 and table 1 at s = 3 in bf16, each within 1e-5 of autograd
+      of the plain lookup; the GM, UB and L1 kernels' launches are this
+      path's counts and join the kernels line;
+   T-dlrm. the DLRM trained at the served width (taobao's 15 tables, batch
+      8192, Adagrad) through ``training.loop.train``: 8 steps with a
+      checkpoint every 4, the first 3 losses within rtol 1e-4 of a CPU
+      twin's; a run failing at step 6 resumes from the step-4 checkpoint
+      and ends within 1e-5 of the uninterrupted run;
+   T-lm. olmo-1b at its published width, depth cut to 4 layers (the
+      ``reduced`` field): 3 AdamW steps at 2 x 512 in f32, the first loss
+      within 1e-4 relative of the CPU twin's; prefill 2 x 256 and 16
+      teacher-forced decode steps within the JAX package's bound of the
+      full forward; one train step, prefill and decode at bf16, finite;
+   T-cli. the train CLI as a subprocess on the card for the DLRM (20
+      steps) and qwen3-0.6b (10 steps): exit code 0 and ``[train] done``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -149,6 +169,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2214,6 +2235,278 @@ def scenario_path(name: str) -> dict:
     return {"counts": counts}
 
 
+# --------------------------------------------------------------------------
+# T: training on the card
+# --------------------------------------------------------------------------
+
+
+# T-grad: path B's three strategy tables of taobao (their rows and planned
+# strategies), E = 16, batch 8192, s = 1 and 3, f32, plus table 1 in bf16
+T_GRAD_TABLES = {0: "GM", 1: "GM-UB", 2: "L1"}
+T_GRAD_CASES = [(t, s, "float32") for t in T_GRAD_TABLES for s in (1, 3)] + [(1, 3, "bfloat16")]
+T_BATCH = 8192
+T_DLRM_STEPS, T_DLRM_EVERY, T_DLRM_FAIL = 8, 4, 6
+T_DLRM_LR = 0.01  # the train CLI's DLRM rate (ten times its default --lr)
+T_LM_ARCH, T_LM_LAYERS = "olmo-1b", 4  # published width, depth cut from 16
+T_LM_BATCH, T_LM_SEQ, T_LM_PREFILL, T_LM_DECODE = 2, 512, 256, 16
+T_CLI = [["--arch", "dlrm", "--steps", "20"], ["--arch", "qwen3-0.6b", "--steps", "10"]]
+
+
+def grad_path() -> dict:
+    """T-grad: ``ops.embedding_bag``'s table gradient on the card (the
+    strategy kernel's forward, the ``index_add_`` backward) at path B's
+    tables, each against autograd of the plain lookup in f32
+    (``ref.embedding_bag_ref``) on the same card within ``TOL``; the GM, UB
+    and L1 kernels' launches are this path's counts.  Recorded: the time of
+    one forward + backward (CUDA events) beside the plain version's; those
+    launches come after the counts are read."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.workloads import get_workload
+    from repro_torch.kernels import ops, ref
+
+    wl = get_workload("taobao", T_BATCH)
+    rng = np.random.default_rng(11)
+    tables = {t: torch.from_numpy(rng.standard_normal((wl.tables[t].rows, wl.tables[t].dim))
+                                  .astype(np.float32)).to(DEVICE) for t in T_GRAD_TABLES}
+    cases = []
+    reset_counts()
+    for t, s, dtype_name in T_GRAD_CASES:
+        dtype = getattr(torch, dtype_name)
+        table = tables[t].to(dtype)
+        m = table.shape[0]
+        idx = torch.from_numpy(rng.integers(0, m, size=(T_BATCH, s)).astype(np.int32)).to(DEVICE)
+        w = torch.from_numpy(rng.standard_normal((T_BATCH, table.shape[1]))
+                             .astype(np.float32)).to(DEVICE)
+        strategy = T_GRAD_TABLES[t]
+
+        def grad(lookup, table=table, w=w):
+            leaf = table.clone().requires_grad_()
+            (lookup(leaf).float() * w).sum().backward()
+            return leaf.grad
+
+        kernel = lambda x, idx=idx, strategy=strategy: ops.embedding_bag(x, idx, strategy)  # noqa: E731
+        # the plain lookup in f32, cast back: its backward scatters in f32
+        # and casts, as the kernel path's does
+        plain = lambda x, idx=idx: ref.embedding_bag_ref(x.float(), idx).to(x.dtype)  # noqa: E731
+        got, want = grad(kernel), grad(plain)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rec = {"t_grad": f"table {t} ({strategy}, m={m})", "s": s, "dtype": dtype_name,
+               "max_err": err}
+        cases.append((rec, grad, kernel, plain))
+        check(torch.allclose(got.float(), want.float(), **TOL),
+              f"[T-grad] table {t} s={s} {dtype_name}: max err {err}")
+    counts = read_counts()  # the checked gradients' launches; the timing below adds none
+    for name, k in (("embedding_bag_gm", "K3"), ("embedding_bag_ub", "K2"),
+                    ("embedding_bag_l1", "K4")):
+        check(counts[name] > 0, f"[T-grad] {k} ({name}) not launched")
+    for rec, grad, kernel, plain in cases:
+        rec["grad_ms"] = time_ms(lambda: grad(kernel), iters=5, warmup=1)
+        rec["plain_grad_ms"] = time_ms(lambda: grad(plain), iters=5, warmup=1)
+        print(json.dumps(rec), flush=True)
+    return {"counts": counts}
+
+
+def _dlrm_batch(wl, step: int, device) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.data.synthetic import ctr_batch
+
+    b = ctr_batch(np.random.default_rng(step), wl, batch=T_BATCH)
+    return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+
+
+def dlrm_train_path(tmp: Path) -> dict:
+    """T-dlrm: the paper's model trained at the served width (taobao's 15
+    tables, 3,142,468 rows, E = 16, f32; DLRMConfig defaults; batch 8192;
+    Adagrad) through ``training.loop.train``.  Gates, none on the clock:
+    the first 3 losses equal a CPU twin's (the same parameters and batches)
+    within rtol 1e-4; a run with ``fail_at_step=6`` fails there, and its
+    resume starts from the step-4 checkpoint and ends on the uninterrupted
+    run's parameters within 1e-5; every loss finite.  Recorded:
+    ``train_step_ms`` (host clock around a synchronized step, median)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.workloads import get_workload
+    from repro_torch.models import dlrm
+    from repro_torch.training.loop import LoopConfig, SimulatedFailure, train
+    from repro_torch.training.optimizer import adagrad
+    from repro_torch.tree import leaves
+
+    wl = get_workload("taobao", T_BATCH)
+    cfg = dlrm.DLRMConfig(arch="dlrm-taobao", workload=wl)
+    serving = dlrm.init_dlrm(cfg, torch.Generator().manual_seed(0))
+    opt = adagrad(T_DLRM_LR)
+    step_fn = dlrm.make_dlrm_train_step(cfg, opt)
+
+    def init_state(device=DEVICE):
+        params = dlrm.train_params(serving, device)
+        return params, opt.init(params)
+
+    def run(name, **kw):
+        loop = LoopConfig(total_steps=T_DLRM_STEPS, checkpoint_every=T_DLRM_EVERY,
+                          checkpoint_dir=str(tmp / name), **kw)
+        return train(loop, init_state=init_state, step_fn=step_fn,
+                     batch_fn=lambda step: _dlrm_batch(wl, step, DEVICE))
+
+    t0 = time.perf_counter()
+    whole = run("whole")
+    loop_s = time.perf_counter() - t0
+    failed_at = None
+    try:
+        run("crash", fail_at_step=T_DLRM_FAIL)
+    except SimulatedFailure:
+        failed_at = T_DLRM_FAIL
+    resumed = run("crash")
+    params, state = init_state("cpu")
+    twin = []
+    for step in range(3):
+        params, state, m = step_fn(params, state, _dlrm_batch(wl, step, "cpu"))
+        twin.append(float(m["loss"]))
+    params, state = init_state()
+    batch = _dlrm_batch(wl, 0, DEVICE)
+    step_ms = host_ms(lambda: (step_fn(params, state, batch), torch.cuda.synchronize()))
+    diff = max(float((a - b).abs().max()) for a, b in zip(leaves(resumed["params"]),
+                                                           leaves(whole["params"])))
+    rec = {"t_dlrm": "taobao", "rows": sum(t.rows for t in wl.tables), "batch": T_BATCH,
+           "optimizer": f"adagrad({T_DLRM_LR})", "steps": T_DLRM_STEPS, "losses": whole["losses"],
+           "cpu_twin_losses": twin, "resumed_from": resumed["start_step"],
+           "resume_max_param_diff": diff, "loop_s": loop_s, "train_step_ms": step_ms,
+           "samples_per_s": T_BATCH / step_ms * 1e3}
+    print(json.dumps(rec), flush=True)
+    check(all(np.isfinite(whole["losses"] + resumed["losses"])), "[T-dlrm] a loss is not finite")
+    check(np.allclose(whole["losses"][:3], twin, rtol=1e-4, atol=0),
+          f"[T-dlrm] card losses {whole['losses'][:3]} vs CPU twin {twin}")
+    check(failed_at == T_DLRM_FAIL, "[T-dlrm] the injected failure did not fire")
+    check(resumed["start_step"] == T_DLRM_EVERY + 1,
+          f"[T-dlrm] resumed at step {resumed['start_step']}, not after step {T_DLRM_EVERY}")
+    check(diff <= 1e-5, f"[T-dlrm] resumed params differ from the uninterrupted run by {diff}")
+    return {}
+
+
+def lm_path() -> dict:
+    """T-lm: olmo-1b at its published width (d_model 2048, 16 heads of 128,
+    ff 8192, vocab 50304), depth cut to ``T_LM_LAYERS``, random init on the
+    card.  At ``compute_dtype="float32"``: 3 AdamW steps at batch 2 x seq
+    512, the first loss within 1e-4 relative of the CPU twin's (the same
+    parameters and batch); prefill of 2 x 256 and 16 teacher-forced decode
+    steps, the decode logits within ``2e-3 * max(|ref|, 1)`` of the full
+    forward.  Then a train step, a prefill and a decode step at the
+    published ``bfloat16``, gated only on finite values.  Recorded:
+    ``tokens_per_s`` (train), ``prefill_ms`` and ``decode_ms_per_token``
+    in both dtypes (host clock around synchronized work, median)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.tree import leaves, tree_map
+
+    full = registry.get_config(T_LM_ARCH)
+    cfg32 = dataclasses.replace(full, n_layers=T_LM_LAYERS, compute_dtype="float32")
+    shape = ShapeCfg("t-lm", "train", T_LM_SEQ, T_LM_BATCH)
+    bundle = registry.Bundle(cfg32)
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0))
+    batch = bundle.make_batch(shape, torch.Generator(DEVICE).manual_seed(1))
+    rec = {"t_lm": T_LM_ARCH, "d_model": cfg32.d_model, "n_heads": cfg32.n_heads,
+           "head_dim": cfg32.head_dim, "d_ff": cfg32.d_ff, "vocab": cfg32.vocab,
+           "reduced": {"n_layers": [full.n_layers, T_LM_LAYERS]},
+           "params": sum(int(x.numel()) for x in leaves(params)),
+           "batch": T_LM_BATCH, "seq": T_LM_SEQ}
+    # the CPU twin's first loss: the same parameters and batch, forward only
+    cpu_p = tree_map(lambda x: x.cpu(), params)
+    h, _, _ = T.forward_seq(cfg32, cpu_p, {"tokens": batch["tokens"].cpu()})
+    twin = float(T.ce_loss(cfg32, T.lm_logits(cfg32, cpu_p, h), batch["labels"].cpu()))
+    del cpu_p, h
+    opt = adamw(3e-4)
+    for name, cfg in (("float32", cfg32),
+                      ("bfloat16", dataclasses.replace(cfg32, compute_dtype="bfloat16"))):
+        step = T.make_train_step(cfg, None, opt, shape)
+        p, state, losses = params, opt.init(params), []
+        for _ in range(3 if name == "float32" else 1):
+            p, state, m = step(p, state, batch)
+            losses.append(float(m["loss"]))
+        check(all(x == x and abs(x) < float("inf") for x in losses),
+              f"[T-lm] {name} loss not finite: {losses}")
+        step_ms = host_ms(lambda: (step(params, state, batch), torch.cuda.synchronize()),
+                          iters=3)
+        del p, state
+        r = {"losses": losses, "train_step_ms": step_ms,
+             "tokens_per_s": T_LM_BATCH * T_LM_SEQ / step_ms * 1e3}
+        r.update(_lm_serve(cfg, params, batch, check_decode=name == "float32"))
+        rec[name] = r
+    rec["cpu_twin_first_loss"] = twin
+    print(json.dumps(rec), flush=True)
+    first = rec["float32"]["losses"][0]
+    check(abs(first - twin) <= 1e-4 * abs(twin),
+          f"[T-lm] first loss {first} vs CPU twin {twin}")
+    return {}
+
+
+def _lm_serve(cfg, params, batch, *, check_decode: bool) -> dict:
+    """Prefill ``T_LM_PREFILL`` tokens, then ``T_LM_DECODE`` teacher-forced
+    decode steps; with ``check_decode`` the decode logits are held to the
+    full forward of the same tokens (the JAX package's bound), else to
+    finite values."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import transformer as T
+
+    s0, seq = T_LM_PREFILL, T_LM_PREFILL + T_LM_DECODE
+    tokens = batch["tokens"][:, :seq]
+    prefill = T.make_prefill_step(cfg, None, ShapeCfg("t-lm", "decode", seq, T_LM_BATCH))
+    serve = T.make_serve_step(cfg, None)
+    logits, cache = prefill(params, {"tokens": tokens[:, :s0]})
+    dec = [logits]
+    start = cache
+    for t in range(s0, seq):
+        lg, cache = serve(params, cache, {"tokens": tokens[:, t:t + 1]})
+        dec.append(lg)
+    dec = torch.cat(dec[:-1], dim=1).float()
+    out = {"prefill_ms": host_ms(lambda: (prefill(params, {"tokens": tokens[:, :s0]}),
+                                          torch.cuda.synchronize()), iters=3),
+           "decode_ms_per_token": host_ms(lambda: (serve(params, start, {
+               "tokens": tokens[:, s0:s0 + 1]}), torch.cuda.synchronize()), iters=5)}
+    check(bool(torch.isfinite(dec).all()), f"[T-lm] {cfg.compute_dtype} decode logits not finite")
+    if check_decode:
+        h, _, _ = T.forward_seq(cfg, params, {"tokens": tokens})
+        want = T.lm_logits(cfg, params, h)[:, s0 - 1:seq - 1]
+        err, bound = float((dec - want).abs().max()), 2e-3 * max(float(want.abs().max()), 1.0)
+        out.update(decode_max_err=err, decode_bound=bound)
+        check(err < bound, f"[T-lm] decode logits off the forward by {err} (bound {bound})")
+    return out
+
+
+def train_cli_path(tmp: Path) -> dict:
+    """T-cli: the train CLI on the card as a subprocess, for the DLRM and
+    qwen3-0.6b (its SMOKE config), each into a fresh checkpoint directory.
+    Gated: exit code 0 and the ``[train] done`` line."""
+    import os
+
+    recs = []
+    for i, args in enumerate(T_CLI):
+        argv = [sys.executable, "-m", "repro_torch.launch.train", *args,
+                "--checkpoint-dir", str(tmp / f"cli{i}")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv, capture_output=True, text=True, timeout=300, cwd=tmp,
+                              env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+        done = [ln for ln in proc.stdout.splitlines() if ln.startswith("[train] done")]
+        recs.append({"t_cli": " ".join(args), "rc": proc.returncode, "done": done,
+                     "wall_s": time.perf_counter() - t0})
+        print(json.dumps(recs[-1]), flush=True)
+        check(proc.returncode == 0 and done,
+              f"[T-cli] {' '.join(args)} rc={proc.returncode}: {proc.stderr[-2000:]}")
+    return {}
+
+
 def main(argv=None) -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
     try:
@@ -2270,6 +2563,15 @@ def main(argv=None) -> int:
     with phase("S"):
         for name in list_scenarios():
             runs[f"S {name}"] = scenario_path(name)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_t_") as tmp:
+        with phase("T-grad"):
+            runs["T-grad"] = grad_path()
+        with phase("T-dlrm"):
+            dlrm_train_path(Path(tmp))
+        with phase("T-lm"):
+            lm_path()
+        with phase("T-cli"):
+            train_cli_path(Path(tmp))
     for rec in kernels:
         rec["launches"] = sum(r["counts"][rec["name"]] for r in runs.values())
     print(f"[card] {card}")

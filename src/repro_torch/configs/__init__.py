@@ -1,1 +1,3 @@
-"""Shipped deployment recipes (:mod:`repro_torch.configs.presets`)."""
+"""Architecture configs (``<arch>.py``: ``CONFIG`` at the published widths,
+``SMOKE`` reduced for the CPU; :mod:`repro_torch.configs.base`) and shipped
+deployment recipes (:mod:`repro_torch.configs.presets`)."""

@@ -10,10 +10,18 @@ Two execution paths share the math:
   of :func:`repro_torch.core.partition.partitioned_lookup` over a placement
   plan (the fused kernels on the card).
 
-Parameters are ``{"tables": [(m_i, E) tensors], "bottom": MLP, "top": MLP}``;
-the MLPs are ``nn.Linear`` stacks whose products are plain ``torch.matmul``
-(the JAX package leaves them to XLA).  :func:`params_from_jax` carries the
-JAX package's parameters across.
+Serving parameters are ``{"tables": [(m_i, E) tensors], "bottom": MLP,
+"top": MLP}``: the tables stay on the CPU for the engine to pack, and the
+MLPs are ``nn.Linear`` stacks whose products are plain ``torch.matmul`` (the
+JAX package leaves them to XLA).  :func:`params_from_jax` carries the JAX
+package's parameters across.
+
+Training works on the JAX package's own tree (:func:`train_params`):
+``{"bottom": [{"b", "w" (in, out)}], "tables": [...], "top": [...]}``, every
+leaf a plain tensor on the training device, so a leaf's number in an
+optimizer state or a checkpoint is the JAX package's.
+:func:`make_dlrm_train_step` differentiates :func:`forward_train`, the same
+plain lookups as ``forward_dense``.
 """
 from __future__ import annotations
 
@@ -27,15 +35,21 @@ from torch import nn
 from repro_torch.core.embedding import PartitionedEmbeddingBag
 from repro_torch.core.tables import Workload
 from repro_torch.models.layers import dense_init
+from repro_torch.tree import value_and_grad
 
 __all__ = [
     "DLRMConfig",
     "MLP",
+    "bce_loss",
     "forward_dense",
     "forward_packed",
+    "forward_train",
     "init_dlrm",
     "interact",
+    "loss_fn",
+    "make_dlrm_train_step",
     "params_from_jax",
+    "train_params",
 ]
 
 Params = dict
@@ -150,20 +164,83 @@ def interact(bottom_out: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     return torch.cat([bottom_out, z[:, iu, ju]], dim=-1)
 
 
+def _pooled(tables, indices, device) -> torch.Tensor:
+    """Sum-pooled plain lookups, ``-1`` padding masked: (N, B, E)."""
+    idx = torch.as_tensor(indices).to(device).long()
+    outs = []
+    for i, tab in enumerate(tables):
+        tab = tab.to(device)
+        valid = idx[i] >= 0
+        g = tab[torch.where(valid, idx[i], 0)]
+        outs.append(torch.where(valid[..., None], g, 0.0).sum(dim=1))
+    return torch.stack(outs)
+
+
 @torch.no_grad()
 def forward_dense(cfg: DLRMConfig, params: Params, batch: dict) -> torch.Tensor:
     """batch: {"dense": (B, n_dense) f32, "indices": (N, B, s_max) int}."""
     x = batch["dense"]
-    idx = torch.as_tensor(batch["indices"]).to(x.device).long()
-    outs = []
-    for i, tab in enumerate(params["tables"]):
-        tab = tab.to(x.device)
-        valid = idx[i] >= 0
-        g = tab[torch.where(valid, idx[i], 0)]
-        outs.append(torch.where(valid[..., None], g, 0.0).sum(dim=1))
-    emb = torch.stack(outs)  # (N, B, E)
+    emb = _pooled(params["tables"], batch["indices"], x.device)  # (N, B, E)
     bot = params["bottom"](x)
     return params["top"](interact(bot, emb.to(bot.dtype)))[..., 0]  # (B,)
+
+
+# --------------------------------------------------------------------------
+# training (the JAX package's parameter tree)
+# --------------------------------------------------------------------------
+
+
+def train_params(params: Params, device="cpu") -> Params:
+    """Serving parameters (:func:`init_dlrm`, :func:`params_from_jax`) as the
+    JAX package's tree on ``device``, copied: ``{"bottom": [{"b", "w"}],
+    "tables": [...], "top": [...]}`` with ``w`` (in, out)."""
+    def mlp(m: MLP) -> list:
+        return [{"b": l.bias.detach().to(device, copy=True),
+                 "w": l.weight.detach().T.contiguous().to(device)} for l in m.layers]
+
+    return {"bottom": mlp(params["bottom"]),
+            "tables": [t.detach().to(device, copy=True) for t in params["tables"]],
+            "top": mlp(params["top"])}
+
+
+def _mlp_xw(layers: Sequence[dict], x: torch.Tensor, final_act: bool) -> torch.Tensor:
+    for i, l in enumerate(layers):
+        x = x @ l["w"].to(x.dtype) + l["b"].to(x.dtype)
+        if i < len(layers) - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
+def forward_train(cfg: DLRMConfig, params: Params, batch: dict) -> torch.Tensor:
+    """``forward_dense`` on the tree of :func:`train_params`, differentiable
+    in every leaf -> (B,) logits."""
+    x = batch["dense"]
+    emb = _pooled(params["tables"], batch["indices"], x.device)
+    bot = _mlp_xw(params["bottom"], x, final_act=True)
+    return _mlp_xw(params["top"], interact(bot, emb.to(bot.dtype)), final_act=False)[..., 0]
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy on logits, in f32 (the stable form)."""
+    z = logits.float()
+    y = torch.as_tensor(labels).to(z.device).float()
+    return torch.mean(torch.clamp(z, min=0) - z * y + torch.log1p(torch.exp(-torch.abs(z))))
+
+
+def loss_fn(cfg: DLRMConfig, params: Params, batch: dict) -> torch.Tensor:
+    return bce_loss(forward_train(cfg, params, batch), batch["labels"])
+
+
+def make_dlrm_train_step(cfg: DLRMConfig, optimizer):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    {"loss": ...})`` on :func:`train_params`' tree; the arguments are left
+    as they are."""
+    def train_step(params, opt_state, batch):
+        loss, grads = value_and_grad(lambda p: loss_fn(cfg, p, batch), params)
+        params, opt_state = optimizer.update(grads, opt_state, params)
+        return params, opt_state, {"loss": loss}
+
+    return train_step
 
 
 @torch.no_grad()

@@ -1,14 +1,15 @@
-"""Model primitives shared by the port's towers: params are mappings of
-tensors (``dict`` or ``nn.ParameterDict``), as the JAX package's are nested
-dicts of arrays.
+"""Model primitives of the port's towers and dense LMs: params are mappings
+of tensors (``dict`` or ``nn.ParameterDict``), as the JAX package's are
+nested dicts of arrays.
 
-This module holds what the scenario towers run: the JAX package's
-initializer, RMS norm, grouped-query attention in its non-causal, rope-free,
-uncached form (the transformer tower's; other cases raise), and the SwiGLU
-MLP.  Each formula is written as the JAX package writes it, reductions in
-the same order, so that the CPU comparison against it is close; no fused
-attention kernel is used.  KV caches, masks and rotary embeddings belong to
-the LM side.
+The JAX package's initializers, RMS / layer / non-parametric norms, rotary
+embeddings (standard and partial), grouped-query attention with causal
+masks, a linear KV cache, query chunks and the online softmax over KV
+blocks, and the SwiGLU MLP.  Each formula is written as the JAX package
+writes it, reductions in the same order, and parameters are cast to the
+activations' dtype at each use, as there; no fused attention kernel is
+used.  :func:`attention` is the scenario towers' entry (their
+non-causal, rope-free, uncached case); :func:`lm_attention` is the LM's.
 """
 from __future__ import annotations
 
@@ -22,12 +23,18 @@ import torch.nn.functional as F
 __all__ = [
     "AttnSpec",
     "Params",
+    "apply_rope",
     "attention",
     "attn_init",
     "dense_init",
+    "embed_init",
+    "layer_norm",
+    "lm_attention",
+    "make_norm",
     "mlp_apply",
     "mlp_init",
     "rms_norm",
+    "rope_inv_freq",
 ]
 
 Params = Mapping[str, Any]
@@ -40,9 +47,20 @@ def dense_init(
     JAX package's initializer; ``shape[in_axis]`` is the fan-in."""
     fan_in = shape[in_axis]
     std = 1.0 / math.sqrt(max(fan_in, 1))
-    w = torch.empty(shape, dtype=torch.float32)
+    w = torch.empty(shape, dtype=torch.float32, device=_device_of(generator))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return (w * std).to(dtype)
+
+
+def embed_init(generator: torch.Generator | None, shape, dtype=torch.float32) -> torch.Tensor:
+    """N(0, 0.02^2) rows, the JAX package's embedding initializer."""
+    w = torch.randn(shape, generator=generator, device=_device_of(generator))
+    return (w * 0.02).to(dtype)
+
+
+def _device_of(generator: torch.Generator | None):
+    """A tensor drawn from ``generator`` is made on its device."""
+    return generator.device if generator is not None else None
 
 
 # --------------------------------------------------------------------------
@@ -60,6 +78,76 @@ def rms_norm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
     if scale is not None:
         y = y * (1.0 + scale).to(dt)
     return y
+
+
+def layer_norm(x: torch.Tensor, scale=None, bias=None, eps: float = 1e-5) -> torch.Tensor:
+    """Parametric or non-parametric (OLMo-style) LayerNorm; the mean and
+    mean square in f32, the normalized activation in ``x``'s dtype."""
+    dt = x.dtype
+    d = x.shape[-1]
+    xf = x.float()
+    mu = torch.einsum("...d->...", xf) / d
+    msq = torch.einsum("...d,...d->...", xf, xf) / d
+    var = torch.clamp(msq - torch.square(mu), min=0.0)
+    r = torch.rsqrt(var + eps)
+    y = (x - mu[..., None].to(dt)) * r[..., None].to(dt)
+    if scale is not None:
+        y = y * scale.to(dt)
+    if bias is not None:
+        y = y + bias.to(dt)
+    return y
+
+
+def make_norm(kind: str, d: int):
+    """``(init_fn, apply_fn)`` for a norm kind: ``rms`` (zero-initialized
+    scale), ``ln`` (scale and bias) or ``ln_nonparam`` (no parameters)."""
+    if kind == "rms":
+        return (lambda generator=None: {"scale": torch.zeros(d, device=_device_of(generator))},
+                lambda p, x: rms_norm(x, p["scale"]))
+    if kind == "ln":
+        return (lambda generator=None: {"scale": torch.ones(d, device=_device_of(generator)),
+                                        "bias": torch.zeros(d, device=_device_of(generator))},
+                lambda p, x: layer_norm(x, p["scale"], p["bias"]))
+    if kind == "ln_nonparam":
+        return (lambda generator=None: {}, lambda p, x: layer_norm(x, None, None))
+    raise ValueError(f"unknown norm {kind!r}")
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+
+def rope_inv_freq(rotary_dim: int, base: float = 10000.0, device=None) -> torch.Tensor:
+    return 1.0 / (base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32,
+                                        device=device) / rotary_dim))
+
+
+def apply_rope(
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    *,
+    base: float = 10000.0,
+    rotary_frac: float = 1.0,
+    mrope_sections=None,
+) -> torch.Tensor:
+    """Rotary embedding, half-rotation convention.  x (B, S, H, dh),
+    positions (B, S) int.  ``rotary_frac < 1`` rotates only the leading
+    fraction of dh (ChatGLM's partial "2d" RoPE).  M-RoPE (Qwen2-VL's
+    ``mrope_sections``) belongs to the vlm family (ROADMAP A10)."""
+    if mrope_sections is not None:
+        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet: ROADMAP A10")
+    dh = x.shape[-1]
+    rot = int(dh * rotary_frac)
+    rot -= rot % 2
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    inv = rope_inv_freq(rot, base, device=x.device)  # (rot/2,)
+    angles = positions.float()[..., None] * inv  # (B, S, rot/2)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)  # (B, S, 1, rot/2)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x_rot[..., : rot // 2], x_rot[..., rot // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([out, x_pass], dim=-1) if rot < dh else out
 
 
 # --------------------------------------------------------------------------
@@ -87,22 +175,29 @@ class AttnSpec:
 
 def attn_init(generator: torch.Generator | None, d_model: int, spec: AttnSpec) -> dict:
     h, kv, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    return {
+    p = {
         "wq": dense_init(generator, (d_model, h * dh)),
         "wk": dense_init(generator, (d_model, kv * dh)),
         "wv": dense_init(generator, (d_model, kv * dh)),
         "wo": dense_init(generator, (h * dh, d_model)),
     }
+    if spec.qk_norm:
+        p["q_norm"] = torch.zeros(dh, device=_device_of(generator))
+        p["k_norm"] = torch.zeros(dh, device=_device_of(generator))
+    return p
 
 
 _NEG = -1e30
 
 
-def _online_softmax_attn(q, k, v, *, block: int) -> torch.Tensor:
+def _online_softmax_attn(q, k, v, *, block: int, q_positions=None, causal: bool = False,
+                         kv_valid_len: int | None = None) -> torch.Tensor:
     """Flash-style attention over KV blocks, as the JAX package's
-    ``lax.scan``: a running max, normalizer and accumulator per query;
-    only the padding of the last block is masked.
-    q (B, Sq, KV, G, dh), k/v (B, Skv, KV, dh) -> (B, Sq, KV*G, dh)."""
+    ``lax.scan``: a running max, normalizer and accumulator per query.
+    KV slot ``j`` is masked where ``causal`` and ``j > q_positions``, where
+    ``j >= kv_valid_len`` (a cache's unfilled slots), and in the padding of
+    the last block.  q (B, Sq, KV, G, dh), k/v (B, Skv, KV, dh) ->
+    (B, Sq, KV*G, dh)."""
     b, sq, kvh, g, dh = q.shape
     skv = k.shape[1]
     block = min(block, skv)
@@ -117,10 +212,16 @@ def _online_softmax_attn(q, k, v, *, block: int) -> torch.Tensor:
     m = torch.full((b, kvh, g, sq), _NEG, device=q.device)
     l = torch.zeros((b, kvh, g, sq), device=q.device)
     acc = torch.zeros((b, kvh, g, sq, dh), device=q.device)
+    masked = causal or kv_valid_len is not None
     for blk_i in range(nblk):
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, k[blk_i].float())
-        if pad:
-            kv_pos = blk_i * block + torch.arange(block, device=q.device)
+        kv_pos = blk_i * block + torch.arange(block, device=q.device)
+        if masked:
+            mask = _kv_mask(kv_pos, q_positions, causal, kv_valid_len)
+            if pad:
+                mask = mask & (kv_pos < skv)
+            s = torch.where(mask[:, None, None], s, _NEG)
+        elif pad:
             s = torch.where(kv_pos < skv, s, _NEG)
         m_new = torch.maximum(m, s.amax(dim=-1))
         corr = torch.exp(m - m_new)
@@ -132,26 +233,117 @@ def _online_softmax_attn(q, k, v, *, block: int) -> torch.Tensor:
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, dh)
 
 
+def _kv_mask(kv_pos, q_positions, causal: bool, kv_valid_len) -> torch.Tensor:
+    """(B, Sq, C) keep-mask of KV slots ``kv_pos`` (C,) for each query."""
+    b, sq = q_positions.shape
+    mask = torch.ones((b, sq, kv_pos.shape[0]), dtype=torch.bool, device=kv_pos.device)
+    if causal:
+        mask = mask & (kv_pos[None, None, :] <= q_positions[:, :, None])
+    if kv_valid_len is not None:
+        mask = mask & (kv_pos[None, None, :] < kv_valid_len)
+    return mask
+
+
+def _single_shot_attn(q, k, v, *, q_positions, causal: bool, kv_valid_len) -> torch.Tensor:
+    """One query position (decode): one softmax over every KV slot, the
+    JAX package's fast path.  Shapes as :func:`_online_softmax_attn`."""
+    b, sq, kvh, g, dh = q.shape
+    qf = (q * (1.0 / math.sqrt(dh))).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    mask = _kv_mask(kv_pos, q_positions, causal, kv_valid_len)
+    s = torch.where(mask[:, None, None], s, _NEG)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    out = torch.einsum("bkgqs,bskd->bkgqd", p, v.float()) / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, dh)
+
+
 def attention(params: Params, x: torch.Tensor, spec: AttnSpec):
-    """GQA self-attention, x (B, Sq, d) -> (out (B, Sq, d), None); the
-    ``None`` stands where the JAX package returns a KV cache.  The port
-    runs the case its towers use: non-causal, no window, no qk-norm, no
+    """The scenario towers' GQA self-attention, x (B, Sq, d) -> (out
+    (B, Sq, d), None); the ``None`` stands where the JAX package returns a
+    KV cache.  Their case only: non-causal, no window, no qk-norm, no
     rotary embedding, at least two query positions (the JAX package's
-    online-softmax path)."""
+    online-softmax path); :func:`lm_attention` computes it."""
     if spec.causal or spec.window is not None or spec.qk_norm or spec.rope is not None:
         raise NotImplementedError(
-            "the port's attention is non-causal, window-free, qk-norm-free and rope-free")
+            "the towers' attention is non-causal, window-free, qk-norm-free and rope-free")
+    if x.shape[1] < 2:
+        raise NotImplementedError("the towers' attention takes at least two query positions")
+    return lm_attention(params, x, spec, positions=None)
+
+
+def lm_attention(
+    params: Params,
+    x: torch.Tensor,
+    spec: AttnSpec,
+    *,
+    positions: torch.Tensor | None,
+    kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache_pos: int | None = None,
+    cache_mode: str = "linear",
+    q_chunk: int | None = None,
+):
+    """GQA self-attention with the JAX package's ``attention`` semantics:
+    qk-norm, rotary embedding at ``positions`` (B, Sq) (applied to K before
+    it is cached), a causal mask in token order, and a linear KV cache
+    ``(k, v)`` of (B, Smax, KV, dh) written at slot ``cache_pos`` (a Python
+    int).  Query chunks of ``q_chunk`` positions attend one at a time when
+    they divide Sq.  Returns (out (B, Sq, d), the new cache or None; the
+    cache passed in is not written).  Sliding windows and the rolling cache
+    (mixtral) are ROADMAP A10's."""
+    if spec.window is not None or cache_mode != "linear":
+        raise NotImplementedError("sliding windows and rolling caches are not ported yet: "
+                                  "ROADMAP A10")
     b, sq, _ = x.shape
-    if sq < 2:
-        raise NotImplementedError("the port's attention takes at least two query positions")
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    g = h // kvh
     dt = x.dtype
-    q = (x @ params["wq"].to(dt)).reshape(b, sq, kvh, h // kvh, dh)
+    q = (x @ params["wq"].to(dt)).reshape(b, sq, h, dh)
     k = (x @ params["wk"].to(dt)).reshape(b, sq, kvh, dh)
     v = (x @ params["wv"].to(dt)).reshape(b, sq, kvh, dh)
-    out = _online_softmax_attn(q, k, v, block=spec.attn_block)
+    if spec.qk_norm:
+        q = rms_norm(q, params["q_norm"])
+        k = rms_norm(k, params["k_norm"])
+    if spec.rope is not None:
+        rope = dict(base=spec.rope_base, rotary_frac=spec.rotary_frac,
+                    mrope_sections=spec.mrope_sections)
+        q = apply_rope(q, positions, **rope)
+        k = apply_rope(k, positions, **rope)
+
+    new_cache = None
+    kv_valid = None
+    if kv_cache is not None:
+        if cache_pos is None:
+            raise ValueError("kv_cache needs cache_pos")
+        ck, cv = kv_cache
+        slot = min(cache_pos, ck.shape[1] - sq)  # as dynamic_update_slice clamps
+        kv_valid = cache_pos + sq
+        ck, cv = ck.clone(), cv.clone()
+        ck[:, slot:slot + sq] = k.to(ck.dtype)
+        cv[:, slot:slot + sq] = v.to(cv.dtype)
+        new_cache = (ck, cv)
+        k, v = ck, cv
+
+    qg = q.reshape(b, sq, kvh, g, dh)
+    # masks follow token order (the cache slot), as the JAX package's do
+    base = cache_pos if cache_pos is not None else 0
+    qidx = (base + torch.arange(sq, device=x.device))[None, :].expand(b, sq)
+
+    def attend(qg_c, qpos_c):
+        if qg_c.shape[1] == 1:
+            return _single_shot_attn(qg_c, k, v, q_positions=qpos_c, causal=spec.causal,
+                                     kv_valid_len=kv_valid)
+        return _online_softmax_attn(qg_c, k, v, block=spec.attn_block, q_positions=qpos_c,
+                                    causal=spec.causal, kv_valid_len=kv_valid)
+
+    if q_chunk is not None and sq > q_chunk and sq % q_chunk == 0:
+        out = torch.cat([attend(qg[:, i:i + q_chunk], qidx[:, i:i + q_chunk])
+                         for i in range(0, sq, q_chunk)], dim=1)
+    else:
+        out = attend(qg, qidx)
     out = out.reshape(b, sq, h * dh).to(dt)
-    return out @ params["wo"].to(dt), None
+    return out @ params["wo"].to(dt), new_cache
 
 
 # --------------------------------------------------------------------------

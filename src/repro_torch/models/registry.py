@@ -1,17 +1,138 @@
-"""The scenario registry: the JAX package's ``SCENARIOS``, entry for entry.
+"""Architecture + scenario registries, as the JAX package's.
 
-Each entry pairs a :class:`repro_torch.models.scenarios.ScenarioModel`
-factory with a ``default_config`` dict of
-:class:`repro_torch.engine.EngineConfig` fields, the same recipe the JAX
-package serves it under.  The architecture registry of the LM side
-(``get_config``, ``Bundle``, ``build``) is not part of the port yet.
+* :data:`ARCH_MODULES` — ``--arch <id>`` -> an LM config
+  (:mod:`repro_torch.configs`) and, through :func:`build`, a :class:`Bundle`
+  of its step functions and batch shapes (the dense family runs; the
+  others raise naming ROADMAP A10);
+* :data:`SCENARIOS` — each entry pairs a
+  :class:`repro_torch.models.scenarios.ScenarioModel` factory with a
+  ``default_config`` dict of :class:`repro_torch.engine.EngineConfig`
+  fields, the same recipe the JAX package serves it under.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+import importlib
+from typing import Any, Callable, NamedTuple
 
-__all__ = ["SCENARIOS", "ScenarioEntry", "get_scenario", "list_scenarios"]
+import torch
+
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCfg
+from repro_torch.models import transformer as T
+
+__all__ = [
+    "ARCH_IDS",
+    "ARCH_MODULES",
+    "Bundle",
+    "SCENARIOS",
+    "SHAPES",
+    "ScenarioEntry",
+    "Spec",
+    "build",
+    "get_config",
+    "get_scenario",
+    "list_scenarios",
+]
+
+ARCH_MODULES: dict[str, str] = {
+    "olmo-1b": "repro_torch.configs.olmo_1b",
+    "qwen3-0.6b": "repro_torch.configs.qwen3_0_6b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_1_7b",
+    "chatglm3-6b": "repro_torch.configs.chatglm3_6b",
+    "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "zamba2-1.2b": "repro_torch.configs.zamba2_1_2b",
+}
+
+ARCH_IDS = tuple(ARCH_MODULES)
+
+
+def get_config(arch: str, smoke: bool = False) -> ArchConfig:
+    mod = importlib.import_module(ARCH_MODULES[arch])
+    return mod.SMOKE if smoke else mod.CONFIG
+
+
+class Spec(NamedTuple):
+    """A model input's shape and dtype (the JAX package's
+    ``ShapeDtypeStruct`` stand-in)."""
+
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclasses.dataclass
+class Bundle:
+    cfg: ArchConfig
+
+    # -- params ---------------------------------------------------------------
+    def init(self, generator: torch.Generator | None = None):
+        return T.init_params(self.cfg, generator)
+
+    # -- steps ----------------------------------------------------------------
+    def train_step(self, ctx, optimizer, shape: ShapeCfg):
+        return T.make_train_step(self.cfg, ctx, optimizer, shape)
+
+    def prefill_step(self, ctx, shape: ShapeCfg):
+        return T.make_prefill_step(self.cfg, ctx, shape)
+
+    def serve_step(self, ctx):
+        return T.make_serve_step(self.cfg, ctx)
+
+    # -- shape specs ----------------------------------------------------------
+    def batch_specs(self, shape: ShapeCfg, act_dtype=torch.bfloat16) -> dict[str, Spec]:
+        """Every model input of a shape, as the JAX package lists them."""
+        cfg = self.cfg
+        b, s = shape.batch, shape.seq
+        i32 = torch.int32
+        if shape.kind in ("train", "prefill"):
+            out: dict[str, Spec] = {}
+            if cfg.input_kind == "embeds":
+                out["embeds"] = Spec((b, s, cfg.d_model), act_dtype)
+                out["positions"] = Spec((3, b, s), i32)
+            elif cfg.input_kind == "frames_tokens":
+                out["frames"] = Spec((b, s, cfg.d_model), act_dtype)
+                out["tokens"] = Spec((b, s), i32)
+            else:
+                out["tokens"] = Spec((b, s), i32)
+            if shape.kind == "train":
+                out["labels"] = Spec((b, s), i32)
+            return out
+        if cfg.input_kind == "embeds":
+            return {"embeds": Spec((b, 1, cfg.d_model), act_dtype),
+                    "positions": Spec((3, b, 1), i32)}
+        return {"tokens": Spec((b, 1), i32)}
+
+    def make_batch(self, shape: ShapeCfg, generator: torch.Generator,
+                   act_dtype=torch.bfloat16) -> dict:
+        """A random batch drawn from ``generator``, on its device: token and
+        label ids in ``[0, vocab)``, positions in ``[0, seq)``, normal
+        activations."""
+        out = {}
+        for k, v in self.batch_specs(shape, act_dtype).items():
+            if v.dtype == torch.int32:
+                hi = self.cfg.vocab if k in ("tokens", "labels") else shape.seq
+                out[k] = torch.randint(0, max(hi, 2), v.shape, generator=generator,
+                                       dtype=torch.int32, device=generator.device)
+            else:
+                out[k] = torch.randn(v.shape, generator=generator,
+                                     device=generator.device).to(v.dtype)
+        return out
+
+
+def build(arch: str, smoke: bool = False) -> Bundle:
+    cfg = get_config(arch, smoke)
+    # whisper needs the frames+tokens input kind
+    if cfg.family == "encdec" and cfg.input_kind == "tokens":
+        cfg = dataclasses.replace(cfg, input_kind="frames_tokens")
+    return Bundle(cfg)
+
+
+# ==========================================================================
+# the scenario registry
+# ==========================================================================
 
 
 @dataclasses.dataclass(frozen=True)

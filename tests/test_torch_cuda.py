@@ -990,3 +990,124 @@ def test_rebuild_keeps_its_block_sizes_under_load(cuda):
                                                              eng.packed.block_b), key
         got, want = new.lookup(idx), new.reference_view().lookup(idx)
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-5), key
+
+
+# --------------------------------------------------------------------------
+# training on the card: the strategy kernels under autograd, the DLRM and
+# the dense LM train steps against their CPU twins
+# --------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 3])
+def test_strategy_kernel_grads_match_plain(cuda, s, dtype):
+    """ops.embedding_bag's table gradient on the card (kernel forward,
+    index_add_ backward, whose adds land in no fixed order) against autograd
+    of the plain lookup on the same card, -1 padding and ids >= m included;
+    each kernel launched once per strategy."""
+    m, e, b = 20_000, 16, 4096
+    rng = np.random.default_rng(2)
+    t0 = torch.from_numpy(rng.standard_normal((m, e)).astype(np.float32)).to(dtype).to(cuda)
+    idx = rng.integers(0, m, size=(b, s)).astype(np.int32)
+    idx[::7, -1], idx[::11, 0] = -1, m + 5
+    idx = torch.from_numpy(idx).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((b, e)).astype(np.float32)).to(cuda)
+    t = t0.clone().requires_grad_()
+    (ref.bag_f32(t.float(), idx).to(dtype).float() * w).sum().backward()  # f32 scatter, cast
+    want = t.grad
+    counters = (embedding_bag_gm, embedding_bag_l1, embedding_bag_ub)
+    before = sum(c.launches for c in counters)
+    for strategy in ALL_STRATEGIES:
+        t = t0.clone().requires_grad_()
+        (ops.embedding_bag(t, idx, strategy).float() * w).sum().backward()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(t.grad.float(), want.float(), **TOL,
+                                   msg=lambda m_: f"{strategy}: {m_}")
+    assert sum(c.launches for c in counters) == before + len(ALL_STRATEGIES)
+
+
+def test_dlrm_train_steps_on_card_match_cpu(cuda):
+    """Three Adagrad steps of the DLRM on the card and on the CPU from the
+    same parameters and batches, the losses within rtol 1e-5; and one SGD
+    step at lr 1, so every gradient, within rtol = atol = 1e-5.  (Adagrad's
+    first step moves each parameter by lr * sign(gradient), so a gradient
+    at the rounding level, summed in another order on the card, can move
+    one element by 2 * lr: its parameters are not compared.)"""
+    from repro_torch.core.tables import make_workload
+    from repro_torch.data.synthetic import ctr_batch
+    from repro_torch.models import dlrm
+    from repro_torch.training.optimizer import adagrad, sgd
+    from repro_torch.tree import leaves
+
+    wl = make_workload("t", [100_000, 5_000, 300], dim=16, seqs=[1, 3, 2], batch=1024)
+    cfg = dlrm.DLRMConfig(arch="t", workload=wl)
+    serving = dlrm.init_dlrm(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda):
+        batches = [{k_: torch.as_tensor(v, device=dev)
+                    for k_, v in ctr_batch(np.random.default_rng(k), wl).items()}
+                   for k in range(3)]
+        params = dlrm.train_params(serving, dev)
+        opt = adagrad(0.05)
+        state, step, losses = opt.init(params), dlrm.make_dlrm_train_step(cfg, opt), []
+        for b in batches:
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+        one = sgd(1.0)
+        p0 = dlrm.train_params(serving, dev)
+        runs[str(dev)] = losses, dlrm.make_dlrm_train_step(cfg, one)(p0, one.init(p0), batches[0])[0]
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], rtol=1e-5)
+    for a, b_ in zip(leaves(runs["cuda"][1]), leaves(runs["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen3-0.6b", "chatglm3-6b"])
+def test_dense_lm_on_card_matches_cpu(cuda, arch):
+    """A SMOKE dense LM on the card: the first train step's loss and
+    gradient update (SGD at lr 1) against the CPU twin within 1e-5, and
+    prefill + teacher-forced decode against the full forward within the
+    JAX package's bound."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import sgd
+    from repro_torch.tree import leaves, tree_map
+
+    bundle = registry.build(arch, smoke=True)
+    cfg = bundle.cfg
+    params = bundle.init(torch.Generator().manual_seed(0))
+    shape = ShapeCfg("smoke", "train", 64, 2)
+    batch = bundle.make_batch(shape, torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), params)
+        opt = sgd(1.0)
+        out[str(dev)] = T.make_train_step(cfg, None, opt, shape)(
+            p, opt.init(p), {k: v.to(dev) for k, v in batch.items()})
+    np.testing.assert_allclose(float(out["cuda"][2]["loss"]), float(out["cpu"][2]["loss"]),
+                               rtol=1e-5)
+    for a, b_ in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-5, atol=1e-5)
+    p = tree_map(lambda x: x.to(cuda), params)
+    tokens = batch["tokens"].to(cuda)
+    s0, seq = 48, 64
+    logits, cache = T.make_prefill_step(cfg, None, ShapeCfg("t", "decode", seq, 2))(
+        p, {"tokens": tokens[:, :s0]})
+    dec = [logits]
+    serve = T.make_serve_step(cfg, None)
+    for t in range(s0, seq):
+        lg, cache = serve(p, cache, {"tokens": tokens[:, t:t + 1]})
+        dec.append(lg)
+    dec = torch.cat(dec[:-1], dim=1)
+    h, _, _ = T.forward_seq(cfg, p, {"tokens": tokens})
+    want = T.lm_logits(cfg, p, h)[:, s0 - 1:seq - 1]
+    assert float((dec - want).abs().max()) < 2e-3 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("arch", ["dlrm", "qwen3-0.6b"])
+def test_train_cli_on_card(cuda, arch, tmp_path, capsys):
+    from repro_torch.launch import train
+
+    out = train.main(["--arch", arch, "--steps", "5", "--checkpoint-dir", str(tmp_path)])
+    assert all(np.isfinite(out["losses"])) and len(out["losses"]) == 5
+    assert "on cuda" in capsys.readouterr().out

@@ -52,3 +52,37 @@ def test_every_kernel_has_a_cuda_source_and_no_library_stand_in():
                 assert "F.embedding_bag(" not in text and "functional.embedding_bag(" not in text, f
             else:
                 assert banned not in text, f
+
+
+_BLOCKED = """
+import importlib, importlib.abc, pkgutil, sys
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name in ("jax", "repro") or name.startswith(("jax.", "repro.")):
+            raise ImportError(f"blocked: {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+import repro_torch
+mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in mods:
+    importlib.import_module(name)
+for name in ("repro_torch.training.loop", "repro_torch.training.optimizer",
+             "repro_torch.training.compress", "repro_torch.checkpoint.checkpoint",
+             "repro_torch.data.synthetic", "repro_torch.launch.train",
+             "repro_torch.models.transformer", "repro_torch.configs.olmo_1b"):
+    assert name in mods, name
+print(len(mods))
+"""
+
+
+def test_import_every_submodule_with_jax_blocked():
+    """Every module of the port, the training side included, imports while
+    any import of ``jax`` or of the JAX package raises."""
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED], env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 40
