@@ -154,8 +154,30 @@ X] <message>`` before it raises):
       within 1e-4 relative of the CPU twin's; prefill 2 x 256 and 16
       teacher-forced decode steps within the JAX package's bound of the
       full forward; one train step, prefill and decode at bf16, finite;
+   T-moe, T-swa, T-ssm, T-hybrid. the moe, ssm and hybrid families at
+      their published widths, depth cut (``reduced``), random init: granite-
+      moe-3b-a800m at 4 of 32 layers (3 AdamW steps at 2 x 512, the first
+      loss and aux within 1e-4 relative of the CPU twin's; prefill 2 x 256
+      and 16 decode steps within ``1e-4 * max(|ref|, 1)`` of the CPU twin's
+      decode, since the forward at 256-token groups drops tokens and a
+      decode step does not); mixtral-8x22b at 1 of 56 layers, serve only
+      (prefill 1 x 5120, past its 4096-token window, and 16 decode steps
+      through the rolling cache, timed at the published capacity with its
+      drops counted; then, the capacity raised to ``n_experts`` so that
+      nothing drops (the JAX package's own decode test), within its bound
+      of the card's full forward over 5,136 tokens, no assignment dropped;
+      the batch-split prefill at ``prefill_32k`` with 2 x 5120 against the
+      unsplit one: caches within 1e-5, logits within ``1e-5 * max(|ref|,
+      1)``); mamba2-780m at 4 of 48 layers and zamba2-1.2b at
+      7 of 38 (one group of 6 mamba layers, the shared block, 1 trailing
+      layer): 3 AdamW steps at 2 x 512 against the CPU twin's first loss,
+      prefill 2 x 300 (not a multiple of the SSD chunk) and 16 decode steps
+      within the JAX package's bound of the full forward.  Then a train step
+      (where there is one), a prefill and a decode step at bf16, finite.
+      Each model's parameters are freed before the next;
    T-cli. the train CLI as a subprocess on the card for the DLRM (20
-      steps) and qwen3-0.6b (10 steps): exit code 0 and ``[train] done``.
+      steps), qwen3-0.6b and granite-moe-3b-a800m (10 steps each): exit
+      code 0 and ``[train] done``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -2247,9 +2269,24 @@ T_GRAD_CASES = [(t, s, "float32") for t in T_GRAD_TABLES for s in (1, 3)] + [(1,
 T_BATCH = 8192
 T_DLRM_STEPS, T_DLRM_EVERY, T_DLRM_FAIL = 8, 4, 6
 T_DLRM_LR = 0.01  # the train CLI's DLRM rate (ten times its default --lr)
-T_LM_ARCH, T_LM_LAYERS = "olmo-1b", 4  # published width, depth cut from 16
-T_LM_BATCH, T_LM_SEQ, T_LM_PREFILL, T_LM_DECODE = 2, 512, 256, 16
-T_CLI = [["--arch", "dlrm", "--steps", "20"], ["--arch", "qwen3-0.6b", "--steps", "10"]]
+T_CLI = [["--arch", "dlrm", "--steps", "20"], ["--arch", "qwen3-0.6b", "--steps", "10"],
+         ["--arch", "granite-moe-3b-a800m", "--steps", "10"]]
+# the LM families at their published widths, depth cut:
+# name -> (arch, layers kept, train batch x seq or None (serve only),
+# prefill batch x seq, what the f32 decode logits are held to: "twin", the
+# CPU twin's decode (a forward at the train groups drops tokens, a one-token
+# decode step never does), or "forward", the card's own full forward, an
+# MoE's capacity raised so that neither drops a token)
+T_FAMILY = {
+    "T-lm": ("olmo-1b", 4, (2, 512), (2, 256), "forward"),
+    "T-moe": ("granite-moe-3b-a800m", 4, (2, 512), (2, 256), "twin"),
+    "T-swa": ("mixtral-8x22b", 1, None, (1, 5120), "forward"),
+    "T-ssm": ("mamba2-780m", 4, (2, 512), (2, 300), "forward"),
+    "T-hybrid": ("zamba2-1.2b", 7, (2, 512), (2, 300), "forward"),
+}
+T_FAMILY_DECODE = 16
+# mixtral's batch-split prefill: serve_microbatch["prefill_32k"] = 2
+T_SWA_SPLIT = ("prefill_32k", 2, 5120)
 
 
 def grad_path() -> dict:
@@ -2388,106 +2425,257 @@ def dlrm_train_path(tmp: Path) -> dict:
     return {}
 
 
-def lm_path() -> dict:
-    """T-lm: olmo-1b at its published width (d_model 2048, 16 heads of 128,
-    ff 8192, vocab 50304), depth cut to ``T_LM_LAYERS``, random init on the
-    card.  At ``compute_dtype="float32"``: 3 AdamW steps at batch 2 x seq
-    512, the first loss within 1e-4 relative of the CPU twin's (the same
-    parameters and batch); prefill of 2 x 256 and 16 teacher-forced decode
-    steps, the decode logits within ``2e-3 * max(|ref|, 1)`` of the full
-    forward.  Then a train step, a prefill and a decode step at the
-    published ``bfloat16``, gated only on finite values.  Recorded:
-    ``tokens_per_s`` (train), ``prefill_ms`` and ``decode_ms_per_token``
-    in both dtypes (host clock around synchronized work, median)."""
-    import dataclasses
-
+def family_path(name: str) -> dict:
+    """T-lm, T-moe, T-swa, T-ssm, T-hybrid: one LM at its published width,
+    depth cut as ``T_FAMILY`` says (the ``reduced`` field), random init on
+    the card.  At ``compute_dtype="float32"``: with a train shape, 3 AdamW
+    steps, the first loss and aux loss within 1e-4 relative of the CPU
+    twin's; a prefill and ``T_FAMILY_DECODE`` teacher-forced decode steps,
+    timed, the decode logits held to the CPU twin's decode within ``1e-4 *
+    max(|ref|, 1)`` or, where no MoE capacity drops a token, to the full
+    forward within the JAX package's ``2e-3 * max(|ref|, 1)`` (see
+    ``_decode_gate``).  T-swa also holds the batch-split prefill to
+    the unsplit one: caches within 1e-5, logits within ``1e-5 *
+    max(|ref|, 1)``.  Then a train step (where there is one), a
+    prefill and a decode step at the published ``bfloat16``, gated only on
+    finite values.  Recorded: ``train_step_ms``, ``tokens_per_s``,
+    ``prefill_ms``, ``decode_ms_per_token`` (host clock around synchronized
+    work, median), the MoE's capacity drops, the parameter count and the
+    peak of allocated card memory."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.models import registry
-    from repro_torch.models import transformer as T
-    from repro_torch.training.optimizer import adamw
-    from repro_torch.tree import leaves, tree_map
+    from repro_torch.tree import leaves
 
-    full = registry.get_config(T_LM_ARCH)
-    cfg32 = dataclasses.replace(full, n_layers=T_LM_LAYERS, compute_dtype="float32")
-    shape = ShapeCfg("t-lm", "train", T_LM_SEQ, T_LM_BATCH)
+    arch, layers, train_bs, (pb, ps), against = T_FAMILY[name]
+    full = registry.get_config(arch)
+    cfg32 = dataclasses.replace(full, n_layers=layers, compute_dtype="float32")
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
     bundle = registry.Bundle(cfg32)
     params = bundle.init(torch.Generator(DEVICE).manual_seed(0))
-    batch = bundle.make_batch(shape, torch.Generator(DEVICE).manual_seed(1))
-    rec = {"t_lm": T_LM_ARCH, "d_model": cfg32.d_model, "n_heads": cfg32.n_heads,
-           "head_dim": cfg32.head_dim, "d_ff": cfg32.d_ff, "vocab": cfg32.vocab,
-           "reduced": {"n_layers": [full.n_layers, T_LM_LAYERS]},
-           "params": sum(int(x.numel()) for x in leaves(params)),
-           "batch": T_LM_BATCH, "seq": T_LM_SEQ}
-    # the CPU twin's first loss: the same parameters and batch, forward only
-    cpu_p = tree_map(lambda x: x.cpu(), params)
-    h, _, _ = T.forward_seq(cfg32, cpu_p, {"tokens": batch["tokens"].cpu()})
-    twin = float(T.ce_loss(cfg32, T.lm_logits(cfg32, cpu_p, h), batch["labels"].cpu()))
-    del cpu_p, h
-    opt = adamw(3e-4)
-    for name, cfg in (("float32", cfg32),
-                      ("bfloat16", dataclasses.replace(cfg32, compute_dtype="bfloat16"))):
-        step = T.make_train_step(cfg, None, opt, shape)
-        p, state, losses = params, opt.init(params), []
-        for _ in range(3 if name == "float32" else 1):
-            p, state, m = step(p, state, batch)
-            losses.append(float(m["loss"]))
-        check(all(x == x and abs(x) < float("inf") for x in losses),
-              f"[T-lm] {name} loss not finite: {losses}")
-        step_ms = host_ms(lambda: (step(params, state, batch), torch.cuda.synchronize()),
-                          iters=3)
-        del p, state
-        r = {"losses": losses, "train_step_ms": step_ms,
-             "tokens_per_s": T_LM_BATCH * T_LM_SEQ / step_ms * 1e3}
-        r.update(_lm_serve(cfg, params, batch, check_decode=name == "float32"))
-        rec[name] = r
-    rec["cpu_twin_first_loss"] = twin
+    rec = {"t_family": name, "arch": arch, "d_model": full.d_model, "n_heads": full.n_heads,
+           "head_dim": full.head_dim, "d_ff": full.d_ff, "vocab": full.vocab,
+           "window": full.window, "reduced": {"n_layers": [full.n_layers, layers]},
+           "moe": full.moe and dataclasses.asdict(full.moe),
+           "ssm": full.ssm and dataclasses.asdict(full.ssm),
+           "params": sum(int(x.numel()) for x in leaves(params))}
+    if train_bs is not None:
+        rec.update(_family_train(name, (cfg32, cfg16), params, bundle, train_bs))
+    tokens = bundle.make_batch(ShapeCfg(name, "prefill", ps + T_FAMILY_DECODE, pb),
+                               torch.Generator(DEVICE).manual_seed(2))["tokens"]
+    for cfg in (cfg32, cfg16):
+        serve, dec = _family_serve(name, cfg, params, tokens, ps)
+        rec.setdefault(cfg.compute_dtype, {}).update(serve)
+        if cfg is cfg32:
+            rec["decode_gate"] = _decode_gate(name, cfg, params, tokens, ps, against, dec)
+        del dec
+    if name == "T-swa":
+        rec["split_prefill"] = _split_prefill(cfg32, params, bundle)
+    rec["max_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     print(json.dumps(rec), flush=True)
-    first = rec["float32"]["losses"][0]
-    check(abs(first - twin) <= 1e-4 * abs(twin),
-          f"[T-lm] first loss {first} vs CPU twin {twin}")
+    del params
+    torch.cuda.empty_cache()
     return {}
 
 
-def _lm_serve(cfg, params, batch, *, check_decode: bool) -> dict:
-    """Prefill ``T_LM_PREFILL`` tokens, then ``T_LM_DECODE`` teacher-forced
-    decode steps; with ``check_decode`` the decode logits are held to the
-    full forward of the same tokens (the JAX package's bound), else to
-    finite values."""
+def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
+    """3 AdamW steps in f32 (the first loss and aux loss held to the CPU
+    twin's forward of the same parameters and batch), then one in bf16."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.tree import tree_map
+
+    b, s = train_bs
+    shape = ShapeCfg(name, "train", s, b)
+    batch = bundle.make_batch(shape, torch.Generator(DEVICE).manual_seed(1))
+    cfg32 = cfgs[0]
+    cpu_p = tree_map(lambda x: x.cpu(), params)
+    with moe_drops() as drops:
+        h, aux, _ = T.forward_seq(cfg32, cpu_p, {"tokens": batch["tokens"].cpu()})
+    twin = (float(T.ce_loss(cfg32, T.lm_logits(cfg32, cpu_p, h), batch["labels"].cpu())),
+            float(aux))
+    del cpu_p, h
+    out = {"batch": b, "seq": s, "cpu_twin_first": {"loss": twin[0], "aux": twin[1]},
+           "train_moe_drops": sum(drops)}
+    opt = adamw(3e-4)
+    for cfg in cfgs:
+        step = T.make_train_step(cfg, None, opt, shape)
+        p, state, losses, auxs = params, opt.init(params), [], []
+        for _ in range(3 if cfg is cfg32 else 1):
+            p, state, m = step(p, state, batch)
+            losses.append(float(m["loss"]))
+            auxs.append(float(m["aux"]))
+        check(all(abs(x) < float("inf") for x in losses + auxs),
+              f"[{name}] {cfg.compute_dtype} loss or aux not finite: {losses} {auxs}")
+        step_ms = host_ms(lambda: (step(params, state, batch), torch.cuda.synchronize()),
+                          iters=3)
+        del p, state
+        out[cfg.compute_dtype] = {"losses": losses, "aux": auxs, "train_step_ms": step_ms,
+                                  "tokens_per_s": b * s / step_ms * 1e3}
+    first = out["float32"]
+    check(abs(first["losses"][0] - twin[0]) <= 1e-4 * abs(twin[0]),
+          f"[{name}] first loss {first['losses'][0]} vs CPU twin {twin[0]}")
+    check(abs(first["aux"][0] - twin[1]) <= 1e-4 * abs(twin[1]),
+          f"[{name}] first aux {first['aux'][0]} vs CPU twin {twin[1]}")
+    return out
+
+
+def _decode_logits(cfg, params, tokens, s0):
+    """Prefill ``s0`` tokens, then teacher-forced decode of the rest ->
+    (the prefill's and each step's logits but the last, (B, S - s0, V); the
+    prefill step; the serve step; the prefill's cache)."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.models import transformer as T
 
-    s0, seq = T_LM_PREFILL, T_LM_PREFILL + T_LM_DECODE
-    tokens = batch["tokens"][:, :seq]
-    prefill = T.make_prefill_step(cfg, None, ShapeCfg("t-lm", "decode", seq, T_LM_BATCH))
+    b, seq = tokens.shape
+    prefill = T.make_prefill_step(cfg, None, ShapeCfg("t-family", "decode", seq, b))
     serve = T.make_serve_step(cfg, None)
     logits, cache = prefill(params, {"tokens": tokens[:, :s0]})
-    dec = [logits]
-    start = cache
+    start, dec = cache, [logits]
     for t in range(s0, seq):
         lg, cache = serve(params, cache, {"tokens": tokens[:, t:t + 1]})
         dec.append(lg)
-    dec = torch.cat(dec[:-1], dim=1).float()
-    out = {"prefill_ms": host_ms(lambda: (prefill(params, {"tokens": tokens[:, :s0]}),
-                                          torch.cuda.synchronize()), iters=3),
-           "decode_ms_per_token": host_ms(lambda: (serve(params, start, {
-               "tokens": tokens[:, s0:s0 + 1]}), torch.cuda.synchronize()), iters=5)}
-    check(bool(torch.isfinite(dec).all()), f"[T-lm] {cfg.compute_dtype} decode logits not finite")
-    if check_decode:
-        h, _, _ = T.forward_seq(cfg, params, {"tokens": tokens})
-        want = T.lm_logits(cfg, params, h)[:, s0 - 1:seq - 1]
-        err, bound = float((dec - want).abs().max()), 2e-3 * max(float(want.abs().max()), 1.0)
-        out.update(decode_max_err=err, decode_bound=bound)
-        check(err < bound, f"[T-lm] decode logits off the forward by {err} (bound {bound})")
+    return torch.cat(dec[:-1], dim=1).float(), prefill, serve, start
+
+
+def _family_serve(name, cfg, params, tokens, s0) -> tuple[dict, "torch.Tensor"]:
+    """The prefill and decode of ``_decode_logits`` at ``cfg``, timed, the
+    MoE's capacity drops counted, the logits gated on finite values ->
+    (record, the decode logits)."""
+    import torch
+
+    with moe_drops() as drops:
+        dec, prefill, serve, start = _decode_logits(cfg, params, tokens, s0)
+    check(bool(torch.isfinite(dec).all()), f"[{name}] {cfg.compute_dtype} decode not finite")
+    return {"prefill": list(tokens[:, :s0].shape), "decode_steps": tokens.shape[1] - s0,
+            "prefill_moe_drops": sum(drops),
+            "prefill_ms": host_ms(lambda: (prefill(params, {"tokens": tokens[:, :s0]}),
+                                           torch.cuda.synchronize()), iters=3),
+            "decode_ms_per_token": host_ms(lambda: (serve(params, start, {
+                "tokens": tokens[:, s0:s0 + 1]}), torch.cuda.synchronize()), iters=5)}, dec
+
+
+def _decode_gate(name, cfg, params, tokens, s0, against, dec) -> dict:
+    """The f32 decode logits held to the CPU twin's decode of the same
+    config within ``1e-4 * max(|ref|, 1)`` ("twin"), or ("forward") a
+    decode held to the card's full forward within the JAX package's
+    ``2e-3 * max(|ref|, 1)``; an MoE config then runs with the capacity
+    raised to ``n_experts`` (as the JAX package's own decode test), so
+    that neither drops a token: decode = forward holds only then."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.tree import tree_map
+
+    out = {"decode_against": against}
+    if against == "twin":
+        cpu_p = tree_map(lambda x: x.cpu(), params)
+        want = _decode_logits(cfg, cpu_p, tokens.cpu(), s0)[0].to(dec.device)
+        del cpu_p
+        rel = 1e-4
+    else:
+        if cfg.moe is not None:
+            with moe_drops() as drops:  # the published capacity, recorded
+                T.forward_seq(cfg, params, {"tokens": tokens})
+            out["published_forward_moe_drops"] = sum(drops)
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+            out["capacity_factor"] = cfg.moe.capacity_factor
+        with moe_drops() as drops:
+            dec = _decode_logits(cfg, params, tokens, s0)[0]
+            h, _, _ = T.forward_seq(cfg, params, {"tokens": tokens})
+        want = T.lm_logits(cfg, params, h)[:, s0 - 1:tokens.shape[1] - 1]
+        del h
+        out["moe_drops"] = sum(drops)
+        check(sum(drops) == 0, f"[{name}] the decode gate's runs dropped {drops} assignments")
+        rel = 2e-3
+    err, tol = float((dec - want).abs().max()), rel * max(float(want.abs().max()), 1.0)
+    out.update(decode_max_err=err, decode_bound=tol)
+    check(err < tol, f"[{name}] decode logits off the {against} by {err} (bound {tol})")
     return out
 
 
+def _split_prefill(cfg, params, bundle) -> dict:
+    """``make_prefill_step`` at ``T_SWA_SPLIT``'s shape name, whose
+    ``serve_microbatch`` splits the batch in two strided halves, against
+    the unsplit prefill: logits and every cache leaf within 1e-5, in the
+    batch's order."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import transformer as T
+
+    shape_name, b, s = T_SWA_SPLIT
+    mb = cfg.serve_microbatch.get(shape_name, 1)
+    check(mb == 2, f"[T-swa] serve_microbatch[{shape_name}] is {mb}, not 2")
+    shape = ShapeCfg(shape_name, "prefill", s + T_FAMILY_DECODE, b)
+    batch = {"tokens": bundle.make_batch(ShapeCfg("t-swa", "prefill", s, b),
+                                         torch.Generator(DEVICE).manual_seed(3))["tokens"]}
+    logits, cache = T.make_prefill_step(cfg, None, shape)(params, batch)
+    whole = dataclasses.replace(cfg, serve_microbatch={})
+    w_logits, w_cache = T.make_prefill_step(whole, None, shape)(params, batch)
+    errs = {"logits": float((logits - w_logits).abs().max())}
+    for k in ("k", "v"):
+        errs[k] = float((cache[k] - w_cache[k]).abs().max())
+        check(torch.allclose(cache[k], w_cache[k], **TOL),
+              f"[T-swa] split prefill's {k} off the unsplit one by {errs[k]}")
+    # batches of 1 and 2 run other GEMM tilings: f32 reduction order, held
+    # as the other logit gates are, to the logits' scale
+    scale = max(float(w_logits.abs().max()), 1.0)
+    check(errs["logits"] <= 1e-5 * scale,
+          f"[T-swa] split prefill's logits off the unsplit ones by {errs['logits']} "
+          f"(bound {1e-5 * scale})")
+    check(cache["pos"] == w_cache["pos"] == s, "[T-swa] split prefill's pos")
+    return {"batch": b, "seq": s, "serve_microbatch": mb, "cache_slots": cache["k"].shape[2],
+            "max_abs_err": errs, "logits_max_abs": scale}
+
+
+@contextlib.contextmanager
+def moe_drops():
+    """Counts, for every MoE layer call of the LM stack in the block, the
+    (token, expert) assignments its capacity drops: per routing group,
+    each expert's top-k load beyond ``capacity``.  Yields the list of
+    counts, one per call."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as T
+
+    orig, counts = T.moe_apply, []
+
+    def counting(p, x, spec, constrain=None):
+        t, d = x.shape[-2:]
+        xf = x.reshape(-1, t, d)
+        if t > spec.group_size and t % spec.group_size == 0:
+            xf, t = xf.reshape(-1, spec.group_size, d), spec.group_size
+        cap = max(int(math.ceil(t * spec.top_k / spec.n_experts * spec.capacity_factor)), 1)
+        with torch.no_grad():
+            probs = torch.softmax((xf @ p["router"].to(x.dtype)).float(), dim=-1)
+            load = F.one_hot(torch.topk(probs, spec.top_k, dim=-1).indices,
+                             spec.n_experts).sum(dim=(1, 2))
+            counts.append(int((load - cap).clamp(min=0).sum()))
+        return orig(p, x, spec, constrain)
+
+    T.moe_apply = counting
+    try:
+        yield counts
+    finally:
+        T.moe_apply = orig
+
+
 def train_cli_path(tmp: Path) -> dict:
-    """T-cli: the train CLI on the card as a subprocess, for the DLRM and
-    qwen3-0.6b (its SMOKE config), each into a fresh checkpoint directory.
+    """T-cli: the train CLI on the card as a subprocess, for the DLRM,
+    qwen3-0.6b and granite-moe-3b-a800m (their SMOKE configs), each into a
+    fresh checkpoint directory.
     Gated: exit code 0 and the ``[train] done`` line."""
     import os
 
@@ -2568,8 +2756,9 @@ def main(argv=None) -> int:
             runs["T-grad"] = grad_path()
         with phase("T-dlrm"):
             dlrm_train_path(Path(tmp))
-        with phase("T-lm"):
-            lm_path()
+        for name in T_FAMILY:
+            with phase(name):
+                family_path(name)
         with phase("T-cli"):
             train_cli_path(Path(tmp))
     for rec in kernels:

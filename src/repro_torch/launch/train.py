@@ -1,7 +1,8 @@
-"""Training entry point: the DLRM or a dense LM, trained by the checkpointed
-loop on the card.
+"""Training entry point: the DLRM or an LM (dense, moe, ssm or hybrid),
+trained by the checkpointed loop on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 20 --device cpu
 

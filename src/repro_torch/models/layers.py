@@ -1,14 +1,14 @@
-"""Model primitives of the port's towers and dense LMs: params are mappings
-of tensors (``dict`` or ``nn.ParameterDict``), as the JAX package's are
+"""Model primitives of the port's towers and LMs: params are mappings of
+tensors (``dict`` or ``nn.ParameterDict``), as the JAX package's are
 nested dicts of arrays.
 
 The JAX package's initializers, RMS / layer / non-parametric norms, rotary
-embeddings (standard and partial), grouped-query attention with causal
-masks, a linear KV cache, query chunks and the online softmax over KV
-blocks, and the SwiGLU MLP.  Each formula is written as the JAX package
-writes it, reductions in the same order, and parameters are cast to the
-activations' dtype at each use, as there; no fused attention kernel is
-used.  :func:`attention` is the scenario towers' entry (their
+embeddings (standard and partial), grouped-query attention with causal and
+sliding-window masks, a linear or rolling KV cache, query chunks and the
+online softmax over KV blocks, and the SwiGLU MLP.  Each formula is
+written as the JAX package writes it, reductions in the same order, and
+parameters are cast to the activations' dtype at each use, as there; no
+fused attention kernel is used.  :func:`attention` is the scenario towers' entry (their
 non-causal, rope-free, uncached case); :func:`lm_attention` is the LM's.
 """
 from __future__ import annotations
@@ -134,7 +134,8 @@ def apply_rope(
     """Rotary embedding, half-rotation convention.  x (B, S, H, dh),
     positions (B, S) int.  ``rotary_frac < 1`` rotates only the leading
     fraction of dh (ChatGLM's partial "2d" RoPE).  M-RoPE (Qwen2-VL's
-    ``mrope_sections``) belongs to the vlm family (ROADMAP A10)."""
+    ``mrope_sections``) belongs to the vlm family, the next slice (ROADMAP
+    A10)."""
     if mrope_sections is not None:
         raise NotImplementedError("M-RoPE (the vlm family) is not ported yet: ROADMAP A10")
     dh = x.shape[-1]
@@ -191,10 +192,12 @@ _NEG = -1e30
 
 
 def _online_softmax_attn(q, k, v, *, block: int, q_positions=None, causal: bool = False,
+                         window: int | None = None,
                          kv_valid_len: int | None = None) -> torch.Tensor:
     """Flash-style attention over KV blocks, as the JAX package's
     ``lax.scan``: a running max, normalizer and accumulator per query.
     KV slot ``j`` is masked where ``causal`` and ``j > q_positions``, where
+    a ``window`` is set and ``j <= q_positions - window``, where
     ``j >= kv_valid_len`` (a cache's unfilled slots), and in the padding of
     the last block.  q (B, Sq, KV, G, dh), k/v (B, Skv, KV, dh) ->
     (B, Sq, KV*G, dh)."""
@@ -212,12 +215,12 @@ def _online_softmax_attn(q, k, v, *, block: int, q_positions=None, causal: bool 
     m = torch.full((b, kvh, g, sq), _NEG, device=q.device)
     l = torch.zeros((b, kvh, g, sq), device=q.device)
     acc = torch.zeros((b, kvh, g, sq, dh), device=q.device)
-    masked = causal or kv_valid_len is not None
+    masked = causal or window is not None or kv_valid_len is not None
     for blk_i in range(nblk):
         s = torch.einsum("bqkgd,bckd->bkgqc", qf, k[blk_i].float())
         kv_pos = blk_i * block + torch.arange(block, device=q.device)
         if masked:
-            mask = _kv_mask(kv_pos, q_positions, causal, kv_valid_len)
+            mask = _kv_mask(kv_pos, q_positions, causal, window, kv_valid_len)
             if pad:
                 mask = mask & (kv_pos < skv)
             s = torch.where(mask[:, None, None], s, _NEG)
@@ -233,25 +236,29 @@ def _online_softmax_attn(q, k, v, *, block: int, q_positions=None, causal: bool 
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, kvh * g, dh)
 
 
-def _kv_mask(kv_pos, q_positions, causal: bool, kv_valid_len) -> torch.Tensor:
+def _kv_mask(kv_pos, q_positions, causal: bool, window, kv_valid_len) -> torch.Tensor:
     """(B, Sq, C) keep-mask of KV slots ``kv_pos`` (C,) for each query."""
     b, sq = q_positions.shape
     mask = torch.ones((b, sq, kv_pos.shape[0]), dtype=torch.bool, device=kv_pos.device)
     if causal:
         mask = mask & (kv_pos[None, None, :] <= q_positions[:, :, None])
+    if window is not None:
+        mask = mask & (kv_pos[None, None, :] > q_positions[:, :, None] - window)
     if kv_valid_len is not None:
         mask = mask & (kv_pos[None, None, :] < kv_valid_len)
     return mask
 
 
-def _single_shot_attn(q, k, v, *, q_positions, causal: bool, kv_valid_len) -> torch.Tensor:
+def _single_shot_attn(q, k, v, *, q_positions, causal: bool, window,
+                      kv_valid_len) -> torch.Tensor:
     """One query position (decode): one softmax over every KV slot, the
-    JAX package's fast path.  Shapes as :func:`_online_softmax_attn`."""
+    JAX package's fast path.  Shapes and masks as
+    :func:`_online_softmax_attn`."""
     b, sq, kvh, g, dh = q.shape
     qf = (q * (1.0 / math.sqrt(dh))).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
     kv_pos = torch.arange(k.shape[1], device=q.device)
-    mask = _kv_mask(kv_pos, q_positions, causal, kv_valid_len)
+    mask = _kv_mask(kv_pos, q_positions, causal, window, kv_valid_len)
     s = torch.where(mask[:, None, None], s, _NEG)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1)
@@ -286,15 +293,17 @@ def lm_attention(
 ):
     """GQA self-attention with the JAX package's ``attention`` semantics:
     qk-norm, rotary embedding at ``positions`` (B, Sq) (applied to K before
-    it is cached), a causal mask in token order, and a linear KV cache
-    ``(k, v)`` of (B, Smax, KV, dh) written at slot ``cache_pos`` (a Python
-    int).  Query chunks of ``q_chunk`` positions attend one at a time when
-    they divide Sq.  Returns (out (B, Sq, d), the new cache or None; the
-    cache passed in is not written).  Sliding windows and the rolling cache
-    (mixtral) are ROADMAP A10's."""
-    if spec.window is not None or cache_mode != "linear":
-        raise NotImplementedError("sliding windows and rolling caches are not ported yet: "
-                                  "ROADMAP A10")
+    it is cached), causal and sliding-window (``spec.window``) masks in
+    token order, and a KV cache ``(k, v)`` of (B, Smax, KV, dh) at
+    ``cache_pos`` (a Python int).  ``cache_mode="linear"`` writes slot
+    ``cache_pos``; ``"rolling"`` (a sliding window's cache of Smax slots)
+    writes slot ``cache_pos % Smax`` and attends to every filled slot, all
+    of which lie inside the window, with neither mask.  Query chunks of
+    ``q_chunk`` positions attend one at a time when they divide Sq.
+    Returns (out (B, Sq, d), the new cache or None; the cache passed in is
+    not written)."""
+    if cache_mode not in ("linear", "rolling"):
+        raise ValueError(f"unknown cache_mode {cache_mode!r}")
     b, sq, _ = x.shape
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     g = h // kvh
@@ -313,12 +322,20 @@ def lm_attention(
 
     new_cache = None
     kv_valid = None
+    causal, window = spec.causal, spec.window
     if kv_cache is not None:
         if cache_pos is None:
             raise ValueError("kv_cache needs cache_pos")
         ck, cv = kv_cache
-        slot = min(cache_pos, ck.shape[1] - sq)  # as dynamic_update_slice clamps
-        kv_valid = cache_pos + sq
+        smax = ck.shape[1]
+        if cache_mode == "rolling":
+            slot = cache_pos % smax
+            causal, window = False, None
+            kv_valid = min(cache_pos + sq, smax)
+        else:
+            slot = cache_pos
+            kv_valid = cache_pos + sq
+        slot = min(slot, smax - sq)  # as dynamic_update_slice clamps
         ck, cv = ck.clone(), cv.clone()
         ck[:, slot:slot + sq] = k.to(ck.dtype)
         cv[:, slot:slot + sq] = v.to(cv.dtype)
@@ -332,10 +349,10 @@ def lm_attention(
 
     def attend(qg_c, qpos_c):
         if qg_c.shape[1] == 1:
-            return _single_shot_attn(qg_c, k, v, q_positions=qpos_c, causal=spec.causal,
-                                     kv_valid_len=kv_valid)
+            return _single_shot_attn(qg_c, k, v, q_positions=qpos_c, causal=causal,
+                                     window=window, kv_valid_len=kv_valid)
         return _online_softmax_attn(qg_c, k, v, block=spec.attn_block, q_positions=qpos_c,
-                                    causal=spec.causal, kv_valid_len=kv_valid)
+                                    causal=causal, window=window, kv_valid_len=kv_valid)
 
     if q_chunk is not None and sq > q_chunk and sq % q_chunk == 0:
         out = torch.cat([attend(qg[:, i:i + q_chunk], qidx[:, i:i + q_chunk])

@@ -5,7 +5,9 @@ The block-decomposed SSD algorithm of Dao & Gu (arXiv:2405.21060): within a
 chunk the output is a masked quadratic form; across chunks a small state
 (H, P, N) is carried.  The JAX package carries it with ``lax.scan``; here a
 Python loop over the chunks computes the same recurrence with the same
-segment sums.  Only the full-sequence path (no decode state) is ported.
+segment sums.  ``mamba_apply(..., state=...)`` also returns the final
+state (the raw last ``d_conv - 1`` conv inputs and the SSD state), and
+:func:`mamba_decode_step` advances it one token at a time.
 """
 from __future__ import annotations
 
@@ -14,9 +16,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, _device_of, dense_init
 
-__all__ = ["MambaSpec", "mamba_apply", "mamba_init"]
+__all__ = ["MambaSpec", "mamba_apply", "mamba_decode_step", "mamba_init", "mamba_init_state"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,14 +44,15 @@ def mamba_init(generator: torch.Generator | None, spec: MambaSpec) -> dict:
     di, n, g, h = spec.d_inner, spec.d_state, spec.n_groups, spec.n_heads
     d_in_proj = 2 * di + 2 * g * n + h  # z, x, B, C, dt
     conv_dim = di + 2 * g * n
+    dev = _device_of(generator)
     return {
         "in_proj": dense_init(generator, (spec.d_model, d_in_proj)),
         "conv_w": dense_init(generator, (spec.d_conv, conv_dim), in_axis=0),
-        "conv_b": torch.zeros((conv_dim,)),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, h)),  # A = -exp(A_log)
-        "D": torch.ones((h,)),
-        "dt_bias": torch.log(torch.exp(torch.linspace(1e-3, 1e-1, h)) - 1.0),
-        "norm_scale": torch.zeros((di,)),
+        "conv_b": torch.zeros((conv_dim,), device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)),  # A = -exp(A_log)
+        "D": torch.ones((h,), device=dev),
+        "dt_bias": torch.log(torch.exp(torch.linspace(1e-3, 1e-1, h, device=dev)) - 1.0),
+        "norm_scale": torch.zeros((di,), device=dev),
         "out_proj": dense_init(generator, (di, spec.d_model)),
     }
 
@@ -77,9 +80,13 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
-def mamba_apply(params: Params, u: torch.Tensor, spec: MambaSpec):
-    """Full-sequence chunked SSD, u (B, S, d_model) -> (out, None); the
-    ``None`` stands where the JAX package returns a decode state."""
+def mamba_apply(params: Params, u: torch.Tensor, spec: MambaSpec, *, state=None):
+    """Full-sequence chunked SSD, u (B, S, d_model) -> (out, final state or
+    None).  As in the JAX package, the scan starts from a zero state and
+    ``state`` only asks for the final one: ``(conv (B, conv_dim,
+    d_conv - 1), ssm (B, H, P, N))``, the conv state the raw last
+    ``d_conv - 1`` inputs (pad zeros where the sequence is shorter), both
+    in ``u``'s dtype."""
     dt_ = u.dtype
     bsz, seq, _ = u.shape
     di, n, g, h, p = spec.d_inner, spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
@@ -96,6 +103,9 @@ def mamba_apply(params: Params, u: torch.Tensor, spec: MambaSpec):
         conv = conv + xbc_pad[:, i: i + seq, :] * conv_w[i][None, None, :]
     conv = F.silu(conv + params["conv_b"].to(dt_))
     x, b, c = conv[..., :di], conv[..., di: di + g * n], conv[..., di + g * n:]
+    conv_state = None
+    if state is not None:  # the raw last k-1 inputs, for decode
+        conv_state = xbc_pad[:, xbc_pad.shape[1] - (k - 1):, :].transpose(1, 2)
 
     xh = x.reshape(bsz, seq, h, p)
     rep = h // g
@@ -106,17 +116,22 @@ def mamba_apply(params: Params, u: torch.Tensor, spec: MambaSpec):
     a = -torch.exp(params["A_log"])  # (H,)
     da = dt * a[None, None, :]  # (B, S, H) log-decay per step
 
-    y = _ssd_chunked(xh.float(), dt, da, bh.float(), ch.float(), chunk=spec.chunk)
+    y, final_ssm = _ssd_chunked(xh.float(), dt, da, bh.float(), ch.float(), chunk=spec.chunk)
     y = y + params["D"][None, None, :, None] * xh.float()
     y = y.reshape(bsz, seq, di).to(dt_)
     y = _gated_rmsnorm(y, z, params["norm_scale"])
-    return y @ params["out_proj"].to(dt_), None
+    out = y @ params["out_proj"].to(dt_)
+    if state is not None:
+        return out, (conv_state, final_ssm.to(dt_))
+    return out, None
 
 
-def _ssd_chunked(x, dt, da, b, c, *, chunk: int) -> torch.Tensor:
+def _ssd_chunked(x, dt, da, b, c, *, chunk: int):
     """Block-decomposed SSD: x (B,S,H,P), dt/da (B,S,H), b/c (B,S,H,N) ->
-    y (B,S,H,P).  ``da`` is the per-step log decay: the state follows
-    ``h_t = exp(da_t) h_{t-1} + dt_t * x_t b_t^T``."""
+    (y (B,S,H,P), final state (B,H,P,N)).  ``da`` is the per-step log
+    decay: the state follows ``h_t = exp(da_t) h_{t-1} + dt_t * x_t b_t^T``.
+    The padding to a multiple of the chunk has ``dt = da = 0``, so it
+    leaves the state as it was."""
     bsz, seq, h, p = x.shape
     n = b.shape[-1]
     q = min(chunk, seq)
@@ -142,9 +157,14 @@ def _ssd_chunked(x, dt, da, b, c, *, chunk: int) -> torch.Tensor:
     ys = []
     for ci in range(nc):
         xq, dtq, daq, bq, cq, cumq = xc[ci], dtc[ci], dac[ci], bc[ci], cc[ci], cum[ci]
-        # L[i, j] = exp(cum_i - cum_j) for i >= j (decay from j+1 to i)
+        # L[i, j] = exp(cum_i - cum_j) for i >= j (decay from j+1 to i).
+        # Above the diagonal cum_i - cum_j > 0 can overflow exp to inf; the
+        # JAX package masks after the exp, so its gradient there is 0 * inf
+        # = NaN (at chunk 64 and up with its init).  Masking before the exp
+        # gives the same values and a finite gradient.
         li = cumq[:, :, None, :] - cumq[:, None, :, :]  # (B, q, q, H)
-        l = torch.where(causal[None, :, :, None], torch.exp(li), 0.0)
+        mask = causal[None, :, :, None]
+        l = torch.where(mask, torch.exp(torch.where(mask, li, 0.0)), 0.0)
         s = torch.einsum("bihn,bjhn->bijh", cq, bq)  # C_i . B_j
         m = s * l * dtq[:, None, :, :]
         y_diag = torch.einsum("bijh,bjhp->bihp", m, xq)
@@ -156,4 +176,45 @@ def _ssd_chunked(x, dt, da, b, c, *, chunk: int) -> torch.Tensor:
         ys.append(y_diag + y_state)
         hprev = hprev * torch.exp(daq.sum(dim=1))[:, :, None, None] + st
     y = torch.stack(ys).transpose(0, 1).reshape(bsz, seq + pad, h, p)
-    return y[:, :seq]
+    return y[:, :seq], hprev
+
+
+def mamba_decode_step(params: Params, u: torch.Tensor, spec: MambaSpec, state):
+    """One token through the recurrence, O(1) in the sequence: u (B, 1,
+    d_model), ``state = (conv (B, conv_dim, d_conv - 1), ssm (B, H, P, N))``
+    -> (out (B, 1, d_model), the new state in ``u``'s dtype); the state
+    passed in is not written."""
+    dt_ = u.dtype
+    bsz = u.shape[0]
+    di, n, g, h, p = spec.d_inner, spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
+    conv_state, ssm_state = state
+    z, x, b, c, dt = _split_proj(u[:, 0, :] @ params["in_proj"].to(dt_), spec)
+    xbc = torch.cat([x, b, c], dim=-1)  # (B, conv_dim)
+    # the conv over the window [state, new input], in the promoted dtype as
+    # jnp's concatenate and einsum take it
+    wdt = torch.promote_types(conv_state.dtype, dt_)
+    window = torch.cat([conv_state.to(wdt), xbc[:, :, None].to(wdt)], dim=2)  # (B, cd, k)
+    conv = F.silu(torch.einsum("bck,kc->bc", window, params["conv_w"].to(dt_).to(wdt))
+                  + params["conv_b"].to(dt_).to(wdt))
+    x, b, c = conv[..., :di], conv[..., di: di + g * n], conv[..., di + g * n:]
+    xh = x.reshape(bsz, h, p).float()
+    rep = h // g
+    bh = b.reshape(bsz, g, n).repeat_interleave(rep, dim=1).float()  # (B, H, N)
+    ch = c.reshape(bsz, g, n).repeat_interleave(rep, dim=1).float()
+    dt = _softplus(dt.float() + params["dt_bias"][None, :])  # (B, H)
+    dec = torch.exp(dt * -torch.exp(params["A_log"])[None, :])
+    ssm = (ssm_state.float() * dec[:, :, None, None]
+           + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, bh))
+    y = torch.einsum("bhpn,bhn->bhp", ssm, ch) + params["D"][None, :, None] * xh
+    y = _gated_rmsnorm(y.reshape(bsz, di).to(dt_), z, params["norm_scale"])
+    out = (y @ params["out_proj"].to(dt_))[:, None, :]
+    return out, (window[:, :, 1:].to(dt_), ssm.to(dt_))
+
+
+def mamba_init_state(spec: MambaSpec, batch: int, dtype=torch.float32, device=None):
+    """The zero decode state ``(conv (B, conv_dim, d_conv - 1), ssm (B, H,
+    P, N))``."""
+    conv_dim = spec.d_inner + 2 * spec.n_groups * spec.d_state
+    return (torch.zeros((batch, conv_dim, spec.d_conv - 1), dtype=dtype, device=device),
+            torch.zeros((batch, spec.n_heads, spec.head_dim, spec.d_state), dtype=dtype,
+                        device=device))

@@ -8,6 +8,10 @@ layout, as in the JAX package, so that the same routing gives the same
 positions.  ``constrain`` is the JAX package's hook for sharding
 annotations; on one device there is nothing to shard, so it is accepted and
 ignored.
+
+The JAX package can store each expert as ``virtual_factor`` slices of its
+ff columns (``E * v`` virtual experts, routed alike); the port keeps whole
+experts, and :func:`merge_virtual_experts` carries such parameters across.
 """
 from __future__ import annotations
 
@@ -19,7 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import Params, dense_init
 
-__all__ = ["MoESpec", "moe_apply", "moe_init"]
+__all__ = ["MoESpec", "merge_virtual_experts", "moe_apply", "moe_init"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +47,27 @@ def moe_init(generator: torch.Generator | None, d_model: int, spec: MoESpec) -> 
         "wg": dense_init(generator, (e, d_model, f), in_axis=1),
         "wo": dense_init(generator, (e, f, d_model), in_axis=1),
     }
+
+
+def merge_virtual_experts(params: Params, n_experts: int) -> dict:
+    """The JAX package's MoE parameters with ``E * v`` virtual experts of
+    ``f / v`` columns each, as ``E`` whole experts: virtual expert
+    ``e * v + j`` holds columns ``j * f / v`` to ``(j + 1) * f / v`` of
+    expert ``e``, so ``wi`` and ``wg`` concatenate along their last axis
+    and ``wo`` along axis 1.  The gate is elementwise in the ff columns and
+    the slices' outputs sum through ``wo``, so the merged layer computes
+    what the split one does (to f32 reduction order).  ``v`` is read from
+    the shapes; ``v = 1`` returns the tensors as they are."""
+    ev, d, fv = params["wi"].shape
+    if ev % n_experts:
+        raise ValueError(f"{ev} virtual experts do not split into {n_experts} experts")
+    v = ev // n_experts
+
+    def cols(w):  # (E*v, d, f/v) -> (E, d, f)
+        return w.reshape(n_experts, v, d, fv).permute(0, 2, 1, 3).reshape(n_experts, d, v * fv)
+
+    return {"router": params["router"], "wi": cols(params["wi"]), "wg": cols(params["wg"]),
+            "wo": params["wo"].reshape(n_experts, v * fv, d)}
 
 
 def moe_apply(

@@ -2,8 +2,8 @@
 
 * :data:`ARCH_MODULES` — ``--arch <id>`` -> an LM config
   (:mod:`repro_torch.configs`) and, through :func:`build`, a :class:`Bundle`
-  of its step functions and batch shapes (the dense family runs; the
-  others raise naming ROADMAP A10);
+  of its step functions and batch shapes (the dense, moe, ssm and hybrid
+  families run; encdec and vlm raise naming ROADMAP A10);
 * :data:`SCENARIOS` — each entry pairs a
   :class:`repro_torch.models.scenarios.ScenarioModel` factory with a
   ``default_config`` dict of :class:`repro_torch.engine.EngineConfig`

@@ -1,7 +1,8 @@
-"""The dense LM family (olmo, qwen3, chatglm3): train, prefill and decode.
+"""The LM families of the port: dense (olmo, qwen3, chatglm3), moe
+(granite, mixtral with its sliding window), ssm (mamba2) and hybrid
+(zamba2), through train, prefill and decode.
 
-The JAX package's ``models/transformer.py`` for ``family == "dense"``, in
-eager PyTorch on one device:
+The JAX package's ``models/transformer.py`` in eager PyTorch on one device:
 
 * each layer's parameters are their own entry of ``params["layers"]`` (the
   JAX package stacks them along a leading ``n_layers`` axis and scans;
@@ -9,12 +10,17 @@ eager PyTorch on one device:
   loop;
 * the token embedding is a plain gather (the JAX package's path without a
   shard context; its vocab-parallel embedding is ROADMAP A10);
-* the serve cache is linear: ``{"k", "v": (L, B, cap, KV, dh), "pos": int}``;
+* the serve caches: ``{"k", "v": (L, B, cap, KV, dh)}`` for dense and moe,
+  linear, or rolling over ``min(window, seq)`` slots for a sliding window;
+  ``{"conv", "ssm"}`` per mamba layer for ssm; and for hybrid those plus
+  ``{"shared_k", "shared_v"}`` per invocation of the shared block; each
+  with ``"pos"``, a Python int;
+* the MoE layers hold whole experts (see :func:`moe.merge_virtual_experts`);
 * parameters are cast to ``cfg.compute_dtype`` where the JAX package casts
   them, so a ``bfloat16`` run rounds where the reference rounds; the loss
   runs in f32 over the padded vocab.
 
-The other families (moe, ssm, hybrid, encdec, vlm) raise
+The encdec and vlm families (whisper, qwen2-vl) and a ``ShardCtx`` raise
 ``NotImplementedError`` naming ROADMAP A10.
 """
 from __future__ import annotations
@@ -25,6 +31,13 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnSpec, Params
+from repro_torch.models.mamba2 import (
+    mamba_apply,
+    mamba_decode_step,
+    mamba_init,
+    mamba_init_state,
+)
+from repro_torch.models.moe import merge_virtual_experts, moe_apply, moe_init
 from repro_torch.tree import tree_map, value_and_grad
 
 __all__ = [
@@ -42,13 +55,15 @@ __all__ = [
     "make_serve_step",
     "make_train_step",
     "params_from_jax",
+    "shared_block",
 ]
 
 AUX_LOSS_WEIGHT = 0.01
+_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def _dense_only(cfg: ArchConfig, ctx=None) -> None:
-    if cfg.family != "dense":
+def _check_ported(cfg: ArchConfig, ctx=None) -> None:
+    if cfg.family not in _FAMILIES:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.arch}) is not ported yet: ROADMAP A10")
     if ctx is not None:
@@ -82,35 +97,63 @@ def attn_spec(cfg: ArchConfig, *, causal: bool = True, window_on: bool = True) -
 
 def _dense_layer_init(cfg: ArchConfig, generator) -> Params:
     norm_init, _ = L.make_norm(cfg.norm, cfg.d_model)
-    return {
+    p = {
         "ln1": norm_init(generator),
         "attn": L.attn_init(generator, cfg.d_model, attn_spec(cfg)),
         "ln2": norm_init(generator),
-        "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff),
+    }
+    if cfg.moe is not None:
+        p["moe"] = moe_init(generator, cfg.d_model, cfg.moe)
+    else:
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff)
+    return p
+
+
+def _mamba_layer_init(cfg: ArchConfig, generator) -> Params:
+    norm_init, _ = L.make_norm(cfg.norm, cfg.d_model)
+    return {"ln": norm_init(generator), "mamba": mamba_init(generator, cfg.ssm)}
+
+
+def _shared_block_init(cfg: ArchConfig, generator) -> Params:
+    """Zamba2's shared attention block at width 2d (on ``concat(h, emb0)``)."""
+    d2 = 2 * cfg.d_model
+    norm_init, _ = L.make_norm(cfg.norm, d2)
+    return {
+        "ln1": norm_init(generator),
+        "attn": L.attn_init(generator, d2, attn_spec(cfg)),
+        "ln2": norm_init(generator),
+        "mlp": L.mlp_init(generator, d2, cfg.d_ff),
+        "proj_out": L.dense_init(generator, (d2, cfg.d_model)),
     }
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None) -> Params:
     """Fresh f32 parameters drawn from ``generator``, on its device (the JAX
     package's initializers; the values differ from ``jax.random``'s)."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     if cfg.mlp != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp!r}: the dense family's port runs SwiGLU")
+        raise NotImplementedError(f"mlp {cfg.mlp!r}: the port's LM families run SwiGLU")
     norm_init, _ = L.make_norm(cfg.norm, cfg.d_model)
     vpad, d = cfg.vocab_padded, cfg.d_model
-    return {
+    layer_init = _mamba_layer_init if cfg.family in ("ssm", "hybrid") else _dense_layer_init
+    p = {
         "embed": L.embed_init(generator, (vpad, d)),
         "final_norm": norm_init(generator),
-        "layers": [_dense_layer_init(cfg, generator) for _ in range(cfg.n_layers)],
+        "layers": [layer_init(cfg, generator) for _ in range(cfg.n_layers)],
         "lm_head": L.dense_init(generator, (d, vpad)),
     }
+    if cfg.family == "hybrid":
+        p["shared"] = _shared_block_init(cfg, generator)
+    return p
 
 
 def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
     """The JAX package's ``init_params`` tree, as numpy arrays, in the port's
     form: each stacked ``layers`` leaf (leading ``n_layers`` axis) split
-    into per-layer entries, every leaf an f32 tensor on ``device``."""
-    _dense_only(cfg)
+    into per-layer entries, an MoE layer's virtual experts merged into whole
+    ones (:func:`moe.merge_virtual_experts`), ``shared`` as it is, every
+    leaf an f32 tensor on ``device``."""
+    _check_ported(cfg)
 
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
@@ -119,6 +162,9 @@ def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
     stacked = params_np["layers"]
     out["layers"] = [tree_map(lambda a, i=i: t(np.asarray(a)[i]), stacked)
                      for i in range(cfg.n_layers)]
+    if cfg.moe is not None:
+        for lp in out["layers"]:
+            lp["moe"] = merge_virtual_experts(lp["moe"], cfg.moe.n_experts)
     return out
 
 
@@ -128,7 +174,7 @@ def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    _dense_only(cfg, ctx)
+    _check_ported(cfg, ctx)
     return params["embed"][tokens.long()]
 
 
@@ -157,18 +203,37 @@ def ce_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor) -> torc
 
 
 def _norm(cfg: ArchConfig, p, x):
-    _, apply = L.make_norm(cfg.norm, cfg.d_model)
+    _, apply = L.make_norm(cfg.norm, x.shape[-1])
     return apply(p, x)
 
 
 def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_pos=None,
-                q_chunk=None):
-    """Pre-norm attention + SwiGLU block -> (h, new cache or None)."""
+                cache_mode="linear", q_chunk=None):
+    """Pre-norm attention, then SwiGLU or (``cfg.moe``) the routed experts
+    -> (h, new cache or None, the MoE aux loss or 0)."""
     a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], h), attn_spec(cfg),
                                   positions=positions, kv_cache=cache, cache_pos=cache_pos,
-                                  q_chunk=q_chunk)
+                                  cache_mode=cache_mode, q_chunk=q_chunk)
     h = h + a
-    return h + L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], h)), new_cache
+    m_in = _norm(cfg, p["ln2"], h)
+    if cfg.moe is not None:
+        mo, aux = moe_apply(p["moe"], m_in, cfg.moe)
+    else:
+        mo, aux = L.mlp_apply(p["mlp"], m_in), torch.zeros((), device=h.device)
+    return h + mo, new_cache, aux
+
+
+def shared_block(cfg: ArchConfig, p: Params, h, emb0, positions, *, cache=None,
+                 cache_pos=None, q_chunk=None):
+    """Zamba2's shared attention block at width 2d on ``concat(h, emb0)``,
+    projected back to d and added to ``h`` -> (h, new cache or None)."""
+    g = torch.cat([h, emb0], dim=-1)
+    a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], g), attn_spec(cfg),
+                                  positions=positions, kv_cache=cache, cache_pos=cache_pos,
+                                  q_chunk=q_chunk)
+    g = g + a
+    g = g + L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], g))
+    return h + g @ p["proj_out"].to(h.dtype), new_cache
 
 
 def _positions(bsz: int, seq: int, offset: int, device) -> torch.Tensor:
@@ -179,7 +244,7 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
                 want_cache: ShapeCfg | None = None):
     """Full-sequence forward -> (hidden (B, S, d), aux loss, caches or None);
     ``want_cache`` (a decode ShapeCfg) builds the serve caches (prefill)."""
-    _dense_only(cfg, ctx)
+    _check_ported(cfg, ctx)
     tokens = batch["tokens"]
     bsz, seq = tokens.shape
     h = embed_tokens(cfg, params, tokens).to(_dtype(cfg.compute_dtype))
@@ -188,26 +253,83 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
         positions = _positions(bsz, seq, 0, h.device)
     q_chunk = cfg.q_chunk if seq > cfg.q_chunk else None
     cap = _cache_capacity(cfg, want_cache) if want_cache is not None else 0
-    ks, vs = [], []
-    for lp in params["layers"]:
-        if want_cache is not None:
-            k, v = _extract_kv(cfg, lp["attn"], _norm(cfg, lp["ln1"], h), positions, cap)
-            ks.append(k)
-            vs.append(v)
-        h, _ = dense_block(cfg, lp, h, positions, q_chunk=q_chunk)
-    caches = None
-    if want_cache is not None:
-        caches = {"k": torch.stack(ks), "v": torch.stack(vs), "pos": seq}
+    aux = torch.zeros((), device=h.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h, caches = _mamba_forward(cfg, params, h, positions, want_cache is not None, cap,
+                                   q_chunk=q_chunk)
+    else:
+        ks, vs = [], []
+        for lp in params["layers"]:
+            if want_cache is not None:
+                k, v = _extract_kv(cfg, lp["attn"], _norm(cfg, lp["ln1"], h), positions, cap)
+                ks.append(k)
+                vs.append(v)
+            h, _, aux_l = dense_block(cfg, lp, h, positions, q_chunk=q_chunk)
+            aux = aux + aux_l
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache is not None else None
+    if caches is not None:
+        caches["pos"] = seq
     h = _norm(cfg, params["final_norm"], h)
-    return h, torch.zeros((), device=h.device), caches
+    return h, aux, caches
+
+
+def _mamba_layer(cfg: ArchConfig, lp: Params, h, want_state: bool):
+    """One pre-norm residual mamba layer -> (h, final state or None)."""
+    state = mamba_init_state(cfg.ssm, h.shape[0], h.dtype, h.device) if want_state else None
+    out, st = mamba_apply(lp["mamba"], _norm(cfg, lp["ln"], h), cfg.ssm, state=state)
+    return h + out, st
+
+
+def _mamba_caches(states: list) -> dict:
+    return {"conv": torch.stack([c for c, _ in states]),
+            "ssm": torch.stack([s for _, s in states])}
+
+
+def _shared_after(cfg: ArchConfig, i: int) -> bool:
+    """Whether the hybrid family's shared block follows mamba layer ``i``:
+    after each whole group of ``shared_attn_every`` layers, not after the
+    trailing ``n_layers % shared_attn_every``."""
+    if cfg.family != "hybrid":
+        return False
+    every = cfg.shared_attn_every
+    return i < (cfg.n_layers // every) * every and (i + 1) % every == 0
+
+
+def _mamba_forward(cfg: ArchConfig, params: Params, h, positions, build_cache: bool, cap: int,
+                   *, q_chunk):
+    """The ssm and hybrid stacks: mamba layers and, for zamba2, the shared
+    block after each group of ``shared_attn_every`` of them (weights
+    shared, cache per invocation) -> (h before the final norm, caches or
+    None)."""
+    emb0 = h
+    states, ks, vs = [], [], []
+    for i, lp in enumerate(params["layers"]):
+        h, st = _mamba_layer(cfg, lp, h, build_cache)
+        states.append(st)
+        if _shared_after(cfg, i):
+            shared = params["shared"]
+            if build_cache:
+                x = _norm(cfg, shared["ln1"], torch.cat([h, emb0], dim=-1))
+                k, v = _extract_kv(cfg, shared["attn"], x, positions, cap)
+                ks.append(k)
+                vs.append(v)
+            h, _ = shared_block(cfg, shared, h, emb0, positions, q_chunk=q_chunk)
+    if not build_cache:
+        return h, None
+    caches = _mamba_caches(states)
+    if cfg.family == "hybrid":
+        caches.update(shared_k=torch.stack(ks), shared_v=torch.stack(vs))
+    return h, caches
 
 
 def _cache_capacity(cfg: ArchConfig, shape: ShapeCfg) -> int:
-    return shape.seq  # linear caches; the windowed (rolling) ones are ROADMAP A10's
+    if cfg.window is not None:
+        return min(cfg.window, shape.seq)
+    return shape.seq
 
 
 def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
-    """One layer's cache-ready K/V (rope-rotated), padded to ``cap`` slots;
+    """One layer's cache-ready K/V (rope-rotated) in ``cap`` slots;
     recomputes the projections, as the JAX package does."""
     spec = attn_spec(cfg)
     bsz, seq, dt = x.shape[0], x.shape[1], x.dtype
@@ -219,17 +341,22 @@ def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
     if spec.rope is not None:
         k = L.apply_rope(k, positions, base=spec.rope_base, rotary_frac=spec.rotary_frac,
                          mrope_sections=spec.mrope_sections)
-    return _pack_cache(k, cap), _pack_cache(v, cap)
+    return _pack_cache(cfg, k, cap), _pack_cache(cfg, v, cap)
 
 
-def _pack_cache(kv: torch.Tensor, cap: int) -> torch.Tensor:
-    """(B, S, KV, dh) -> (B, cap, KV, dh), zero slots after the sequence."""
+def _pack_cache(cfg: ArchConfig, kv: torch.Tensor, cap: int) -> torch.Tensor:
+    """(B, S, KV, dh) -> (B, cap, KV, dh): zero slots after the sequence, or
+    for a sliding window longer than ``cap`` the rolling layout, where slot
+    ``j`` holds the last position ``p < S`` with ``p % cap == j``."""
     seq = kv.shape[1]
-    if seq == cap:
-        return kv
-    out = torch.zeros((kv.shape[0], cap, *kv.shape[2:]), dtype=kv.dtype, device=kv.device)
-    out[:, :seq] = kv
-    return out
+    if cfg.window is None or seq <= cap:
+        if seq == cap:
+            return kv
+        out = torch.zeros((kv.shape[0], cap, *kv.shape[2:]), dtype=kv.dtype, device=kv.device)
+        out[:, :seq] = kv
+        return out
+    j = torch.arange(cap, device=kv.device)
+    return kv[:, seq - 1 - ((seq - 1 - j) % cap)]
 
 
 # ==========================================================================
@@ -239,35 +366,70 @@ def _pack_cache(kv: torch.Tensor, cap: int) -> torch.Tensor:
 
 def init_cache(cfg: ArchConfig, shape: ShapeCfg, dtype=torch.bfloat16, pos: int | None = None,
                device=None) -> dict:
-    """Zero serve cache of ``shape.seq`` slots per layer; ``pos`` (default
-    ``shape.seq - 1``) is the slot the next decode step writes."""
-    _dense_only(cfg)
-    cap = _cache_capacity(cfg, shape)
-    size = (cfg.n_layers, shape.batch, cap, cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(size, dtype=dtype, device=device),
-            "v": torch.zeros(size, dtype=dtype, device=device),
-            "pos": shape.seq - 1 if pos is None else pos}
+    """Zero serve cache for a decode shape: ``min(window, shape.seq)`` KV
+    slots per attention layer (``shape.seq`` without a window), a zero
+    mamba state per mamba layer; ``pos`` (default ``shape.seq - 1``) is the
+    position the next decode step takes."""
+    _check_ported(cfg)
+    cap, b = _cache_capacity(cfg, shape), shape.batch
+    pos = shape.seq - 1 if pos is None else pos
+
+    def zeros(*size):
+        return torch.zeros(size, dtype=dtype, device=device)
+
+    kv = (b, cap, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.family in ("dense", "moe"):
+        return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv), "pos": pos}
+    conv, ssm = mamba_init_state(cfg.ssm, b, dtype, device)
+    cache = {"conv": zeros(cfg.n_layers, *conv.shape), "ssm": zeros(cfg.n_layers, *ssm.shape),
+             "pos": pos}
+    if cfg.family == "hybrid":
+        n_inv = cfg.n_layers // cfg.shared_attn_every
+        cache.update(shared_k=zeros(n_inv, *kv), shared_v=zeros(n_inv, *kv))
+    return cache
 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx=None):
     """One-token decode -> (logits (B, 1, Vpad), new cache); ``cache`` is
     not written."""
-    _dense_only(cfg, ctx)
+    _check_ported(cfg, ctx)
     pos = cache["pos"]
     tokens = batch["tokens"]  # (B, 1)
     h = embed_tokens(cfg, params, tokens).to(_dtype(cfg.compute_dtype))
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(tokens.shape[0], 1, pos, h.device)
-    ks, vs = [], []
-    for i, lp in enumerate(params["layers"]):
-        h, (k, v) = dense_block(cfg, lp, h, positions, cache=(cache["k"][i], cache["v"][i]),
-                                cache_pos=pos)
-        ks.append(k)
-        vs.append(v)
+    if cfg.family in ("dense", "moe"):
+        mode = "rolling" if cfg.window is not None else "linear"
+        ks, vs = [], []
+        for i, lp in enumerate(params["layers"]):
+            h, (k, v), _ = dense_block(cfg, lp, h, positions,
+                                       cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
+                                       cache_mode=mode)
+            ks.append(k)
+            vs.append(v)
+        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+    else:
+        emb0 = h
+        states, ks, vs = [], [], []
+        for i, lp in enumerate(params["layers"]):
+            out, st = mamba_decode_step(lp["mamba"], _norm(cfg, lp["ln"], h), cfg.ssm,
+                                        (cache["conv"][i], cache["ssm"][i]))
+            h = h + out
+            states.append(st)
+            if _shared_after(cfg, i):
+                g = len(ks)
+                h, (k, v) = shared_block(cfg, params["shared"], h, emb0, positions,
+                                         cache=(cache["shared_k"][g], cache["shared_v"][g]),
+                                         cache_pos=pos)
+                ks.append(k)
+                vs.append(v)
+        new_cache = _mamba_caches(states)
+        if cfg.family == "hybrid":
+            new_cache.update(shared_k=torch.stack(ks), shared_v=torch.stack(vs))
+    new_cache["pos"] = pos + 1
     h = _norm(cfg, params["final_norm"], h)
-    return lm_logits(cfg, params, h), {"k": torch.stack(ks), "v": torch.stack(vs),
-                                       "pos": pos + 1}
+    return lm_logits(cfg, params, h), new_cache
 
 
 # ==========================================================================
@@ -296,11 +458,11 @@ def _split_microbatches(batch: dict, accum: int) -> dict:
 
 def make_train_step(cfg: ArchConfig, ctx, optimizer, shape: ShapeCfg):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    {"loss", "aux"})``: the f32 parameters cast to ``cfg.compute_dtype`` for
-    the forward, the loss in f32, gradients accumulated over
-    ``cfg.grad_accum[shape.name]`` strided microbatches (in the compute dtype
-    with ``low_precision_opt``)."""
-    _dense_only(cfg, ctx)
+    {"loss", "aux"})``: every f32 parameter cast to ``cfg.compute_dtype``
+    for the forward, the loss in f32 plus ``AUX_LOSS_WEIGHT`` times the MoE
+    aux loss, gradients accumulated over ``cfg.grad_accum[shape.name]``
+    strided microbatches (in the compute dtype with ``low_precision_opt``)."""
+    _check_ported(cfg, ctx)
     accum = max(min(cfg.grad_accum.get(shape.name, 1), shape.batch), 1)
     cdt = _dtype(cfg.compute_dtype)
 
@@ -334,24 +496,48 @@ def make_train_step(cfg: ArchConfig, ctx, optimizer, shape: ShapeCfg):
 
 def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
     """``prefill(params, batch) -> (last position's logits (B, 1, Vpad),
-    caches for ``shape``)``.  The batch-split prefill of
-    ``cfg.serve_microbatch`` belongs to the MoE archs (ROADMAP A10)."""
-    _dense_only(cfg, ctx)
-    if cfg.serve_microbatch.get(shape.name, 1) > 1:
-        raise NotImplementedError("batch-split prefill (serve_microbatch) is ROADMAP A10's")
+    caches for ``shape``)``.  With ``cfg.serve_microbatch[shape.name] = mb
+    > 1`` the batch is prefilled as ``mb`` strided sub-batches (``v[i::mb]``,
+    ``positions`` on its axis 1), and the logits and every cache leaf are
+    interleaved back into the batch's order, as in the JAX package."""
+    _check_ported(cfg, ctx)
+    mb = max(min(cfg.serve_microbatch.get(shape.name, 1), shape.batch), 1)
 
-    def prefill_step(params, batch):
+    def one(params, batch):
         h, _, caches = forward_seq(cfg, params, batch, want_cache=shape)
         return lm_logits(cfg, params, h[:, -1:, :]), caches
+
+    if mb == 1:
+        return one
+
+    def prefill_step(params, batch):
+        outs = []
+        for i in range(mb):
+            sub = {}
+            for k, v in batch.items():
+                sl = [slice(None)] * v.ndim
+                sl[_BATCH_AXIS.get(k, 0)] = slice(i, None, mb)
+                sub[k] = v[tuple(sl)]
+            outs.append(one(params, sub))
+        # merged[j * mb + i] = outs[i][j]
+        logits = torch.stack([o[0] for o in outs], dim=1)
+        logits = logits.reshape(-1, *logits.shape[2:])
+        caches = {}
+        for k, v in outs[0][1].items():
+            if k == "pos":
+                caches[k] = v
+            else:
+                st = torch.stack([o[1][k] for o in outs], dim=2)  # the batch is axis 1
+                caches[k] = st.reshape(st.shape[0], -1, *st.shape[3:])
+        return logits, caches
 
     return prefill_step
 
 
 def make_serve_step(cfg: ArchConfig, ctx):
-    _dense_only(cfg, ctx)
+    _check_ported(cfg, ctx)
 
     def serve_step(params, cache, batch):
         return decode_step(cfg, params, cache, batch)
 
     return serve_step
-

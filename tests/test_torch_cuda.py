@@ -1104,7 +1104,70 @@ def test_dense_lm_on_card_matches_cpu(cuda, arch):
     assert float((dec - want).abs().max()) < 2e-3 * max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("arch", ["dlrm", "qwen3-0.6b"])
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "mixtral-8x22b", "mamba2-780m",
+                                  "zamba2-1.2b"])
+def test_family_lm_on_card_matches_cpu(cuda, arch):
+    """A SMOKE moe, ssm or hybrid LM on the card: the first train step's
+    loss, aux loss and update (SGD at lr 1) against the CPU twin within
+    1e-5; the prefill's caches and every decode step's logits and cache
+    (mixtral's rolling past its window) against the CPU twin's within 1e-5;
+    and, with the MoE capacity raised so that nothing drops, decode against
+    the full forward within the JAX package's bound."""
+    import dataclasses
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import sgd
+    from repro_torch.tree import leaves, tree_map
+
+    bundle = registry.build(arch, smoke=True)
+    cfg = bundle.cfg
+    params = bundle.init(torch.Generator().manual_seed(0))
+    shape = ShapeCfg("smoke", "train", 64, 2)
+    batch = bundle.make_batch(shape, torch.Generator().manual_seed(1))
+    s0, seq = 40, 52
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), params)
+        opt = sgd(1.0)
+        new, _, m = T.make_train_step(cfg, None, opt, shape)(
+            p, opt.init(p), {k: v.to(dev) for k, v in batch.items()})
+        tokens = batch["tokens"].to(dev)
+        logits, cache = T.make_prefill_step(cfg, None, ShapeCfg("t", "decode", seq, 2))(
+            p, {"tokens": tokens[:, :s0]})
+        steps = [(logits, cache)]
+        for t in range(s0, seq):
+            steps.append(T.decode_step(cfg, p, steps[-1][1], {"tokens": tokens[:, t:t + 1]}))
+        out[str(dev)] = new, m, steps
+    for key in ("loss", "aux"):
+        np.testing.assert_allclose(float(out["cuda"][1][key]), float(out["cpu"][1][key]),
+                                   rtol=1e-5, atol=1e-6)
+    for a, b_ in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-5, atol=1e-5)
+    for (lg, c), (w_lg, w_c) in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(lg.cpu(), w_lg, rtol=1e-5, atol=1e-5)
+        assert c["pos"] == w_c["pos"]
+        for k in w_c:
+            if k != "pos":
+                torch.testing.assert_close(c[k].cpu(), w_c[k], rtol=1e-5, atol=1e-5)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    p, tokens = tree_map(lambda x: x.to(cuda), params), batch["tokens"].to(cuda)
+    logits, cache = T.make_prefill_step(cfg, None, ShapeCfg("t", "decode", seq, 2))(
+        p, {"tokens": tokens[:, :s0]})
+    dec = [logits]
+    for t in range(s0, seq):
+        lg, cache = T.decode_step(cfg, p, cache, {"tokens": tokens[:, t:t + 1]})
+        dec.append(lg)
+    dec = torch.cat(dec[:-1], dim=1)
+    h, _, _ = T.forward_seq(cfg, p, {"tokens": tokens[:, :seq]})
+    want = T.lm_logits(cfg, p, h)[:, s0 - 1:seq - 1]
+    assert float((dec - want).abs().max()) < 2e-3 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("arch", ["dlrm", "qwen3-0.6b", "granite-moe-3b-a800m", "zamba2-1.2b"])
 def test_train_cli_on_card(cuda, arch, tmp_path, capsys):
     from repro_torch.launch import train
 

@@ -197,7 +197,7 @@ def test_long_500k_applicability():
     assert runs == {"mamba2-780m", "mixtral-8x22b", "zamba2-1.2b"}
 
 
-@pytest.mark.parametrize("arch", sorted(set(registry.ARCH_IDS) - set(DENSE)))
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "whisper-small"])
 def test_other_families_raise(arch):
     bundle = registry.build(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A10"):
