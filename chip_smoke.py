@@ -175,9 +175,27 @@ X] <message>`` before it raises):
       within the JAX package's bound of the full forward.  Then a train step
       (where there is one), a prefill and a decode step at bf16, finite.
       Each model's parameters are freed before the next;
+   T-encdec, T-vlm. the encdec and vlm families at their published widths:
+      whisper-small whole (12 encoder and 12 decoder layers; its conv
+      frontend stubbed, frames random normal): 3 AdamW steps at 2 x 512
+      frames and tokens against the CPU twin's first loss, then a prefill
+      of 2 x 1500 frames (30 s of audio; not a multiple of the 1024-slot KV
+      block or the query chunk) with a 2 x 64-token prompt and 16 decode
+      steps (80 self-attention and 1500 cross slots), within the JAX
+      package's bound of the card's full forward over the same frames and
+      all 80 tokens; qwen2-vl-2b at 4 of 28 layers (its vision frontend
+      stubbed, embeds random normal) on Qwen2-VL's M-RoPE layout (a text
+      token at index i at (i, i, i), an image of gh x gw patches from s at
+      (s, s + r, s + c), the text after it from s + max(gh, gw)): 3 AdamW
+      steps at 2 x 512 (64 text tokens, a 16 x 24 image, 64 text tokens;
+      the second row image first) against the CPU twin's first loss, a
+      prefill of 2 x 256 (32 text, a 12 x 16 image, 32 text) and 16 text
+      decode steps whose positions carry on from the layout, within the
+      bound of the card's full forward over the 272 embeds; then bf16,
+      finite, as above;
    T-cli. the train CLI as a subprocess on the card for the DLRM (20
-      steps), qwen3-0.6b and granite-moe-3b-a800m (10 steps each): exit
-      code 0 and ``[train] done``.
+      steps), qwen3-0.6b, granite-moe-3b-a800m, whisper-small and
+      qwen2-vl-2b (10 steps each): exit code 0 and ``[train] done``.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the JSON record of every kernel.
@@ -2270,7 +2288,8 @@ T_BATCH = 8192
 T_DLRM_STEPS, T_DLRM_EVERY, T_DLRM_FAIL = 8, 4, 6
 T_DLRM_LR = 0.01  # the train CLI's DLRM rate (ten times its default --lr)
 T_CLI = [["--arch", "dlrm", "--steps", "20"], ["--arch", "qwen3-0.6b", "--steps", "10"],
-         ["--arch", "granite-moe-3b-a800m", "--steps", "10"]]
+         ["--arch", "granite-moe-3b-a800m", "--steps", "10"],
+         ["--arch", "whisper-small", "--steps", "10"], ["--arch", "qwen2-vl-2b", "--steps", "10"]]
 # the LM families at their published widths, depth cut:
 # name -> (arch, layers kept, train batch x seq or None (serve only),
 # prefill batch x seq, what the f32 decode logits are held to: "twin", the
@@ -2283,8 +2302,16 @@ T_FAMILY = {
     "T-swa": ("mixtral-8x22b", 1, None, (1, 5120), "forward"),
     "T-ssm": ("mamba2-780m", 4, (2, 512), (2, 300), "forward"),
     "T-hybrid": ("zamba2-1.2b", 7, (2, 512), (2, 300), "forward"),
+    "T-encdec": ("whisper-small", 12, (2, 512), (2, 64), "forward"),
+    "T-vlm": ("qwen2-vl-2b", 4, (2, 512), (2, 256), "forward"),
 }
 T_FAMILY_DECODE = 16
+# whisper's encoder length for 30 s of audio after its (stubbed) conv frontend
+T_ENCDEC_FRAMES = 1500
+# Qwen2-VL's M-RoPE layout, a row's segments: ("text", n) or ("image", gh, gw)
+T_VLM_TRAIN_ROWS = ([("text", 64), ("image", 16, 24), ("text", 64)],
+                    [("image", 16, 24), ("text", 128)])
+T_VLM_PREFILL_ROW = [("text", 32), ("image", 12, 16), ("text", 32)]
 # mixtral's batch-split prefill: serve_microbatch["prefill_32k"] = 2
 T_SWA_SPLIT = ("prefill_32k", 2, 5120)
 
@@ -2426,9 +2453,11 @@ def dlrm_train_path(tmp: Path) -> dict:
 
 
 def family_path(name: str) -> dict:
-    """T-lm, T-moe, T-swa, T-ssm, T-hybrid: one LM at its published width,
-    depth cut as ``T_FAMILY`` says (the ``reduced`` field), random init on
-    the card.  At ``compute_dtype="float32"``: with a train shape, 3 AdamW
+    """T-lm, T-moe, T-swa, T-ssm, T-hybrid, T-encdec, T-vlm: one LM at its
+    published width, depth cut as ``T_FAMILY`` says (the ``reduced`` field,
+    empty for whisper, which runs whole), random init on the card, its
+    inputs from ``_train_batch`` and ``_serve_inputs``.  At
+    ``compute_dtype="float32"``: with a train shape, 3 AdamW
     steps, the first loss and aux loss within 1e-4 relative of the CPU
     twin's; a prefill and ``T_FAMILY_DECODE`` teacher-forced decode steps,
     timed, the decode logits held to the CPU twin's decode within ``1e-4 *
@@ -2440,8 +2469,9 @@ def family_path(name: str) -> dict:
     prefill and a decode step at the published ``bfloat16``, gated only on
     finite values.  Recorded: ``train_step_ms``, ``tokens_per_s``,
     ``prefill_ms``, ``decode_ms_per_token`` (host clock around synchronized
-    work, median), the MoE's capacity drops, the parameter count and the
-    peak of allocated card memory."""
+    work, median), in f32 each one's device time, launches and the card's
+    idle share (``_device_share``), the MoE's capacity drops, the parameter
+    count and the peak of allocated card memory."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
@@ -2449,7 +2479,7 @@ def family_path(name: str) -> dict:
     from repro_torch.tree import leaves
 
     arch, layers, train_bs, (pb, ps), against = T_FAMILY[name]
-    full = registry.get_config(arch)
+    full = registry.build(arch).cfg
     cfg32 = dataclasses.replace(full, n_layers=layers, compute_dtype="float32")
     cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
     torch.cuda.reset_peak_memory_stats()
@@ -2457,19 +2487,20 @@ def family_path(name: str) -> dict:
     params = bundle.init(torch.Generator(DEVICE).manual_seed(0))
     rec = {"t_family": name, "arch": arch, "d_model": full.d_model, "n_heads": full.n_heads,
            "head_dim": full.head_dim, "d_ff": full.d_ff, "vocab": full.vocab,
-           "window": full.window, "reduced": {"n_layers": [full.n_layers, layers]},
+           "window": full.window, "enc_layers": full.enc_layers,
+           "mrope_sections": full.mrope_sections,
+           "reduced": {"n_layers": [full.n_layers, layers]} if layers < full.n_layers else {},
            "moe": full.moe and dataclasses.asdict(full.moe),
            "ssm": full.ssm and dataclasses.asdict(full.ssm),
            "params": sum(int(x.numel()) for x in leaves(params))}
     if train_bs is not None:
         rec.update(_family_train(name, (cfg32, cfg16), params, bundle, train_bs))
-    tokens = bundle.make_batch(ShapeCfg(name, "prefill", ps + T_FAMILY_DECODE, pb),
-                               torch.Generator(DEVICE).manual_seed(2))["tokens"]
+    inputs = _serve_inputs(name, bundle, pb, ps + T_FAMILY_DECODE)
     for cfg in (cfg32, cfg16):
-        serve, dec = _family_serve(name, cfg, params, tokens, ps)
+        serve, dec = _family_serve(name, cfg, params, inputs, ps)
         rec.setdefault(cfg.compute_dtype, {}).update(serve)
         if cfg is cfg32:
-            rec["decode_gate"] = _decode_gate(name, cfg, params, tokens, ps, against, dec)
+            rec["decode_gate"] = _decode_gate(name, cfg, params, inputs, ps, against, dec)
         del dec
     if name == "T-swa":
         rec["split_prefill"] = _split_prefill(cfg32, params, bundle)
@@ -2478,6 +2509,77 @@ def family_path(name: str) -> dict:
     del params
     torch.cuda.empty_cache()
     return {}
+
+
+def qwen2vl_positions(rows, device) -> "torch.Tensor":
+    """(3, B, S) int32 M-RoPE positions of Qwen2-VL's layout, a row's
+    segments ``("text", n)`` or ``("image", gh, gw)``: a text token at index
+    ``i`` gets ``(i, i, i)``, an image from ``s`` gets ``(s, s + r, s + c)``
+    for its patch at row ``r`` and column ``c``, and the text after it
+    resumes at ``s + max(gh, gw)``."""
+    import torch
+
+    out = []
+    for segments in rows:
+        pos, nxt = [], 0
+        for seg in segments:
+            if seg[0] == "text":
+                pos += [(nxt + i,) * 3 for i in range(seg[1])]
+                nxt += seg[1]
+            else:
+                _, gh, gw = seg
+                pos += [(nxt, nxt + r, nxt + c) for r in range(gh) for c in range(gw)]
+                nxt += max(gh, gw)
+        out.append(pos)
+    return torch.tensor(out, dtype=torch.int32, device=device).permute(2, 0, 1).contiguous()
+
+
+def _train_batch(bundle, shape) -> dict:
+    """``make_batch``'s random batch; for an embeds config its positions
+    replaced by ``T_VLM_TRAIN_ROWS``' layout."""
+    import torch
+
+    batch = bundle.make_batch(shape, torch.Generator(DEVICE).manual_seed(1))
+    if bundle.cfg.input_kind == "embeds":
+        batch["positions"] = qwen2vl_positions(T_VLM_TRAIN_ROWS, DEVICE)
+    return batch
+
+
+def _serve_inputs(name, bundle, b, seq) -> dict:
+    """The prefill's and the decode steps' inputs over ``seq`` positions:
+    tokens; or whisper's ``T_ENCDEC_FRAMES`` frames and ``seq`` tokens; or
+    embeds on ``T_VLM_PREFILL_ROW``'s layout, then text to ``seq``."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+
+    cfg, gen = bundle.cfg, torch.Generator(DEVICE).manual_seed(2)
+    if cfg.input_kind == "frames_tokens":
+        batch = bundle.make_batch(ShapeCfg(name, "prefill", T_ENCDEC_FRAMES, b), gen)
+        return {"frames": batch["frames"], "tokens": batch["tokens"][:, :seq]}
+    batch = bundle.make_batch(ShapeCfg(name, "prefill", seq, b), gen)
+    if cfg.input_kind == "embeds":
+        n = sum(seg[1] if seg[0] == "text" else seg[1] * seg[2] for seg in T_VLM_PREFILL_ROW)
+        batch["positions"] = qwen2vl_positions([T_VLM_PREFILL_ROW + [("text", seq - n)]] * b,
+                                               DEVICE)
+    return batch
+
+
+def _batch_seq(inputs: dict) -> tuple[int, int]:
+    """(B, S) of the tokens or the embeds (not whisper's frames)."""
+    return tuple((inputs["embeds"] if "embeds" in inputs else inputs["tokens"]).shape[:2])
+
+
+def _prefix(inputs: dict, n: int) -> dict:
+    """The inputs of the first ``n`` positions (whisper's frames whole)."""
+    return {k: v if k == "frames" else v[..., :n] if k == "positions" else v[:, :n]
+            for k, v in inputs.items()}
+
+
+def _step(inputs: dict, t: int) -> dict:
+    """One decode step's inputs at position ``t``."""
+    return {k: v[..., t:t + 1] if k == "positions" else v[:, t:t + 1]
+            for k, v in inputs.items() if k != "frames"}
 
 
 def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
@@ -2492,11 +2594,12 @@ def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
 
     b, s = train_bs
     shape = ShapeCfg(name, "train", s, b)
-    batch = bundle.make_batch(shape, torch.Generator(DEVICE).manual_seed(1))
+    batch = _train_batch(bundle, shape)
     cfg32 = cfgs[0]
     cpu_p = tree_map(lambda x: x.cpu(), params)
     with moe_drops() as drops:
-        h, aux, _ = T.forward_seq(cfg32, cpu_p, {"tokens": batch["tokens"].cpu()})
+        h, aux, _ = T.forward_seq(cfg32, cpu_p, {k: v.cpu() for k, v in batch.items()
+                                                 if k != "labels"})
     twin = (float(T.ce_loss(cfg32, T.lm_logits(cfg32, cpu_p, h), batch["labels"].cpu())),
             float(aux))
     del cpu_p, h
@@ -2514,9 +2617,11 @@ def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
               f"[{name}] {cfg.compute_dtype} loss or aux not finite: {losses} {auxs}")
         step_ms = host_ms(lambda: (step(params, state, batch), torch.cuda.synchronize()),
                           iters=3)
-        del p, state
         out[cfg.compute_dtype] = {"losses": losses, "aux": auxs, "train_step_ms": step_ms,
                                   "tokens_per_s": b * s / step_ms * 1e3}
+        if cfg is cfg32:
+            out["train_step_device"] = _device_share(lambda: step(params, state, batch), step_ms)
+        del p, state
     first = out["float32"]
     check(abs(first["losses"][0] - twin[0]) <= 1e-4 * abs(twin[0]),
           f"[{name}] first loss {first['losses'][0]} vs CPU twin {twin[0]}")
@@ -2525,44 +2630,66 @@ def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
     return out
 
 
-def _decode_logits(cfg, params, tokens, s0):
-    """Prefill ``s0`` tokens, then teacher-forced decode of the rest ->
-    (the prefill's and each step's logits but the last, (B, S - s0, V); the
-    prefill step; the serve step; the prefill's cache)."""
+def _decode_logits(cfg, params, inputs, s0):
+    """Prefill the first ``s0`` positions of ``inputs``, then teacher-forced
+    decode of the rest -> (the prefill's and each step's logits but the
+    last, (B, S - s0, V); the prefill step; the serve step; the prefill's
+    cache)."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.models import transformer as T
 
-    b, seq = tokens.shape
+    b, seq = _batch_seq(inputs)
     prefill = T.make_prefill_step(cfg, None, ShapeCfg("t-family", "decode", seq, b))
     serve = T.make_serve_step(cfg, None)
-    logits, cache = prefill(params, {"tokens": tokens[:, :s0]})
+    logits, cache = prefill(params, _prefix(inputs, s0))
     start, dec = cache, [logits]
     for t in range(s0, seq):
-        lg, cache = serve(params, cache, {"tokens": tokens[:, t:t + 1]})
+        lg, cache = serve(params, cache, _step(inputs, t))
         dec.append(lg)
     return torch.cat(dec[:-1], dim=1).float(), prefill, serve, start
 
 
-def _family_serve(name, cfg, params, tokens, s0) -> tuple[dict, "torch.Tensor"]:
+def _family_serve(name, cfg, params, inputs, s0) -> tuple[dict, "torch.Tensor"]:
     """The prefill and decode of ``_decode_logits`` at ``cfg``, timed, the
     MoE's capacity drops counted, the logits gated on finite values ->
     (record, the decode logits)."""
     import torch
 
     with moe_drops() as drops:
-        dec, prefill, serve, start = _decode_logits(cfg, params, tokens, s0)
+        dec, prefill, serve, start = _decode_logits(cfg, params, inputs, s0)
     check(bool(torch.isfinite(dec).all()), f"[{name}] {cfg.compute_dtype} decode not finite")
-    return {"prefill": list(tokens[:, :s0].shape), "decode_steps": tokens.shape[1] - s0,
-            "prefill_moe_drops": sum(drops),
-            "prefill_ms": host_ms(lambda: (prefill(params, {"tokens": tokens[:, :s0]}),
-                                           torch.cuda.synchronize()), iters=3),
-            "decode_ms_per_token": host_ms(lambda: (serve(params, start, {
-                "tokens": tokens[:, s0:s0 + 1]}), torch.cuda.synchronize()), iters=5)}, dec
+    first, one = _prefix(inputs, s0), _step(inputs, s0)
+    frames = {"frames": list(inputs["frames"].shape)} if "frames" in inputs else {}
+    rec = {"prefill": list(_batch_seq(first)), **frames,
+           "decode_steps": _batch_seq(inputs)[1] - s0,
+           "prefill_moe_drops": sum(drops),
+           "prefill_ms": host_ms(lambda: (prefill(params, first),
+                                          torch.cuda.synchronize()), iters=3),
+           "decode_ms_per_token": host_ms(lambda: (serve(params, start, one),
+                                                   torch.cuda.synchronize()), iters=5)}
+    if cfg.compute_dtype == "float32":
+        rec["prefill_device"] = _device_share(lambda: prefill(params, first), rec["prefill_ms"])
+        rec["decode_device"] = _device_share(lambda: serve(params, start, one),
+                                             rec["decode_ms_per_token"])
+    return rec, dec
 
 
-def _decode_gate(name, cfg, params, tokens, s0, against, dec) -> dict:
+def _device_share(fn, host: float) -> dict:
+    """One call of ``fn`` on the card (``profile_calls``): its device time,
+    its launches, its five longest kernels by name, and the card's idle
+    share of ``host``, the call's host-clock time.  Not gated: late in the
+    script a session of a whole LM step can lose the card's records, and
+    then it reads "not measured"."""
+    prof = profile_calls(fn, calls=1)
+    dev = prof["device_ms"]
+    return {"device_ms": dev, "launches": prof["launches_per_call"],
+            "idle_share": 1 - dev / host if isinstance(dev, float) else "not measured",
+            "top_kernels_ms": dict(list(prof["kernels_ms"].items())[:5])}
+
+
+def _decode_gate(name, cfg, params, inputs, s0, against, dec) -> dict:
     """The f32 decode logits held to the CPU twin's decode of the same
     config within ``1e-4 * max(|ref|, 1)`` ("twin"), or ("forward") a
     decode held to the card's full forward within the JAX package's
@@ -2577,21 +2704,22 @@ def _decode_gate(name, cfg, params, tokens, s0, against, dec) -> dict:
     out = {"decode_against": against}
     if against == "twin":
         cpu_p = tree_map(lambda x: x.cpu(), params)
-        want = _decode_logits(cfg, cpu_p, tokens.cpu(), s0)[0].to(dec.device)
+        want = _decode_logits(cfg, cpu_p, {k: v.cpu() for k, v in inputs.items()},
+                              s0)[0].to(dec.device)
         del cpu_p
         rel = 1e-4
     else:
         if cfg.moe is not None:
             with moe_drops() as drops:  # the published capacity, recorded
-                T.forward_seq(cfg, params, {"tokens": tokens})
+                T.forward_seq(cfg, params, inputs)
             out["published_forward_moe_drops"] = sum(drops)
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
             out["capacity_factor"] = cfg.moe.capacity_factor
         with moe_drops() as drops:
-            dec = _decode_logits(cfg, params, tokens, s0)[0]
-            h, _, _ = T.forward_seq(cfg, params, {"tokens": tokens})
-        want = T.lm_logits(cfg, params, h)[:, s0 - 1:tokens.shape[1] - 1]
+            dec = _decode_logits(cfg, params, inputs, s0)[0]
+            h, _, _ = T.forward_seq(cfg, params, inputs)
+        want = T.lm_logits(cfg, params, h)[:, s0 - 1:_batch_seq(inputs)[1] - 1]
         del h
         out["moe_drops"] = sum(drops)
         check(sum(drops) == 0, f"[{name}] the decode gate's runs dropped {drops} assignments")
@@ -2674,8 +2802,8 @@ def moe_drops():
 
 def train_cli_path(tmp: Path) -> dict:
     """T-cli: the train CLI on the card as a subprocess, for the DLRM,
-    qwen3-0.6b and granite-moe-3b-a800m (their SMOKE configs), each into a
-    fresh checkpoint directory.
+    qwen3-0.6b, granite-moe-3b-a800m, whisper-small and qwen2-vl-2b (their
+    SMOKE configs), each into a fresh checkpoint directory.
     Gated: exit code 0 and the ``[train] done`` line."""
     import os
 

@@ -1,8 +1,10 @@
-"""Training entry point: the DLRM or an LM (dense, moe, ssm or hybrid),
-trained by the checkpointed loop on the card.
+"""Training entry point: the DLRM or an LM (dense, moe, ssm, hybrid,
+encdec or vlm), trained by the checkpointed loop on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --steps 20
     PYTHONPATH=src python -m repro_torch.launch.train --arch granite-moe-3b-a800m --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-small --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-vl-2b --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 200
     PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm --steps 20 --device cpu
 

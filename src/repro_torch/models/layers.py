@@ -3,9 +3,11 @@ tensors (``dict`` or ``nn.ParameterDict``), as the JAX package's are
 nested dicts of arrays.
 
 The JAX package's initializers, RMS / layer / non-parametric norms, rotary
-embeddings (standard and partial), grouped-query attention with causal and
-sliding-window masks, a linear or rolling KV cache, query chunks and the
-online softmax over KV blocks, and the SwiGLU MLP.  Each formula is
+embeddings (standard, partial and M-RoPE sections), whisper's sinusoidal
+positions, grouped-query attention with causal and sliding-window masks, a
+linear or rolling KV cache, cross-attention (K/V from another sequence, or
+given), query chunks and the online softmax over KV blocks, and the SwiGLU
+and GELU MLPs.  Each formula is
 written as the JAX package writes it, reductions in the same order, and
 parameters are cast to the activations' dtype at each use, as there; no
 fused attention kernel is used.  :func:`attention` is the scenario towers' entry (their
@@ -35,6 +37,7 @@ __all__ = [
     "mlp_init",
     "rms_norm",
     "rope_inv_freq",
+    "sinusoidal_positions",
 ]
 
 Params = Mapping[str, Any]
@@ -132,23 +135,39 @@ def apply_rope(
     mrope_sections=None,
 ) -> torch.Tensor:
     """Rotary embedding, half-rotation convention.  x (B, S, H, dh),
-    positions (B, S) int.  ``rotary_frac < 1`` rotates only the leading
-    fraction of dh (ChatGLM's partial "2d" RoPE).  M-RoPE (Qwen2-VL's
-    ``mrope_sections``) belongs to the vlm family, the next slice (ROADMAP
-    A10)."""
-    if mrope_sections is not None:
-        raise NotImplementedError("M-RoPE (the vlm family) is not ported yet: ROADMAP A10")
+    positions (B, S) int, or (3, B, S) with ``mrope_sections`` (Qwen2-VL's
+    M-RoPE: frequency band ``i`` of the ``rot/2`` takes its angle from
+    position component ``i``, over ``mrope_sections[i]`` frequencies).
+    ``rotary_frac < 1`` rotates only the leading fraction of dh (ChatGLM's
+    partial "2d" RoPE)."""
     dh = x.shape[-1]
     rot = int(dh * rotary_frac)
     rot -= rot % 2
     x_rot, x_pass = x[..., :rot], x[..., rot:]
     inv = rope_inv_freq(rot, base, device=x.device)  # (rot/2,)
-    angles = positions.float()[..., None] * inv  # (B, S, rot/2)
+    if mrope_sections is not None:
+        if positions.ndim != 3 or sum(mrope_sections) != rot // 2:
+            raise ValueError(f"M-RoPE needs (3, B, S) positions and sections summing to "
+                             f"{rot // 2}: got {tuple(positions.shape)}, {mrope_sections}")
+        sec = torch.cat([torch.full((n,), i, device=x.device)
+                         for i, n in enumerate(mrope_sections)])  # (rot/2,) component of each band
+        angles = positions.float()[sec].movedim(0, -1) * inv  # (B, S, rot/2)
+    else:
+        angles = positions.float()[..., None] * inv  # (B, S, rot/2)
     cos = torch.cos(angles)[:, :, None, :].to(x.dtype)  # (B, S, 1, rot/2)
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = x_rot[..., : rot // 2], x_rot[..., rot // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out, x_pass], dim=-1) if rot < dh else out
+
+
+def sinusoidal_positions(seq: int, d: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Whisper's fixed encoder positions (S, d): ``[sin | cos]`` of
+    ``pos / 10000^(2i/d)``, computed in f32, then cast."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / (10000.0 ** (dim / d))
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1).to(dtype)
 
 
 # --------------------------------------------------------------------------
@@ -289,16 +308,21 @@ def lm_attention(
     kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
     cache_pos: int | None = None,
     cache_mode: str = "linear",
+    kv_x: torch.Tensor | None = None,
+    precomputed_kv: tuple[torch.Tensor, torch.Tensor] | None = None,
     q_chunk: int | None = None,
 ):
-    """GQA self-attention with the JAX package's ``attention`` semantics:
-    qk-norm, rotary embedding at ``positions`` (B, Sq) (applied to K before
-    it is cached), causal and sliding-window (``spec.window``) masks in
-    token order, and a KV cache ``(k, v)`` of (B, Smax, KV, dh) at
-    ``cache_pos`` (a Python int).  ``cache_mode="linear"`` writes slot
-    ``cache_pos``; ``"rolling"`` (a sliding window's cache of Smax slots)
-    writes slot ``cache_pos % Smax`` and attends to every filled slot, all
-    of which lie inside the window, with neither mask.  Query chunks of
+    """GQA attention with the JAX package's ``attention`` semantics:
+    qk-norm, rotary embedding at ``positions`` (B, Sq), or (3, B, Sq) for
+    M-RoPE (applied to K before it is cached), causal and sliding-window
+    (``spec.window``) masks in token order, and a KV cache ``(k, v)`` of
+    (B, Smax, KV, dh) at ``cache_pos`` (a Python int).
+    ``cache_mode="linear"`` writes slot ``cache_pos``; ``"rolling"`` (a
+    sliding window's cache of Smax slots) writes slot ``cache_pos % Smax``
+    and attends to every filled slot, all of which lie inside the window,
+    with neither mask.  Cross-attention: K and V projected from ``kv_x``
+    (B, Skv, d), or ``precomputed_kv`` (B, Skv, KV, dh) as given; either
+    way no rotary embedding and no causal mask.  Query chunks of
     ``q_chunk`` positions attend one at a time when they divide Sq.
     Returns (out (B, Sq, d), the new cache or None; the cache passed in is
     not written)."""
@@ -308,13 +332,17 @@ def lm_attention(
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     g = h // kvh
     dt = x.dtype
+    cross = kv_x is not None or precomputed_kv is not None
     q = (x @ params["wq"].to(dt)).reshape(b, sq, h, dh)
-    k = (x @ params["wk"].to(dt)).reshape(b, sq, kvh, dh)
-    v = (x @ params["wv"].to(dt)).reshape(b, sq, kvh, dh)
+    if precomputed_kv is None:
+        src = x if kv_x is None else kv_x
+        k = (src @ params["wk"].to(dt)).reshape(b, src.shape[1], kvh, dh)
+        v = (src @ params["wv"].to(dt)).reshape(b, src.shape[1], kvh, dh)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"])
-        k = rms_norm(k, params["k_norm"])
-    if spec.rope is not None:
+        if precomputed_kv is None:
+            k = rms_norm(k, params["k_norm"])
+    if spec.rope is not None and not cross:
         rope = dict(base=spec.rope_base, rotary_frac=spec.rotary_frac,
                     mrope_sections=spec.mrope_sections)
         q = apply_rope(q, positions, **rope)
@@ -322,8 +350,10 @@ def lm_attention(
 
     new_cache = None
     kv_valid = None
-    causal, window = spec.causal, spec.window
-    if kv_cache is not None:
+    causal, window = spec.causal and not cross, spec.window
+    if precomputed_kv is not None:
+        k, v = precomputed_kv
+    elif kv_cache is not None:
         if cache_pos is None:
             raise ValueError("kv_cache needs cache_pos")
         ck, cv = kv_cache
@@ -343,7 +373,8 @@ def lm_attention(
         k, v = ck, cv
 
     qg = q.reshape(b, sq, kvh, g, dh)
-    # masks follow token order (the cache slot), as the JAX package's do
+    # masks follow token order (the cache slot), not M-RoPE's position
+    # values, as the JAX package's do
     base = cache_pos if cache_pos is not None else 0
     qidx = (base + torch.arange(sq, device=x.device))[None, :].expand(b, sq)
 
@@ -368,17 +399,34 @@ def lm_attention(
 # --------------------------------------------------------------------------
 
 
-def mlp_init(generator: torch.Generator | None, d_model: int, d_ff: int) -> dict:
-    """The SwiGLU MLP's weights (the JAX package's ``kind="swiglu"``)."""
-    return {
-        "wi": dense_init(generator, (d_model, d_ff)),
-        "wg": dense_init(generator, (d_model, d_ff)),
-        "wo": dense_init(generator, (d_ff, d_model)),
-    }
+def mlp_init(generator: torch.Generator | None, d_model: int, d_ff: int,
+             kind: str = "swiglu") -> dict:
+    """The MLP's weights: ``wi``, ``wg``, ``wo`` for SwiGLU; ``wi``, ``wo``
+    and zero biases ``bi``, ``bo`` for GELU."""
+    if kind == "swiglu":
+        return {
+            "wi": dense_init(generator, (d_model, d_ff)),
+            "wg": dense_init(generator, (d_model, d_ff)),
+            "wo": dense_init(generator, (d_ff, d_model)),
+        }
+    if kind == "gelu":
+        return {
+            "wi": dense_init(generator, (d_model, d_ff)),
+            "wo": dense_init(generator, (d_ff, d_model)),
+            "bi": torch.zeros(d_ff, device=_device_of(generator)),
+            "bo": torch.zeros(d_model, device=_device_of(generator)),
+        }
+    raise ValueError(f"unknown mlp {kind!r}")
 
 
-def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x wg) * (x wi)) wo``."""
+def mlp_apply(params: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    """SwiGLU, ``(silu(x wg) * (x wi)) wo``, or GELU, ``gelu(x wi + bi) wo +
+    bo`` with the tanh approximation (``jax.nn.gelu``'s default)."""
     dt = x.dtype
-    h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
-    return h @ params["wo"].to(dt)
+    if kind == "swiglu":
+        h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
+        return h @ params["wo"].to(dt)
+    if kind == "gelu":
+        h = F.gelu(x @ params["wi"].to(dt) + params["bi"].to(dt), approximate="tanh")
+        return h @ params["wo"].to(dt) + params["bo"].to(dt)
+    raise ValueError(f"unknown mlp {kind!r}")

@@ -2,8 +2,8 @@
 
 * :data:`ARCH_MODULES` — ``--arch <id>`` -> an LM config
   (:mod:`repro_torch.configs`) and, through :func:`build`, a :class:`Bundle`
-  of its step functions and batch shapes (the dense, moe, ssm and hybrid
-  families run; encdec and vlm raise naming ROADMAP A10);
+  of its step functions and batch shapes (every family runs: dense, moe,
+  ssm, hybrid, encdec with its frames and vlm with its embeds);
 * :data:`SCENARIOS` — each entry pairs a
   :class:`repro_torch.models.scenarios.ScenarioModel` factory with a
   ``default_config`` dict of :class:`repro_torch.engine.EngineConfig`
@@ -108,8 +108,8 @@ class Bundle:
     def make_batch(self, shape: ShapeCfg, generator: torch.Generator,
                    act_dtype=torch.bfloat16) -> dict:
         """A random batch drawn from ``generator``, on its device: token and
-        label ids in ``[0, vocab)``, positions in ``[0, seq)``, normal
-        activations."""
+        label ids in ``[0, vocab)``, positions in ``[0, seq)`` (each M-RoPE
+        component drawn on its own), normal frames and embeds."""
         out = {}
         for k, v in self.batch_specs(shape, act_dtype).items():
             if v.dtype == torch.int32:

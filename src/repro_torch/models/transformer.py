@@ -1,26 +1,31 @@
 """The LM families of the port: dense (olmo, qwen3, chatglm3), moe
-(granite, mixtral with its sliding window), ssm (mamba2) and hybrid
-(zamba2), through train, prefill and decode.
+(granite, mixtral with its sliding window), ssm (mamba2), hybrid (zamba2),
+encdec (whisper) and vlm (qwen2-vl), through train, prefill and decode.
 
 The JAX package's ``models/transformer.py`` in eager PyTorch on one device:
 
-* each layer's parameters are their own entry of ``params["layers"]`` (the
-  JAX package stacks them along a leading ``n_layers`` axis and scans;
-  :func:`params_from_jax` splits the stack), and the layers run in a Python
-  loop;
+* each layer's parameters are their own entry of ``params["layers"]``
+  (and of ``params["enc_layers"]``, whisper's encoder; the JAX package
+  stacks them along a leading layer axis and scans; :func:`params_from_jax`
+  splits the stacks), and the layers run in a Python loop;
 * the token embedding is a plain gather (the JAX package's path without a
   shard context; its vocab-parallel embedding is ROADMAP A10);
-* the serve caches: ``{"k", "v": (L, B, cap, KV, dh)}`` for dense and moe,
-  linear, or rolling over ``min(window, seq)`` slots for a sliding window;
-  ``{"conv", "ssm"}`` per mamba layer for ssm; and for hybrid those plus
-  ``{"shared_k", "shared_v"}`` per invocation of the shared block; each
-  with ``"pos"``, a Python int;
+* the inputs: token ids, or for vlm the frontend's embeds (B, S, d) with
+  M-RoPE positions (3, B, S), or for encdec the frontend's frames (B,
+  S_enc, d) beside the decoder's tokens (both frontends are stubbed, as in
+  the JAX package);
+* the serve caches: ``{"k", "v": (L, B, cap, KV, dh)}`` for dense, moe and
+  vlm, linear, or rolling over ``min(window, seq)`` slots for a sliding
+  window; those plus the cross-attention's ``{"ck", "cv": (L, B, S_enc,
+  KV, dh)}`` for encdec; ``{"conv", "ssm"}`` per mamba layer for ssm; and
+  for hybrid those plus ``{"shared_k", "shared_v"}`` per invocation of the
+  shared block; each with ``"pos"``, a Python int;
 * the MoE layers hold whole experts (see :func:`moe.merge_virtual_experts`);
 * parameters are cast to ``cfg.compute_dtype`` where the JAX package casts
   them, so a ``bfloat16`` run rounds where the reference rounds; the loss
   runs in f32 over the padded vocab.
 
-The encdec and vlm families (whisper, qwen2-vl) and a ``ShardCtx`` raise
+A ``ShardCtx`` (the JAX package's vocab-parallel, sharded LMs) raises
 ``NotImplementedError`` naming ROADMAP A10.
 """
 from __future__ import annotations
@@ -59,13 +64,10 @@ __all__ = [
 ]
 
 AUX_LOSS_WEIGHT = 0.01
-_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+_ATTN_FAMILIES = ("dense", "moe", "vlm")  # a stack of dense_block layers
 
 
-def _check_ported(cfg: ArchConfig, ctx=None) -> None:
-    if cfg.family not in _FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.arch}) is not ported yet: ROADMAP A10")
+def _check_ported(ctx) -> None:
     if ctx is not None:
         raise NotImplementedError("sharded LMs (a ShardCtx) are not ported yet: ROADMAP A10")
 
@@ -105,7 +107,7 @@ def _dense_layer_init(cfg: ArchConfig, generator) -> Params:
     if cfg.moe is not None:
         p["moe"] = moe_init(generator, cfg.d_model, cfg.moe)
     else:
-        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff)
+        p["mlp"] = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp)
     return p
 
 
@@ -122,46 +124,71 @@ def _shared_block_init(cfg: ArchConfig, generator) -> Params:
         "ln1": norm_init(generator),
         "attn": L.attn_init(generator, d2, attn_spec(cfg)),
         "ln2": norm_init(generator),
-        "mlp": L.mlp_init(generator, d2, cfg.d_ff),
+        "mlp": L.mlp_init(generator, d2, cfg.d_ff, cfg.mlp),
         "proj_out": L.dense_init(generator, (d2, cfg.d_model)),
     }
+
+
+def _encdec_layer_init(cfg: ArchConfig, generator, *, cross: bool) -> Params:
+    """Whisper's encoder layer, or (``cross``) its decoder layer, which adds
+    the cross-attention and its norm."""
+    norm_init, _ = L.make_norm(cfg.norm, cfg.d_model)
+    p = {
+        "ln1": norm_init(generator),
+        "attn": L.attn_init(generator, cfg.d_model, attn_spec(cfg)),
+        "ln2": norm_init(generator),
+        "mlp": L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.mlp),
+    }
+    if cross:
+        p["ln_x"] = norm_init(generator)
+        p["xattn"] = L.attn_init(generator, cfg.d_model, attn_spec(cfg, causal=False))
+    return p
 
 
 def init_params(cfg: ArchConfig, generator: torch.Generator | None = None) -> Params:
     """Fresh f32 parameters drawn from ``generator``, on its device (the JAX
     package's initializers; the values differ from ``jax.random``'s)."""
-    _check_ported(cfg)
-    if cfg.mlp != "swiglu":
-        raise NotImplementedError(f"mlp {cfg.mlp!r}: the port's LM families run SwiGLU")
     norm_init, _ = L.make_norm(cfg.norm, cfg.d_model)
     vpad, d = cfg.vocab_padded, cfg.d_model
-    layer_init = _mamba_layer_init if cfg.family in ("ssm", "hybrid") else _dense_layer_init
-    p = {
-        "embed": L.embed_init(generator, (vpad, d)),
-        "final_norm": norm_init(generator),
-        "layers": [layer_init(cfg, generator) for _ in range(cfg.n_layers)],
-        "lm_head": L.dense_init(generator, (d, vpad)),
-    }
+    p = {"embed": L.embed_init(generator, (vpad, d)), "final_norm": norm_init(generator)}
+    if cfg.family in _ATTN_FAMILIES:
+        p["layers"] = [_dense_layer_init(cfg, generator) for _ in range(cfg.n_layers)]
+    elif cfg.family in ("ssm", "hybrid"):
+        p["layers"] = [_mamba_layer_init(cfg, generator) for _ in range(cfg.n_layers)]
+    elif cfg.family == "encdec":
+        p["enc_layers"] = [_encdec_layer_init(cfg, generator, cross=False)
+                           for _ in range(cfg.enc_layers)]
+        p["layers"] = [_encdec_layer_init(cfg, generator, cross=True)
+                       for _ in range(cfg.n_layers)]
+    else:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    p["lm_head"] = L.dense_init(generator, (d, vpad))
     if cfg.family == "hybrid":
         p["shared"] = _shared_block_init(cfg, generator)
+    if cfg.family == "encdec":
+        p["enc_final_norm"] = norm_init(generator)
+        p["pos_emb"] = L.embed_init(generator, (cfg.max_target_positions, d))
     return p
 
 
 def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
     """The JAX package's ``init_params`` tree, as numpy arrays, in the port's
-    form: each stacked ``layers`` leaf (leading ``n_layers`` axis) split
-    into per-layer entries, an MoE layer's virtual experts merged into whole
-    ones (:func:`moe.merge_virtual_experts`), ``shared`` as it is, every
-    leaf an f32 tensor on ``device``."""
-    _check_ported(cfg)
-
+    form: each stacked ``layers`` and ``enc_layers`` leaf (leading layer
+    axis) split into per-layer entries, an MoE layer's virtual experts
+    merged into whole ones (:func:`moe.merge_virtual_experts`), every other
+    leaf (``shared``, ``pos_emb``, ``enc_final_norm``, ...) as it is, each
+    an f32 tensor on ``device``."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
 
-    out = {k: tree_map(t, v) for k, v in params_np.items() if k != "layers"}
-    stacked = params_np["layers"]
-    out["layers"] = [tree_map(lambda a, i=i: t(np.asarray(a)[i]), stacked)
-                     for i in range(cfg.n_layers)]
+    stacks = {"layers": cfg.n_layers, "enc_layers": cfg.enc_layers}
+    out = {}
+    for key, v in params_np.items():
+        if key in stacks:
+            out[key] = [tree_map(lambda a, i=i: t(np.asarray(a)[i]), v)
+                        for i in range(stacks[key])]
+        else:
+            out[key] = tree_map(t, v)
     if cfg.moe is not None:
         for lp in out["layers"]:
             lp["moe"] = merge_virtual_experts(lp["moe"], cfg.moe.n_experts)
@@ -174,7 +201,7 @@ def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    _check_ported(cfg, ctx)
+    _check_ported(ctx)
     return params["embed"][tokens.long()]
 
 
@@ -209,7 +236,7 @@ def _norm(cfg: ArchConfig, p, x):
 
 def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_pos=None,
                 cache_mode="linear", q_chunk=None):
-    """Pre-norm attention, then SwiGLU or (``cfg.moe``) the routed experts
+    """Pre-norm attention, then the MLP or (``cfg.moe``) the routed experts
     -> (h, new cache or None, the MoE aux loss or 0)."""
     a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], h), attn_spec(cfg),
                                   positions=positions, kv_cache=cache, cache_pos=cache_pos,
@@ -219,7 +246,7 @@ def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_p
     if cfg.moe is not None:
         mo, aux = moe_apply(p["moe"], m_in, cfg.moe)
     else:
-        mo, aux = L.mlp_apply(p["mlp"], m_in), torch.zeros((), device=h.device)
+        mo, aux = L.mlp_apply(p["mlp"], m_in, cfg.mlp), torch.zeros((), device=h.device)
     return h + mo, new_cache, aux
 
 
@@ -232,7 +259,7 @@ def shared_block(cfg: ArchConfig, p: Params, h, emb0, positions, *, cache=None,
                                   positions=positions, kv_cache=cache, cache_pos=cache_pos,
                                   q_chunk=q_chunk)
     g = g + a
-    g = g + L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], g))
+    g = g + L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], g), cfg.mlp)
     return h + g @ p["proj_out"].to(h.dtype), new_cache
 
 
@@ -244,15 +271,16 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
                 want_cache: ShapeCfg | None = None):
     """Full-sequence forward -> (hidden (B, S, d), aux loss, caches or None);
     ``want_cache`` (a decode ShapeCfg) builds the serve caches (prefill)."""
-    _check_ported(cfg, ctx)
-    tokens = batch["tokens"]
-    bsz, seq = tokens.shape
-    h = embed_tokens(cfg, params, tokens).to(_dtype(cfg.compute_dtype))
+    _check_ported(ctx)
+    cap = _cache_capacity(cfg, want_cache) if want_cache is not None else 0
+    if cfg.family == "encdec":
+        return _encdec_forward(cfg, params, batch, want_cache is not None, cap)
+    h = _embed_input(cfg, params, batch)
+    bsz, seq = h.shape[:2]
     positions = batch.get("positions")
     if positions is None:
         positions = _positions(bsz, seq, 0, h.device)
     q_chunk = cfg.q_chunk if seq > cfg.q_chunk else None
-    cap = _cache_capacity(cfg, want_cache) if want_cache is not None else 0
     aux = torch.zeros((), device=h.device)
     if cfg.family in ("ssm", "hybrid"):
         h, caches = _mamba_forward(cfg, params, h, positions, want_cache is not None, cap,
@@ -271,6 +299,65 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
         caches["pos"] = seq
     h = _norm(cfg, params["final_norm"], h)
     return h, aux, caches
+
+
+def _embed_input(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+    """The stack's input in the compute dtype: ``batch["embeds"]`` for an
+    embeds config (vlm; ``params["embed"]`` is not read), else the token
+    embedding."""
+    if cfg.input_kind == "embeds":
+        h = batch["embeds"]
+    else:
+        h = embed_tokens(cfg, params, batch["tokens"])
+    return h.to(_dtype(cfg.compute_dtype))
+
+
+def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: bool, cap: int):
+    """Whisper: the frames plus sinusoidal positions through the non-causal
+    encoder and ``enc_final_norm``; the token embedding plus ``pos_emb``
+    through the decoder (causal self-attention, cross-attention on the
+    encoder's output, the MLP).  The frames' length S_enc and the tokens'
+    S_dec are independent; with ``build_cache`` each decoder layer's
+    ``k``/``v`` fill ``cap`` slots and ``ck``/``cv`` (the encoder output's
+    cross K/V) S_enc -> (h, 0, caches or None)."""
+    cdt = _dtype(cfg.compute_dtype)
+    frames = batch["frames"].to(cdt)
+    bsz, s_enc = frames.shape[:2]
+    enc_h = frames + L.sinusoidal_positions(s_enc, cfg.d_model, cdt, frames.device)[None]
+    enc_pos = _positions(bsz, s_enc, 0, frames.device)
+    enc_spec = xspec = attn_spec(cfg, causal=False)
+    for lp in params["enc_layers"]:
+        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], enc_h), enc_spec,
+                              positions=enc_pos, q_chunk=cfg.q_chunk)
+        enc_h = enc_h + a
+        enc_h = enc_h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], enc_h), cfg.mlp)
+    enc_h = _norm(cfg, params["enc_final_norm"], enc_h)
+
+    tokens = batch["tokens"]
+    s_dec = tokens.shape[1]
+    h = embed_tokens(cfg, params, tokens).to(cdt) + params["pos_emb"][None, :s_dec].to(cdt)
+    pos = _positions(bsz, s_dec, 0, h.device)
+    spec = attn_spec(cfg)
+    kvh, dh = spec.n_kv_heads, spec.head_dim
+    caches = {"k": [], "v": [], "ck": [], "cv": []}
+    for lp in params["layers"]:
+        if build_cache:
+            k, v = _extract_kv(cfg, lp["attn"], _norm(cfg, lp["ln1"], h), pos, cap)
+            caches["k"].append(k)
+            caches["v"].append(v)
+            caches["ck"].append((enc_h @ lp["xattn"]["wk"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
+            caches["cv"].append((enc_h @ lp["xattn"]["wv"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
+        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec, positions=pos,
+                              q_chunk=cfg.q_chunk)
+        h = h + a
+        xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec, positions=pos,
+                               kv_x=enc_h, q_chunk=cfg.q_chunk)
+        h = h + xa
+        h = h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+    caches = ({k: torch.stack(v) for k, v in caches.items()} | {"pos": s_dec}
+              if build_cache else None)
+    h = _norm(cfg, params["final_norm"], h)
+    return h, torch.zeros((), device=h.device), caches
 
 
 def _mamba_layer(cfg: ArchConfig, lp: Params, h, want_state: bool):
@@ -329,8 +416,9 @@ def _cache_capacity(cfg: ArchConfig, shape: ShapeCfg) -> int:
 
 
 def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
-    """One layer's cache-ready K/V (rope-rotated) in ``cap`` slots;
-    recomputes the projections, as the JAX package does."""
+    """One layer's cache-ready K/V (rope-rotated at ``positions``, (B, S) or
+    M-RoPE's (3, B, S)) in ``cap`` slots; recomputes the projections, as the
+    JAX package does."""
     spec = attn_spec(cfg)
     bsz, seq, dt = x.shape[0], x.shape[1], x.dtype
     kvh, dh = spec.n_kv_heads, spec.head_dim
@@ -367,10 +455,11 @@ def _pack_cache(cfg: ArchConfig, kv: torch.Tensor, cap: int) -> torch.Tensor:
 def init_cache(cfg: ArchConfig, shape: ShapeCfg, dtype=torch.bfloat16, pos: int | None = None,
                device=None) -> dict:
     """Zero serve cache for a decode shape: ``min(window, shape.seq)`` KV
-    slots per attention layer (``shape.seq`` without a window), a zero
-    mamba state per mamba layer; ``pos`` (default ``shape.seq - 1``) is the
-    position the next decode step takes."""
-    _check_ported(cfg)
+    slots per attention layer (``shape.seq`` without a window), for encdec
+    also ``shape.seq`` cross K/V slots per decoder layer (a prefill's
+    ``ck``/``cv`` have the frames' own length), a zero mamba state per
+    mamba layer; ``pos`` (default ``shape.seq - 1``) is the position the
+    next decode step takes."""
     cap, b = _cache_capacity(cfg, shape), shape.batch
     pos = shape.seq - 1 if pos is None else pos
 
@@ -378,8 +467,14 @@ def init_cache(cfg: ArchConfig, shape: ShapeCfg, dtype=torch.bfloat16, pos: int 
         return torch.zeros(size, dtype=dtype, device=device)
 
     kv = (b, cap, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in _ATTN_FAMILIES:
         return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv), "pos": pos}
+    if cfg.family == "encdec":
+        xkv = (b, shape.seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": zeros(cfg.n_layers, *kv), "v": zeros(cfg.n_layers, *kv),
+                "ck": zeros(cfg.n_layers, *xkv), "cv": zeros(cfg.n_layers, *xkv), "pos": pos}
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"unknown family {cfg.family!r}")
     conv, ssm = mamba_init_state(cfg.ssm, b, dtype, device)
     cache = {"conv": zeros(cfg.n_layers, *conv.shape), "ssm": zeros(cfg.n_layers, *ssm.shape),
              "pos": pos}
@@ -391,15 +486,37 @@ def init_cache(cfg: ArchConfig, shape: ShapeCfg, dtype=torch.bfloat16, pos: int 
 
 def decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx=None):
     """One-token decode -> (logits (B, 1, Vpad), new cache); ``cache`` is
-    not written."""
-    _check_ported(cfg, ctx)
+    not written.  ``batch`` holds ``tokens`` (B, 1), or for vlm ``embeds``
+    (B, 1, d) and M-RoPE ``positions`` (3, B, 1).  Whisper's decoder adds
+    ``pos_emb`` at ``pos`` (clamped to the table, as the JAX package's
+    ``dynamic_slice``) and attends across to the cache's ``ck``/``cv``,
+    which it carries over as they are."""
+    _check_ported(ctx)
     pos = cache["pos"]
-    tokens = batch["tokens"]  # (B, 1)
-    h = embed_tokens(cfg, params, tokens).to(_dtype(cfg.compute_dtype))
+    h = _embed_input(cfg, params, batch)  # (B, 1, d)
     positions = batch.get("positions")
-    if positions is None:
-        positions = _positions(tokens.shape[0], 1, pos, h.device)
-    if cfg.family in ("dense", "moe"):
+    if positions is None or cfg.family == "encdec":
+        positions = _positions(h.shape[0], 1, pos, h.device)
+    if cfg.family == "encdec":
+        row = min(max(pos, 0), params["pos_emb"].shape[0] - 1)
+        h = h + params["pos_emb"][None, row:row + 1].to(h.dtype)
+        spec, xspec = attn_spec(cfg), attn_spec(cfg, causal=False)
+        ks, vs = [], []
+        for i, lp in enumerate(params["layers"]):
+            a, (k, v) = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec,
+                                       positions=positions, cache_pos=pos,
+                                       kv_cache=(cache["k"][i], cache["v"][i]))
+            h = h + a
+            xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec,
+                                   positions=positions,
+                                   precomputed_kv=(cache["ck"][i], cache["cv"][i]))
+            h = h + xa
+            h = h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+            ks.append(k)
+            vs.append(v)
+        new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "ck": cache["ck"],
+                     "cv": cache["cv"]}
+    elif cfg.family in _ATTN_FAMILIES:
         mode = "rolling" if cfg.window is not None else "linear"
         ks, vs = [], []
         for i, lp in enumerate(params["layers"]):
@@ -462,7 +579,7 @@ def make_train_step(cfg: ArchConfig, ctx, optimizer, shape: ShapeCfg):
     for the forward, the loss in f32 plus ``AUX_LOSS_WEIGHT`` times the MoE
     aux loss, gradients accumulated over ``cfg.grad_accum[shape.name]``
     strided microbatches (in the compute dtype with ``low_precision_opt``)."""
-    _check_ported(cfg, ctx)
+    _check_ported(ctx)
     accum = max(min(cfg.grad_accum.get(shape.name, 1), shape.batch), 1)
     cdt = _dtype(cfg.compute_dtype)
 
@@ -500,7 +617,7 @@ def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
     > 1`` the batch is prefilled as ``mb`` strided sub-batches (``v[i::mb]``,
     ``positions`` on its axis 1), and the logits and every cache leaf are
     interleaved back into the batch's order, as in the JAX package."""
-    _check_ported(cfg, ctx)
+    _check_ported(ctx)
     mb = max(min(cfg.serve_microbatch.get(shape.name, 1), shape.batch), 1)
 
     def one(params, batch):
@@ -535,7 +652,7 @@ def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
 
 
 def make_serve_step(cfg: ArchConfig, ctx):
-    _check_ported(cfg, ctx)
+    _check_ported(ctx)
 
     def serve_step(params, cache, batch):
         return decode_step(cfg, params, cache, batch)

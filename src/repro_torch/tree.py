@@ -82,12 +82,14 @@ def value_and_grad(fn: Callable, tree: Any, *args, has_aux: bool = False):
     """``(fn(tree, *args), grads)`` with ``grads`` shaped like ``tree``: the
     leaves are detached copies that require grad, so ``tree`` itself is not
     touched.  ``fn`` returns a scalar loss, or ``(loss, aux)`` with
-    ``has_aux``; the returned values are detached."""
+    ``has_aux``; the returned values are detached.  A leaf the loss does
+    not read gets a zero gradient, as under ``jax.grad``."""
     flat, treedef = flatten(tree)
     with torch.enable_grad():
         live = [x.detach().requires_grad_() for x in flat]
         out = fn(unflatten(treedef, live), *args)
         loss = out[0] if has_aux else out
-        grads = torch.autograd.grad(loss, live)
+        grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)]
     out = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, out)
     return out, unflatten(treedef, grads)

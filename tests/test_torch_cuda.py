@@ -1167,7 +1167,69 @@ def test_family_lm_on_card_matches_cpu(cuda, arch):
     assert float((dec - want).abs().max()) < 2e-3 * max(float(want.abs().max()), 1.0)
 
 
-@pytest.mark.parametrize("arch", ["dlrm", "qwen3-0.6b", "granite-moe-3b-a800m", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "qwen2-vl-2b"])
+def test_encdec_vlm_lm_on_card_matches_cpu(cuda, arch):
+    """A SMOKE encdec or vlm LM on the card (whisper's 40 frames beside its
+    tokens; qwen2-vl's embeds and (3, B, S) M-RoPE positions): the first
+    train step's loss and update (SGD at lr 1) against the CPU twin within
+    1e-5; the prefill's caches (whisper's ``ck``/``cv`` over the frames)
+    and every decode step's logits and cache against the CPU twin's within
+    1e-5; and decode against the card's full forward within the JAX
+    package's bound."""
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import sgd
+    from repro_torch.tree import leaves, tree_map
+
+    bundle = registry.build(arch, smoke=True)
+    cfg = bundle.cfg
+    params = bundle.init(torch.Generator().manual_seed(0))
+    shape = ShapeCfg("smoke", "train", 64, 2)
+    batch = bundle.make_batch(shape, torch.Generator().manual_seed(1))
+    if "frames" in batch:
+        batch["frames"] = batch["frames"][:, :40]
+    s0, seq = 40, 52
+
+    def prefix(inputs, n):
+        return {k: v if k == "frames" else v[..., :n] if k == "positions" else v[:, :n]
+                for k, v in inputs.items() if k != "labels"}
+
+    def step(inputs, t):
+        return {k: v[..., t:t + 1] if k == "positions" else v[:, t:t + 1]
+                for k, v in inputs.items() if k not in ("frames", "labels")}
+
+    out = {}
+    for dev in ("cpu", cuda):
+        p = tree_map(lambda x: x.to(dev), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        opt = sgd(1.0)
+        new, _, m = T.make_train_step(cfg, None, opt, shape)(p, opt.init(p), b)
+        logits, cache = T.make_prefill_step(cfg, None, ShapeCfg("t", "decode", seq, 2))(
+            p, prefix(b, s0))
+        steps = [(logits, cache)]
+        for t in range(s0, seq):
+            steps.append(T.decode_step(cfg, p, steps[-1][1], step(b, t)))
+        out[str(dev)] = new, m, steps
+    np.testing.assert_allclose(float(out["cuda"][1]["loss"]), float(out["cpu"][1]["loss"]),
+                               rtol=1e-5)
+    for a, b_ in zip(leaves(out["cuda"][0]), leaves(out["cpu"][0])):
+        torch.testing.assert_close(a.cpu(), b_, rtol=1e-5, atol=1e-5)
+    for (lg, c), (w_lg, w_c) in zip(out["cuda"][2], out["cpu"][2]):
+        torch.testing.assert_close(lg.cpu(), w_lg, rtol=1e-5, atol=1e-5)
+        assert c["pos"] == w_c["pos"] and sorted(c) == sorted(w_c)
+        for k in w_c:
+            if k != "pos":
+                torch.testing.assert_close(c[k].cpu(), w_c[k], rtol=1e-5, atol=1e-5)
+    p, b = tree_map(lambda x: x.to(cuda), params), {k: v.to(cuda) for k, v in batch.items()}
+    dec = torch.cat([lg for lg, _ in out["cuda"][2][:-1]], dim=1)
+    h, _, _ = T.forward_seq(cfg, p, prefix(b, seq))
+    want = T.lm_logits(cfg, p, h)[:, s0 - 1:seq - 1]
+    assert float((dec - want).abs().max()) < 2e-3 * max(float(want.abs().max()), 1.0)
+
+
+@pytest.mark.parametrize("arch", ["dlrm", "qwen3-0.6b", "granite-moe-3b-a800m", "zamba2-1.2b",
+                                  "whisper-small", "qwen2-vl-2b"])
 def test_train_cli_on_card(cuda, arch, tmp_path, capsys):
     from repro_torch.launch import train
 
