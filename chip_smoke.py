@@ -193,6 +193,16 @@ X] <message>`` before it raises):
       decode steps whose positions carry on from the layout, within the
       bound of the card's full forward over the 272 embeds; then bf16,
       finite, as above;
+   T-shard. T-lm's olmo-1b (4 layers, f32) with a ``ShardCtx`` on the
+      single-pod production mesh shape (data 16, model 16): the embedding
+      as 16 vocab shards of 3,152 rows; one AdamW step at 2 x 512, a 2 x
+      256 prefill and 16 decode steps against the same with ``ctx=None``:
+      the loss within 1e-6 relative, the logits within ``1e-6 * max(|ref|,
+      1)``; both ways' step, prefill and decode times and the embedding's
+      device time;
+   T-remat. the same model at 4 x 4096: the loss and every gradient with
+      and without per-layer remat within 1e-6 relative; one step each way
+      timed, with its peak allocated memory above the step's start;
    T-cli. the train CLI as a subprocess on the card for the DLRM (20
       steps), qwen3-0.6b, granite-moe-3b-a800m, whisper-small and
       qwen2-vl-2b (10 steps each): exit code 0 and ``[train] done``.
@@ -369,8 +379,9 @@ def profile_calls(fn, calls: int = 10, sessions: int = 3) -> dict:
     CUDA kernels (and copies) it launches on the current stream, per call,
     summed over them, the number of such launches per call, and the time of
     each by name.  A session whose recorded markers do not bracket the
-    calls, or that records no device time, is run again, up to ``sessions``
-    in all; then the time is "not measured"."""
+    calls, whose launches are no multiple of the calls, or that records no
+    device time, is run again, up to ``sessions`` in all; then the time is
+    "not measured"."""
     import torch
 
     fn()
@@ -392,7 +403,10 @@ def profile_calls(fn, calls: int = 10, sessions: int = 3) -> dict:
         ids = {e.device_resource_id for e in events if MARK in e.name}
         ours = [e for e in events if e.device_resource_id in ids and MARK not in e.name]
         starts = [e.time_range.start for e in ours]
-        if (len(ids) == 1 and ours and min(marks) <= min(starts) <= max(starts) <= max(marks)
+        # every call launches the same kernels: a count that is no multiple
+        # of the calls means the session lost some of their records
+        if (len(ids) == 1 and ours and len(ours) % calls == 0
+                and min(marks) <= min(starts) <= max(starts) <= max(marks)
                 and sum(e.self_device_time_total for e in ours) > 0):
             break
         ours = []
@@ -2314,6 +2328,8 @@ T_VLM_TRAIN_ROWS = ([("text", 64), ("image", 16, 24), ("text", 64)],
 T_VLM_PREFILL_ROW = [("text", 32), ("image", 12, 16), ("text", 32)]
 # mixtral's batch-split prefill: serve_microbatch["prefill_32k"] = 2
 T_SWA_SPLIT = ("prefill_32k", 2, 5120)
+# T-remat: olmo-1b at T-lm's cut, one train step at batch x seq
+T_REMAT_SHAPE = (4, 4096)
 
 
 def grad_path() -> dict:
@@ -2630,19 +2646,19 @@ def _family_train(name, cfgs, params, bundle, train_bs) -> dict:
     return out
 
 
-def _decode_logits(cfg, params, inputs, s0):
+def _decode_logits(cfg, params, inputs, s0, ctx=None):
     """Prefill the first ``s0`` positions of ``inputs``, then teacher-forced
-    decode of the rest -> (the prefill's and each step's logits but the
-    last, (B, S - s0, V); the prefill step; the serve step; the prefill's
-    cache)."""
+    decode of the rest (under ``ctx``) -> (the prefill's and each step's
+    logits but the last, (B, S - s0, V); the prefill step; the serve step;
+    the prefill's cache)."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.models import transformer as T
 
     b, seq = _batch_seq(inputs)
-    prefill = T.make_prefill_step(cfg, None, ShapeCfg("t-family", "decode", seq, b))
-    serve = T.make_serve_step(cfg, None)
+    prefill = T.make_prefill_step(cfg, ctx, ShapeCfg("t-family", "decode", seq, b))
+    serve = T.make_serve_step(cfg, ctx)
     logits, cache = prefill(params, _prefix(inputs, s0))
     start, dec = cache, [logits]
     for t in range(s0, seq):
@@ -2800,6 +2816,169 @@ def moe_drops():
         T.moe_apply = orig
 
 
+def _lm_cut(arch: str, layers: int):
+    """``arch``'s published config at ``layers`` layers in f32, and the
+    ``reduced`` record of the cut."""
+    from repro_torch.models import registry
+
+    full = registry.build(arch).cfg
+    return (dataclasses.replace(full, n_layers=layers, compute_dtype="float32"),
+            {"n_layers": [full.n_layers, layers]})
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max(max |want|, 1)."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1.0)
+
+
+def shard_path() -> dict:
+    """T-shard: T-lm's olmo-1b (4 of 16 layers, d 2048, vocab padded to
+    50,432, f32) with a ``ShardCtx`` on the single-pod production mesh shape
+    (data 16, model 16): the embedding runs as 16 vocab shards of 3,152
+    rows, the batch of 2 is not split (``shard_batch`` false).  One AdamW
+    train step at 2 x 512 (remat on), a 2 x 256 prefill and 16 decode steps,
+    each against the same work with ``ctx=None`` on the card: the loss
+    within 1e-6 relative, the prefill's and decode's logits within ``1e-6 *
+    max(|ref|, 1)``; whether each is bitwise equal is recorded.  Recorded
+    both ways: ``train_step_ms``, ``prefill_ms``, ``decode_ms_per_token``
+    (host clock around synchronized work, median) and the embedding's device
+    time at the train and the decode shape (``profile_calls``)."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.launch.dryrun import make_ctx
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw
+
+    arch, layers, (b, s), (pb, ps), _ = T_FAMILY["T-lm"]
+    cfg, reduced = _lm_cut(arch, layers)
+    bundle = registry.Bundle(cfg)
+    mesh = make_production_mesh()
+    shape = ShapeCfg("t-shard", "train", s, b)
+    ctx = make_ctx(mesh, shape, False)
+    k = mesh.shape[ctx.model_axis]
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0))
+    batch = _train_batch(bundle, shape)
+    inputs = _serve_inputs("T-shard", bundle, pb, ps + T_FAMILY_DECODE)
+    first, one = _prefix(inputs, ps), _step(inputs, ps)
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    rec = {"t_shard": arch, "mesh": mesh.shape, "vocab_padded": cfg.vocab_padded,
+           "vocab_shards": k, "shard_rows": cfg.vocab_padded // k,
+           "shard_batch": ctx.shard_batch, "reduced": reduced, "train": [b, s],
+           "prefill": [pb, ps], "decode_steps": T_FAMILY_DECODE}
+    out = {}
+    for label, c in (("sharded", ctx), ("unsharded", None)):
+        step = T.make_train_step(cfg, c, opt, shape)
+        loss = step(params, state, batch)[2]["loss"]
+        dec, prefill, serve, start = _decode_logits(cfg, params, inputs, ps, c)
+        out[label] = (loss, dec)
+        rec[label] = {
+            "loss": float(loss),
+            "train_step_ms": host_ms(lambda: (step(params, state, batch),
+                                              torch.cuda.synchronize()), iters=3),
+            "prefill_ms": host_ms(lambda: (prefill(params, first), torch.cuda.synchronize()),
+                                  iters=3),
+            "decode_ms_per_token": host_ms(lambda: (serve(params, start, one),
+                                                    torch.cuda.synchronize()), iters=5),
+            "embed_device_ms": {
+                "train": profile_calls(lambda: T.embed_tokens(cfg, params, batch["tokens"], c),
+                                       calls=5)["device_ms"],
+                "decode": profile_calls(lambda: T.embed_tokens(cfg, params, one["tokens"], c),
+                                        calls=5)["device_ms"]},
+        }
+        del start
+    (loss, dec), (loss0, dec0) = out["sharded"], out["unsharded"]
+    loss_rel = float((loss - loss0).abs()) / abs(float(loss0))
+    logits_rel = _rel(dec, dec0)
+    rec.update(loss_rel_err=loss_rel, logits_rel_err=logits_rel,
+               loss_bitwise=bool(torch.equal(loss, loss0)),
+               logits_bitwise=bool(torch.equal(dec, dec0)),
+               max_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(json.dumps(rec), flush=True)
+    check(loss_rel <= 1e-6, f"[T-shard] sharded loss {float(loss)} vs {float(loss0)}")
+    check(logits_rel <= 1e-6, f"[T-shard] prefill/decode logits off by {logits_rel} relative")
+    del params, state, out, dec, dec0
+    torch.cuda.empty_cache()
+    return {}
+
+
+def remat_path() -> dict:
+    """T-remat: olmo-1b at T-lm's cut (4 of 16 layers, f32) at
+    ``T_REMAT_SHAPE`` (4 x 4096).  The loss and every gradient of the train
+    step's loss with ``forward_seq(remat=True)`` against the same loss with
+    ``remat=False``: within 1e-6 relative (bitwise recorded).  Then one
+    AdamW step each way, timed (host clock, median of 3): ``make_train_step``
+    (remat on) and this script's own step around ``forward_seq(remat=
+    False)``; each step's peak allocated card memory above what was
+    allocated when it began."""
+    import torch
+
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw
+    from repro_torch.tree import leaves, value_and_grad
+
+    arch, layers = T_FAMILY["T-lm"][:2]
+    cfg, reduced = _lm_cut(arch, layers)
+    b, s = T_REMAT_SHAPE
+    shape = ShapeCfg("t-remat", "train", s, b)
+    bundle = registry.Bundle(cfg)
+    params = bundle.init(torch.Generator(DEVICE).manual_seed(0))
+    batch = _train_batch(bundle, shape)
+    opt = adamw(3e-4)
+
+    def loss_fn(remat):
+        def fn(p, mb):
+            h, aux, _ = T.forward_seq(cfg, p, mb, remat=remat)
+            loss = T.ce_loss(cfg, T.lm_logits(cfg, p, h), mb["labels"])
+            return loss + T.AUX_LOSS_WEIGHT * aux, (loss, aux)
+        return fn
+
+    # the remat gradients wait on the host while the plain backward, the
+    # largest allocation of the script, runs
+    (l1, _), g1 = value_and_grad(loss_fn(True), params, batch, has_aux=True)
+    g1 = [x.cpu() for x in leaves(g1)]
+    (l0, _), g0 = value_and_grad(loss_fn(False), params, batch, has_aux=True)
+    g0 = [x.cpu() for x in leaves(g0)]
+    grad_rel = max(_rel(x, y) for x, y in zip(g1, g0))
+    grads_bitwise = all(torch.equal(x, y) for x, y in zip(g1, g0))
+    loss_rel = float((l1 - l0).abs()) / abs(float(l0))
+    rec = {"t_remat": arch, "reduced": reduced, "batch": b, "seq": s, "loss": float(l1),
+           "loss_rel_err": loss_rel, "loss_bitwise": bool(torch.equal(l1, l0)),
+           "grad_rel_err": grad_rel, "grads_bitwise": grads_bitwise}
+    del g0, g1
+    state = opt.init(params)
+
+    def plain_step(p, st, mb):
+        (_, (loss, aux)), grads = value_and_grad(loss_fn(False), p, mb, has_aux=True)
+        new_p, new_st = opt.update(grads, st, p)
+        return new_p, new_st, {"loss": loss, "aux": aux}
+
+    for label, step in (("remat", T.make_train_step(cfg, None, opt, shape)),
+                        ("plain", plain_step)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(params, state, batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        ms = host_ms(lambda: (step(params, state, batch), torch.cuda.synchronize()), iters=3)
+        rec[label] = {"train_step_ms": ms, "tokens_per_s": b * s / ms * 1e3,
+                      "peak_above_start_gb": peak}
+    print(json.dumps(rec), flush=True)
+    check(loss_rel <= 1e-6, f"[T-remat] loss with remat {float(l1)} vs without {float(l0)}")
+    check(grad_rel <= 1e-6, f"[T-remat] gradients off by {grad_rel} relative")
+    del params, state
+    torch.cuda.empty_cache()
+    return {}
+
+
 def train_cli_path(tmp: Path) -> dict:
     """T-cli: the train CLI on the card as a subprocess, for the DLRM,
     qwen3-0.6b, granite-moe-3b-a800m, whisper-small and qwen2-vl-2b (their
@@ -2863,6 +3042,10 @@ def main(argv=None) -> int:
     counts = {name: sum(r["counts"][name] for r in runs.values()) for name in KERNELS}
     with phase("kernels"):
         kernels = kernel_phase(runs, counts)
+    for r in runs.values():  # the later phases need the card's memory, not these engines
+        r.pop("engine", None)
+        r.pop("indices", None)
+    torch.cuda.empty_cache()
     # the preset paths run last: no profiler session of this script's own is
     # open while a shadow build can run
     for label in PRESETS:
@@ -2887,6 +3070,10 @@ def main(argv=None) -> int:
         for name in T_FAMILY:
             with phase(name):
                 family_path(name)
+        with phase("T-shard"):
+            shard_path()
+        with phase("T-remat"):
+            remat_path()
         with phase("T-cli"):
             train_cli_path(Path(tmp))
     for rec in kernels:

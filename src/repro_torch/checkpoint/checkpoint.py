@@ -12,7 +12,8 @@ Layout::
   leaves are copied to the host before the writer thread starts, so the
   caller may go on updating its tensors;
 * ``restore`` validates the manifest and each leaf's shape, and places each
-  leaf on the device of the leaf it replaces;
+  leaf on its placement's device (``shardings``, the elastic restart) or
+  on the device of the leaf it replaces;
 * ``latest_step``/``cleanup`` implement keep-last-N retention;
 * a torn checkpoint (no ``_COMPLETE``) is ignored by restore; the loop's
   crash recovery (training/loop.py) relies on this.
@@ -105,12 +106,17 @@ def latest_step(directory: str | Path) -> int | None:
     return s[-1] if s else None
 
 
-def restore(directory: str | Path, step: int | None, tree_like: Any) -> tuple[Any, int]:
+def restore(directory: str | Path, step: int | None, tree_like: Any, *,
+            shardings: Any = None) -> tuple[Any, int]:
     """Load checkpoint ``step`` (or the latest complete one) into the
-    structure of ``tree_like``: each leaf as a tensor on the device of the
-    ``tree_like`` leaf it replaces (the CPU for a non-tensor leaf).  Raises
-    ``FileNotFoundError`` without a complete checkpoint and ``ValueError``
-    on a leaf count or shape that differs."""
+    structure of ``tree_like``.  Each leaf goes to the device of its
+    placement in ``shardings`` (the same structure, leaves with a
+    ``device``, as :func:`repro_torch.sharding.with_sharding` builds them:
+    the elastic restart, structure from ``param_struct``, placement from
+    the new topology); without one, to the device of the ``tree_like``
+    leaf it replaces, or the CPU for a ``meta`` or non-tensor leaf.
+    Raises ``FileNotFoundError`` without a complete checkpoint and
+    ``ValueError`` on a leaf count or shape that differs."""
     directory = Path(directory)
     if step is None:
         step = latest_step(directory)
@@ -124,8 +130,13 @@ def restore(directory: str | Path, step: int | None, tree_like: Any) -> tuple[An
     if len(manifest["leaves"]) != len(like_leaves):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"the tree {len(like_leaves)}")
+    placements = [None] * len(like_leaves)
+    if shardings is not None:
+        placements, shard_def = flatten(shardings)
+        if shard_def != treedef:
+            raise ValueError("shardings do not have the structure of tree_like")
     loaded = []
-    for i, (meta, like) in enumerate(zip(manifest["leaves"], like_leaves)):
+    for i, (meta, like, placed) in enumerate(zip(manifest["leaves"], like_leaves, placements)):
         arr = np.load(d / f"leaf_{i:05d}.npy")
         if tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"leaf {i}: checkpoint shape {arr.shape} != expected "
@@ -133,7 +144,12 @@ def restore(directory: str | Path, step: int | None, tree_like: Any) -> tuple[An
         t = torch.from_numpy(arr)
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
-        device = like.device if isinstance(like, torch.Tensor) else "cpu"
+        if placed is not None:
+            device = placed.device
+        elif isinstance(like, torch.Tensor) and like.device.type != "meta":
+            device = like.device
+        else:
+            device = "cpu"
         loaded.append(t.to(device))
     return unflatten(treedef, loaded), step
 

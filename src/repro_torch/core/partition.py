@@ -69,6 +69,9 @@ __all__ = [
     "cache_plan_entries",
     "pack_plan",
     "partitioned_lookup",
+    "ragged_block_r",
+    "ragged_core_rows",
+    "vocab_parallel_embed",
 ]
 
 STRATEGY_CODE: dict[Strategy, int] = {
@@ -312,6 +315,28 @@ def cache_plan_entries(
     return out
 
 
+def ragged_block_r(plan: Plan, block_r: int | None = None) -> int:
+    """The ragged layout's row-block size: ``block_r`` rounded up to the
+    row padding, or by default sized off the smallest chunk (one step per
+    block; the cap bounds a step, the floor the step count)."""
+    min_rows = min((a.rows for a in plan.assignments), default=1)
+    br = block_r or min(
+        _RAGGED_BLOCK_R,
+        max(_align(min_rows + 1, _ROW_PAD), _RAGGED_BLOCK_R_MIN),
+    )
+    return max(_align(br, _ROW_PAD), _ROW_PAD)
+
+
+def ragged_core_rows(plan: Plan, block_r: int | None = None) -> list[int]:
+    """Each core's rows in the ragged packed buffer, as :func:`pack_plan`
+    lays them out (every chunk region a block multiple with at least one
+    zero row after its data), without building it."""
+    br = ragged_block_r(plan, block_r)
+    per_core = plan.per_core()
+    return [sum(_align(a.rows + 1, br) for a in per_core.get(c, []))
+            for c in range(plan.n_cores)]
+
+
 def pack_plan(
     plan: Plan,
     tables: Sequence[TableSpec],
@@ -447,12 +472,7 @@ def pack_plan(
         # is padded to a block_r multiple (>= 1 zero row after the data, the
         # slot's redirect target), so the fused kernel's row-blocks tile it.
         # block_r is sized off the SMALLEST real chunk.
-        min_rows = min((a.rows for a in plan.assignments), default=1)
-        br = block_r or min(
-            _RAGGED_BLOCK_R,
-            max(_align(min_rows + 1, _ROW_PAD), _RAGGED_BLOCK_R_MIN),
-        )
-        br = max(_align(br, _ROW_PAD), _ROW_PAD)
+        br = ragged_block_r(plan, block_r)
         # per-strategy step schedule: slots grouped by strategy code (then
         # ascending size) so every strategy's steps form one contiguous run.
         core_order: dict[int, list[int]] = {
@@ -904,4 +924,34 @@ def partitioned_lookup(
         out = out + _local_sym_lookup(
             packed, indices, n_tables=n_tables, use_kernels=use_kernels
         )
+    return out
+
+
+# --------------------------------------------------------------------------
+# vocab-parallel gather (the pool-free chunked case, for LM embeddings)
+# --------------------------------------------------------------------------
+
+
+def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, n_shards: int) -> torch.Tensor:
+    """(V, d) table, (B, S) tokens -> (B, S, d), over ``n_shards`` row
+    shards of ``V / n_shards`` rows: the paper's offset-subtract, clip,
+    masked lookup and accumulation specialised to s=1 pool-free gathers (==
+    Megatron's vocab-parallel embedding).  The JAX package runs one shard
+    on each device of the model axis and ``psum``s; here the shards run one
+    after another and their partials are summed in shard order.  A token's
+    row comes from its own shard and every other shard adds zeros, so the
+    result equals a plain gather.  ``torch.chunk`` makes the backward build
+    one gradient per shard, concatenated once."""
+    v = table.shape[0]
+    if n_shards < 1 or v % n_shards:
+        raise ValueError(f"{v} rows do not split into {n_shards} shards")
+    vl = v // n_shards
+    tokens = tokens.long()
+    out = None
+    for k, shard in enumerate(table.chunk(n_shards)):
+        local = tokens - k * vl
+        valid = (local >= 0) & (local < vl)
+        emb = shard[torch.where(valid, local, 0)]
+        emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+        out = emb if out is None else out + emb
     return out

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig, ShapeCfg
 from repro_torch.models import transformer as T
+from repro_torch.tree import tree_map
 
 __all__ = [
     "ARCH_IDS",
@@ -71,6 +72,16 @@ class Bundle:
     def init(self, generator: torch.Generator | None = None):
         return T.init_params(self.cfg, generator)
 
+    def param_struct(self, dtype: torch.dtype | None = None):
+        """The parameter tree's shapes and dtypes as ``meta`` tensors (the
+        JAX package's ``eval_shape``): no memory, no values; ``dtype``
+        recasts every leaf."""
+        with torch.device("meta"):
+            s = self.init(None)
+        if dtype is not None:
+            s = tree_map(lambda x: x.to(dtype), s)
+        return s
+
     # -- steps ----------------------------------------------------------------
     def train_step(self, ctx, optimizer, shape: ShapeCfg):
         return T.make_train_step(self.cfg, ctx, optimizer, shape)
@@ -104,6 +115,10 @@ class Bundle:
             return {"embeds": Spec((b, 1, cfg.d_model), act_dtype),
                     "positions": Spec((3, b, 1), i32)}
         return {"tokens": Spec((b, 1), i32)}
+
+    def cache_struct(self, shape: ShapeCfg, dtype: torch.dtype = torch.bfloat16) -> dict:
+        """The serve cache of a decode shape as ``meta`` tensors."""
+        return T.init_cache(self.cfg, shape, dtype=dtype, device="meta")
 
     def make_batch(self, shape: ShapeCfg, generator: torch.Generator,
                    act_dtype=torch.bfloat16) -> dict:

@@ -8,8 +8,10 @@ The JAX package's ``models/transformer.py`` in eager PyTorch on one device:
   (and of ``params["enc_layers"]``, whisper's encoder; the JAX package
   stacks them along a leading layer axis and scans; :func:`params_from_jax`
   splits the stacks), and the layers run in a Python loop;
-* the token embedding is a plain gather (the JAX package's path without a
-  shard context; its vocab-parallel embedding is ROADMAP A10);
+* the token embedding is a plain gather, or with a :class:`ShardCtx` the
+  JAX package's vocab-parallel embedding
+  (:func:`repro_torch.core.partition.vocab_parallel_embed`): the model
+  axis's row shards of ``embed`` looked up one after another and summed;
 * the inputs: token ids, or for vlm the frontend's embeds (B, S, d) with
   M-RoPE positions (3, B, S), or for encdec the frontend's frames (B,
   S_enc, d) beside the decoder's tokens (both frontends are stubbed, as in
@@ -23,17 +25,29 @@ The JAX package's ``models/transformer.py`` in eager PyTorch on one device:
 * the MoE layers hold whole experts (see :func:`moe.merge_virtual_experts`);
 * parameters are cast to ``cfg.compute_dtype`` where the JAX package casts
   them, so a ``bfloat16`` run rounds where the reference rounds; the loss
-  runs in f32 over the padded vocab.
+  runs in f32 over the padded vocab;
+* the train step rematerialises each layer (``forward_seq(remat=True)``,
+  ``torch.utils.checkpoint`` where the JAX package calls
+  ``jax.checkpoint``): the backward keeps each layer's input and recomputes
+  the rest.
 
-A ``ShardCtx`` (the JAX package's vocab-parallel, sharded LMs) raises
-``NotImplementedError`` naming ROADMAP A10.
+A :class:`ShardCtx` is accepted wherever the JAX package accepts one.  One
+card holds the whole model, so its mesh is a shape
+(:mod:`repro_torch.launch.mesh`): the embedding runs vocab-parallel over
+the model axis, the batch-split knobs clamp by the data axes
+(:func:`_dp_size`), and the sharding constraints change no value.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
+from repro_torch.core.partition import vocab_parallel_embed
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnSpec, Params
 from repro_torch.models.mamba2 import (
@@ -47,6 +61,7 @@ from repro_torch.tree import tree_map, value_and_grad
 
 __all__ = [
     "AUX_LOSS_WEIGHT",
+    "ShardCtx",
     "attn_spec",
     "ce_loss",
     "decode_step",
@@ -67,9 +82,20 @@ AUX_LOSS_WEIGHT = 0.01
 _ATTN_FAMILIES = ("dense", "moe", "vlm")  # a stack of dense_block layers
 
 
-def _check_ported(ctx) -> None:
-    if ctx is not None:
-        raise NotImplementedError("sharded LMs (a ShardCtx) are not ported yet: ROADMAP A10")
+@dataclasses.dataclass(frozen=True)
+class ShardCtx:
+    """The mesh context threaded through the model code (``None`` = one
+    device, no mesh): ``mesh`` maps axis names to sizes through its
+    ``shape`` (:class:`repro_torch.launch.mesh.Mesh`)."""
+
+    mesh: Any
+    model_axis: str = "model"
+    data_axes: tuple[str, ...] = ("data",)
+    shard_batch: bool = True
+
+    @property
+    def batch_spec(self):
+        return self.data_axes if self.shard_batch else None
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -201,8 +227,12 @@ def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
 
 
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
-    _check_ported(ctx)
-    return params["embed"][tokens.long()]
+    """The rows of ``embed`` at ``tokens``; with a ``ctx``, vocab-parallel
+    over the model axis's row shards (the same values: each token's row
+    plus zeros)."""
+    if ctx is None:
+        return params["embed"][tokens.long()]
+    return vocab_parallel_embed(params["embed"], tokens, ctx.mesh.shape[ctx.model_axis])
 
 
 def lm_logits(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -234,8 +264,34 @@ def _norm(cfg: ArchConfig, p, x):
     return apply(p, x)
 
 
+def _sp_constrain(ctx, h, cfg: ArchConfig | None = None):
+    """The JAX package's sequence-parallel constraint on the residual stream
+    (batch x seq/TP x d between layers, under remat).  One card holds the
+    whole stream: accepted, ``h`` returned as it is."""
+    return h
+
+
+def _moe_constrain(ctx):
+    """The JAX package's expert-parallel constraints for the expert GEMMs
+    (``None`` without a ctx): the hook ``moe_apply`` takes, here returning
+    each tensor as it is (one card holds every expert)."""
+    if ctx is None:
+        return None
+    return lambda name, x: x
+
+
+def _checkpointed(fn):
+    """``fn`` rematerialised in the backward (the JAX package's
+    ``jax.checkpoint``): autograd keeps its inputs and recomputes its
+    activations."""
+    def run(*args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return run
+
+
 def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_pos=None,
-                cache_mode="linear", q_chunk=None):
+                cache_mode="linear", q_chunk=None, ctx=None):
     """Pre-norm attention, then the MLP or (``cfg.moe``) the routed experts
     -> (h, new cache or None, the MoE aux loss or 0)."""
     a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], h), attn_spec(cfg),
@@ -244,7 +300,7 @@ def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_p
     h = h + a
     m_in = _norm(cfg, p["ln2"], h)
     if cfg.moe is not None:
-        mo, aux = moe_apply(p["moe"], m_in, cfg.moe)
+        mo, aux = moe_apply(p["moe"], m_in, cfg.moe, constrain=_moe_constrain(ctx))
     else:
         mo, aux = L.mlp_apply(p["mlp"], m_in, cfg.mlp), torch.zeros((), device=h.device)
     return h + mo, new_cache, aux
@@ -268,14 +324,18 @@ def _positions(bsz: int, seq: int, offset: int, device) -> torch.Tensor:
 
 
 def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
-                want_cache: ShapeCfg | None = None):
+                want_cache: ShapeCfg | None = None, remat: bool = False):
     """Full-sequence forward -> (hidden (B, S, d), aux loss, caches or None);
-    ``want_cache`` (a decode ShapeCfg) builds the serve caches (prefill)."""
-    _check_ported(ctx)
-    cap = _cache_capacity(cfg, want_cache) if want_cache is not None else 0
+    ``want_cache`` (a decode ShapeCfg) builds the serve caches (prefill).
+    ``remat`` checkpoints each layer body where the JAX package does: not
+    while building a cache, except whisper's encoder layers, always; for
+    zamba2 each group of mamba layers with its shared block, and within it
+    each mamba layer."""
+    build = want_cache is not None
+    cap = _cache_capacity(cfg, want_cache) if build else 0
     if cfg.family == "encdec":
-        return _encdec_forward(cfg, params, batch, want_cache is not None, cap)
-    h = _embed_input(cfg, params, batch)
+        return _encdec_forward(cfg, params, batch, build, cap, ctx=ctx, remat=remat)
+    h = _embed_input(cfg, params, batch, ctx)
     bsz, seq = h.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -283,62 +343,89 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
     q_chunk = cfg.q_chunk if seq > cfg.q_chunk else None
     aux = torch.zeros((), device=h.device)
     if cfg.family in ("ssm", "hybrid"):
-        h, caches = _mamba_forward(cfg, params, h, positions, want_cache is not None, cap,
-                                   q_chunk=q_chunk)
+        h, caches = _mamba_forward(cfg, params, h, positions, build, cap, q_chunk=q_chunk,
+                                   ctx=ctx, remat=remat)
     else:
+        def body(h, lp):
+            h = _sp_constrain(ctx, h, cfg) if remat else h
+            h, _, aux_l = dense_block(cfg, lp, h, positions, q_chunk=q_chunk, ctx=ctx)
+            h = _sp_constrain(ctx, h, cfg) if remat else h
+            return h, aux_l
+
+        blk = _checkpointed(body) if remat and not build else body
         ks, vs = [], []
         for lp in params["layers"]:
-            if want_cache is not None:
+            if build:
                 k, v = _extract_kv(cfg, lp["attn"], _norm(cfg, lp["ln1"], h), positions, cap)
                 ks.append(k)
                 vs.append(v)
-            h, _, aux_l = dense_block(cfg, lp, h, positions, q_chunk=q_chunk)
+            h, aux_l = blk(h, lp)
             aux = aux + aux_l
-        caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if want_cache is not None else None
+        caches = {"k": torch.stack(ks), "v": torch.stack(vs)} if build else None
     if caches is not None:
         caches["pos"] = seq
     h = _norm(cfg, params["final_norm"], h)
     return h, aux, caches
 
 
-def _embed_input(cfg: ArchConfig, params: Params, batch: dict) -> torch.Tensor:
+def _embed_input(cfg: ArchConfig, params: Params, batch: dict, ctx=None) -> torch.Tensor:
     """The stack's input in the compute dtype: ``batch["embeds"]`` for an
     embeds config (vlm; ``params["embed"]`` is not read), else the token
     embedding."""
     if cfg.input_kind == "embeds":
         h = batch["embeds"]
     else:
-        h = embed_tokens(cfg, params, batch["tokens"])
+        h = embed_tokens(cfg, params, batch["tokens"], ctx)
     return h.to(_dtype(cfg.compute_dtype))
 
 
-def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: bool, cap: int):
+def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: bool, cap: int,
+                    *, ctx=None, remat: bool = False):
     """Whisper: the frames plus sinusoidal positions through the non-causal
     encoder and ``enc_final_norm``; the token embedding plus ``pos_emb``
     through the decoder (causal self-attention, cross-attention on the
     encoder's output, the MLP).  The frames' length S_enc and the tokens'
     S_dec are independent; with ``build_cache`` each decoder layer's
     ``k``/``v`` fill ``cap`` slots and ``ck``/``cv`` (the encoder output's
-    cross K/V) S_enc -> (h, 0, caches or None)."""
+    cross K/V) S_enc -> (h, 0, caches or None).  With ``remat`` the encoder
+    layers are checkpointed, and the decoder layers unless ``build_cache``."""
     cdt = _dtype(cfg.compute_dtype)
     frames = batch["frames"].to(cdt)
     bsz, s_enc = frames.shape[:2]
     enc_h = frames + L.sinusoidal_positions(s_enc, cfg.d_model, cdt, frames.device)[None]
     enc_pos = _positions(bsz, s_enc, 0, frames.device)
     enc_spec = xspec = attn_spec(cfg, causal=False)
-    for lp in params["enc_layers"]:
-        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], enc_h), enc_spec,
+
+    def enc_body(h, lp):
+        h = _sp_constrain(ctx, h, cfg) if remat else h
+        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), enc_spec,
                               positions=enc_pos, q_chunk=cfg.q_chunk)
-        enc_h = enc_h + a
-        enc_h = enc_h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], enc_h), cfg.mlp)
+        h = h + a
+        return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+
+    eb = _checkpointed(enc_body) if remat else enc_body
+    for lp in params["enc_layers"]:
+        enc_h = eb(enc_h, lp)
     enc_h = _norm(cfg, params["enc_final_norm"], enc_h)
 
     tokens = batch["tokens"]
     s_dec = tokens.shape[1]
-    h = embed_tokens(cfg, params, tokens).to(cdt) + params["pos_emb"][None, :s_dec].to(cdt)
+    h = embed_tokens(cfg, params, tokens, ctx).to(cdt) + params["pos_emb"][None, :s_dec].to(cdt)
     pos = _positions(bsz, s_dec, 0, h.device)
     spec = attn_spec(cfg)
     kvh, dh = spec.n_kv_heads, spec.head_dim
+
+    def dec_body(h, lp):
+        h = _sp_constrain(ctx, h, cfg) if remat else h
+        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec, positions=pos,
+                              q_chunk=cfg.q_chunk)
+        h = h + a
+        xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec, positions=pos,
+                               kv_x=enc_h, q_chunk=cfg.q_chunk)
+        h = h + xa
+        return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+
+    db = _checkpointed(dec_body) if remat and not build_cache else dec_body
     caches = {"k": [], "v": [], "ck": [], "cv": []}
     for lp in params["layers"]:
         if build_cache:
@@ -347,13 +434,7 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
             caches["v"].append(v)
             caches["ck"].append((enc_h @ lp["xattn"]["wk"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
             caches["cv"].append((enc_h @ lp["xattn"]["wv"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
-        a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec, positions=pos,
-                              q_chunk=cfg.q_chunk)
-        h = h + a
-        xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec, positions=pos,
-                               kv_x=enc_h, q_chunk=cfg.q_chunk)
-        h = h + xa
-        h = h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+        h = db(h, lp)
     caches = ({k: torch.stack(v) for k, v in caches.items()} | {"pos": s_dec}
               if build_cache else None)
     h = _norm(cfg, params["final_norm"], h)
@@ -383,24 +464,49 @@ def _shared_after(cfg: ArchConfig, i: int) -> bool:
 
 
 def _mamba_forward(cfg: ArchConfig, params: Params, h, positions, build_cache: bool, cap: int,
-                   *, q_chunk):
+                   *, q_chunk, ctx=None, remat: bool = False):
     """The ssm and hybrid stacks: mamba layers and, for zamba2, the shared
     block after each group of ``shared_attn_every`` of them (weights
     shared, cache per invocation) -> (h before the final norm, caches or
-    None)."""
+    None).  With ``remat`` and no cache to build, each mamba layer is
+    checkpointed and, for zamba2, each group with its shared block too
+    (the JAX package's ``mamba_body`` and ``super_body``)."""
     emb0 = h
+    shared = params.get("shared")
+
+    def mamba_body(h, lp):
+        h = _sp_constrain(ctx, h, cfg) if remat else h
+        return _mamba_layer(cfg, lp, h, build_cache)
+
+    ckpt = remat and not build_cache
+    mb = _checkpointed(mamba_body) if ckpt else mamba_body
+
+    def group_body(h, lps):
+        states = []
+        for lp in lps:
+            h, st = mb(h, lp)
+            states.append(st)
+        kv = None
+        if build_cache:
+            x = _norm(cfg, shared["ln1"], torch.cat([h, emb0], dim=-1))
+            kv = _extract_kv(cfg, shared["attn"], x, positions, cap)
+        h, _ = shared_block(cfg, shared, h, emb0, positions, q_chunk=q_chunk)
+        return h, states, kv
+
+    gb = _checkpointed(group_body) if ckpt else group_body
+    layers = params["layers"]
+    every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
+    n_groups = len(layers) // every if every else 0
     states, ks, vs = [], [], []
-    for i, lp in enumerate(params["layers"]):
-        h, st = _mamba_layer(cfg, lp, h, build_cache)
+    for g in range(n_groups):
+        h, st, kv = gb(h, layers[g * every:(g + 1) * every])
+        states += st
+        if build_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    for lp in layers[n_groups * every:]:
+        h, st = mb(h, lp)
         states.append(st)
-        if _shared_after(cfg, i):
-            shared = params["shared"]
-            if build_cache:
-                x = _norm(cfg, shared["ln1"], torch.cat([h, emb0], dim=-1))
-                k, v = _extract_kv(cfg, shared["attn"], x, positions, cap)
-                ks.append(k)
-                vs.append(v)
-            h, _ = shared_block(cfg, shared, h, emb0, positions, q_chunk=q_chunk)
     if not build_cache:
         return h, None
     caches = _mamba_caches(states)
@@ -491,9 +597,8 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx=N
     ``pos_emb`` at ``pos`` (clamped to the table, as the JAX package's
     ``dynamic_slice``) and attends across to the cache's ``ck``/``cv``,
     which it carries over as they are."""
-    _check_ported(ctx)
     pos = cache["pos"]
-    h = _embed_input(cfg, params, batch)  # (B, 1, d)
+    h = _embed_input(cfg, params, batch, ctx)  # (B, 1, d)
     positions = batch.get("positions")
     if positions is None or cfg.family == "encdec":
         positions = _positions(h.shape[0], 1, pos, h.device)
@@ -522,7 +627,7 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx=N
         for i, lp in enumerate(params["layers"]):
             h, (k, v), _ = dense_block(cfg, lp, h, positions,
                                        cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
-                                       cache_mode=mode)
+                                       cache_mode=mode, ctx=ctx)
             ks.append(k)
             vs.append(v)
         new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -573,19 +678,31 @@ def _split_microbatches(batch: dict, accum: int) -> dict:
     return out
 
 
+def _dp_size(ctx) -> int:
+    """How many ways the batch is split over the data axes (1 without a
+    ctx or with ``shard_batch`` off)."""
+    if ctx is None or not ctx.shard_batch:
+        return 1
+    n = 1
+    for a in ctx.data_axes:
+        n *= ctx.mesh.shape[a]
+    return n
+
+
 def make_train_step(cfg: ArchConfig, ctx, optimizer, shape: ShapeCfg):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     {"loss", "aux"})``: every f32 parameter cast to ``cfg.compute_dtype``
-    for the forward, the loss in f32 plus ``AUX_LOSS_WEIGHT`` times the MoE
-    aux loss, gradients accumulated over ``cfg.grad_accum[shape.name]``
-    strided microbatches (in the compute dtype with ``low_precision_opt``)."""
-    _check_ported(ctx)
-    accum = max(min(cfg.grad_accum.get(shape.name, 1), shape.batch), 1)
+    for the forward, each layer rematerialised in the backward, the loss in
+    f32 plus ``AUX_LOSS_WEIGHT`` times the MoE aux loss, gradients
+    accumulated over ``cfg.grad_accum[shape.name]`` strided microbatches
+    (no more than the batch over the data axes allows; in the compute dtype
+    with ``low_precision_opt``)."""
+    accum = max(min(cfg.grad_accum.get(shape.name, 1), shape.batch // max(_dp_size(ctx), 1)), 1)
     cdt = _dtype(cfg.compute_dtype)
 
     def loss_fn(params, mb):
         params_c = tree_map(lambda p: p.to(cdt) if p.dtype == torch.float32 else p, params)
-        h, aux, _ = forward_seq(cfg, params_c, mb)
+        h, aux, _ = forward_seq(cfg, params_c, mb, ctx, remat=True)
         loss = ce_loss(cfg, lm_logits(cfg, params_c, h), mb["labels"])
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
 
@@ -616,12 +733,13 @@ def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
     caches for ``shape``)``.  With ``cfg.serve_microbatch[shape.name] = mb
     > 1`` the batch is prefilled as ``mb`` strided sub-batches (``v[i::mb]``,
     ``positions`` on its axis 1), and the logits and every cache leaf are
-    interleaved back into the batch's order, as in the JAX package."""
-    _check_ported(ctx)
-    mb = max(min(cfg.serve_microbatch.get(shape.name, 1), shape.batch), 1)
+    interleaved back into the batch's order, as in the JAX package.  ``mb``
+    is clamped to the batch over the data axes."""
+    mb = max(min(cfg.serve_microbatch.get(shape.name, 1), shape.batch // max(_dp_size(ctx), 1)),
+             1)
 
     def one(params, batch):
-        h, _, caches = forward_seq(cfg, params, batch, want_cache=shape)
+        h, _, caches = forward_seq(cfg, params, batch, ctx, want_cache=shape)
         return lm_logits(cfg, params, h[:, -1:, :]), caches
 
     if mb == 1:
@@ -652,9 +770,7 @@ def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
 
 
 def make_serve_step(cfg: ArchConfig, ctx):
-    _check_ported(ctx)
-
     def serve_step(params, cache, batch):
-        return decode_step(cfg, params, cache, batch)
+        return decode_step(cfg, params, cache, batch, ctx)
 
     return serve_step

@@ -31,6 +31,7 @@ from repro.training.optimizer import sgd as jsgd
 from repro_torch import tree
 from repro_torch.configs.base import ShapeCfg
 from repro_torch.launch import train
+from repro_torch.launch.mesh import make_debug_mesh
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MoE
 from repro_torch.models import registry
@@ -350,9 +351,21 @@ def test_decode_from_a_zero_cache_matches_reference(arch):
 
 
 def test_sharded_and_other_families_raise():
-    cfg = registry.get_config("mamba2-780m", smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        T.make_serve_step(cfg, object())
+    """A ``ShardCtx`` no longer raises: mamba2's and granite's serve steps
+    on the debug mesh shape equal the ``ctx=None`` ones bitwise (logits and
+    every cache leaf; the vocab-parallel embedding adds zeros)."""
+    ctx = T.ShardCtx(mesh=make_debug_mesh())
+    for arch in ("mamba2-780m", "granite-moe-3b-a800m"):
+        cfg = registry.get_config(arch, smoke=True)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        cache = T.init_cache(cfg, ShapeCfg("t", "decode", 16, B), dtype=torch.float32, pos=3)
+        tokens = {"tokens": torch.tensor(_tokens(cfg, seq=1)[0])}
+        lg, new = T.make_serve_step(cfg, ctx)(params, cache, tokens)
+        lg0, new0 = T.make_serve_step(cfg, None)(params, cache, tokens)
+        assert torch.equal(lg, lg0), arch
+        assert sorted(new) == sorted(new0)
+        for k in new:
+            assert new[k] == new0[k] if k == "pos" else torch.equal(new[k], new0[k]), (arch, k)
 
 
 # ------------------------------------------------------------------ mamba2

@@ -71,7 +71,9 @@ for name in mods:
 for name in ("repro_torch.training.loop", "repro_torch.training.optimizer",
              "repro_torch.training.compress", "repro_torch.checkpoint.checkpoint",
              "repro_torch.data.synthetic", "repro_torch.launch.train",
-             "repro_torch.models.transformer", "repro_torch.configs.olmo_1b"):
+             "repro_torch.models.transformer", "repro_torch.configs.olmo_1b",
+             "repro_torch.sharding", "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+             "repro_torch.sim.ascend", "repro_torch.sim.estimate"):
     assert name in mods, name
 print(len(mods))
 """
