@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA card and hold its kernels
 against their plain versions.
 
-    python3 chip_smoke.py      # needs one CUDA card
+    python3 chip_smoke.py                 # needs one CUDA card
+    python3 chip_smoke.py --phases MC     # the lookup across every card
 
 Phases (any failure raises and exits non-zero; each prints ``[phase X]
 start`` and ``[phase X] ok <seconds>``, and a failed check prints ``[FAIL
@@ -207,8 +208,30 @@ X] <message>`` before it raises):
       steps), qwen3-0.6b, granite-moe-3b-a800m, whisper-small and
       qwen2-vl-2b (10 steps each): exit code 0 and ``[train] done``.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it is
-the JSON record of every kernel.
+8. the partitioned lookup across cards, MC: one NCCL rank per card
+   (``torch.cuda.device_count()`` of them, spawned), each holding one
+   plan core, through the serve CLI's multi-rank code on taobao (C:
+   huawei-25mb) at batch 8192 (16,384 requests): on one card paths A and
+   B at K=1; on W cards path A at K=W with each rejoin (sparse, psum,
+   ring), path B, C (huawei-25mb with ``shard_rocks`` and
+   ``rock_theta=0.5``: its heaviest multi-hot tables split over four
+   cards) with each rejoin, path E's dense layout and, on four, M's
+   hierarchical plan at ``[2,2]`` with ``access=full``.  Gated: every
+   request served, finite logits, each rank's chunk bytes 1/W of the whole
+   buffer, one batch's pooled output within 1e-5 of the one-card engine of
+   the same plan, every kernel the plan's lookup launches launched on
+   every rank (K1 and K2 on one card; K1-K4 and K8 on more; K5-K7 and the
+   dedup kernel on four), and on four cards C's rejoin adding partials
+   that ranks send each other (modeled all_to_all bytes above 0).  Recorded:
+   each rank's allocated bytes, its core's lookup, the rejoin's and the
+   symmetric group's times by CUDA events, the whole lookup across the
+   cards, and the bytes the rejoin handed the collectives beside the
+   modeled ones.
+
+``--phases`` runs a subset after the build (``main`` is paths A-E and the
+kernel phase; e.g. ``--phases MC`` on four cards).  The last line is
+``{"ok": true, "device": {...}}``; with the kernel phase, the line before
+it is the JSON record of every kernel.
 """
 from __future__ import annotations
 
@@ -3002,8 +3025,257 @@ def train_cli_path(tmp: Path) -> dict:
     return {}
 
 
+# --------------------------------------------------------------------------
+# the partitioned lookup across cards (MC)
+# --------------------------------------------------------------------------
+
+# path A's config (the LIF fallback, a symmetric group from K = 2), path B's
+# (every table symmetric: the UB, GM and L1 kernels), path E's dense layout,
+# and M's two-level plan at [2,2] with the whole access reduction (dedup,
+# cache and sparse gather on every core under a100)
+MC_A = ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
+        "--distribution", "uniform", "--set", 'planner_options={"shard_rocks": false}']
+# huawei-25mb under the serve CLI's defaults (shard_rocks on) with a lower
+# rock bound: at K = 4 its five heaviest multi-hot tables (93-166 ids a
+# bag) are split over all four cards, so each owner sums partials that
+# other ranks computed (A's tables each lie on one card, and taobao's are
+# one-hot: its rejoins add exact zeros)
+MC_C = ["--workload", "huawei-25mb", "--batch", "8192", "--queries", "16384",
+        "--distribution", "uniform",
+        "--set", 'planner_options={"shard_rocks": true, "rock_theta": 0.5}']
+MC_CASES = {
+    "A": MC_A,
+    "A-psum": MC_A + ["--set", "reduce_mode=psum"],
+    "A-ring": MC_A + ["--set", "reduce_mode=ring"],
+    "B": CLI_ARGS[:-2] + ["--set", "planner=symmetric", "--set", "hardware=ascend_910"],
+    "E": CLI_ARGS[:-2] + ["--set", "layout=dense"],
+    "C": MC_C,
+    "C-psum": MC_C + ["--set", "reduce_mode=psum"],
+    "C-ring": MC_C + ["--set", "reduce_mode=ring"],
+    "M": ["--workload", "taobao", "--batch", "8192", "--queries", "16384",
+          "--distribution", ZIPF, "--set", f"distribution={ZIPF}", "--set", "planner=hierarchical",
+          "--set", "mesh_shape=[2,2]", "--set", "access=full", "--set", "hardware=a100"],
+}
+MC_TIMEOUT_S = 900
+
+
+def mc_cases(world: int) -> list:
+    """The MC cases a job of ``world`` cards runs: A and B at K = 1 on one
+    card; each rejoin of A and C, B and E at K = world on more; M at [2,2]
+    on 4."""
+    if world == 1:
+        return ["A", "B"]
+    return (["A", "A-psum", "A-ring", "B", "C", "C-psum", "C-ring", "E"]
+            + (["M"] if world == 4 else []))
+
+
+def _mc_expected(engine) -> list:
+    """The kernels the plan's lookup launches on every rank."""
+    from repro_torch.core.strategies import Strategy
+
+    packed, names = engine.packed, set()
+    if engine.plan.assignments:
+        if packed.layout == "dense":
+            names.add("multi_embedding_bag_dense")
+        elif packed.unique_cap or packed.cache_rows:
+            names.update({"multi_embedding_bag_ragged[dedup]", "batch_dedup"}
+                         if packed.unique_cap else set())
+            names.update({"multi_embedding_bag_ragged[cache]"} if packed.cache_rows else set())
+            names.update({"multi_embedding_bag_ragged[sparse]"}
+                         if packed.kernel_path != "onehot" else set())
+        else:
+            names.add("multi_embedding_bag_ragged")
+    by = {Strategy.GM: "embedding_bag_gm", Strategy.GM_UB: "embedding_bag_ub",
+          Strategy.L1_UB: "embedding_bag_ub", Strategy.L1: "embedding_bag_l1"}
+    names.update(by[st] for st in engine.plan.symmetric_strategies)
+    return sorted(names)
+
+
+def _mc_case(label: str, world: int) -> dict:
+    """One MC case on this rank: the serve CLI across the job's cards, then,
+    every rank together, one batch's lookup across the cards (rank 0 holds
+    it against the one-card engine), each rank's core lookup, rejoin and
+    symmetric-group times by CUDA events, and its allocated bytes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data import distributions as dist_lib
+    from repro_torch.engine import InferenceEngine
+    from repro_torch.launch import serve
+
+    argv = MC_CASES[label]
+    rank = dist.get_rank()
+    reset_counts()
+    res = serve.main(argv)
+    launches = read_counts()
+    engine = res["engine"]
+    packed, wl = engine.packed, engine.workload
+    idx = torch.from_numpy(dist_lib.sample_workload(
+        np.random.default_rng(11), wl, dist_lib.Uniform(), wl.batch)).to(engine.device)
+    rec = {"case": label, "rank": rank, "argv": argv, "cores": engine.plan.n_cores,
+           "chunk_bytes": packed.chunk_bytes, "ranks": engine.ranks, "launches": launches,
+           "allocated_bytes": torch.cuda.memory_allocated(),
+           "expected": _mc_expected(engine)}
+    stages = engine.lookup_stages(idx)
+    dist.barrier()
+    got = stages["whole"]().cpu()
+    if rank == 0:
+        (s,) = res["stats"].values()
+        rec.update(served=s["served"], submitted=s["submitted"],
+                   batch_failures=s["batch_failures"],
+                   logits_finite=bool(np.isfinite(res["last"]["logits"]).all()),
+                   serve_wall_per_batch_ms=res["serve_wall_s"] / res["n_batches"] * 1e3,
+                   p50_us=s["p50_us"], p99_us=s["p99_us"],
+                   collective_bytes_per_batch=res["collective_bytes"],
+                   rejoin_modeled=engine.ranks["rejoin_modeled"])
+        one = InferenceEngine.build(
+            res["params"]["tables"], wl,
+            dataclasses.replace(engine.config, mesh_shape=engine.config.mesh_shape
+                                or (1, engine.plan.n_cores)),
+            device=engine.device)
+        want = one.lookup(idx).cpu()
+        rec.update(pooled_max_err=float((got - want).abs().max()),
+                   pooled_ok=bool(torch.allclose(got, want, **TOL)),
+                   pooled_bitwise=bool(torch.equal(got, want)),
+                   one_card_lookup_ms=time_ms(lambda: one.lookup(idx)))
+        del one, want
+        torch.cuda.empty_cache()
+    # every rank at once: its own core's lookup, the rejoin, the symmetric
+    # group, and the whole lookup across the cards (CUDA events)
+    for key in ("lookup", "rejoin", "sym", "whole"):
+        if key in stages:
+            dist.barrier()
+            rec[f"{'mesh_lookup' if key == 'whole' else key}_ms"] = time_ms(stages[key])
+    del res, engine, packed, stages
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mc_rank(rank: int, world: int, tmp: str, labels: list) -> None:
+    """One rank of MC: a NCCL process group over the job's cards, then
+    every case; rank 0 writes every rank's records to ``tmp``."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    from repro_torch.launch.mesh import init_card_mesh
+
+    init_card_mesh(device_type=DEVICE, init_method=f"file://{tmp}/group", rank=rank,
+                   world_size=world, timeout_s=MC_TIMEOUT_S / 2)
+    records = [_mc_case(label, world) for label in labels]
+    every = [None] * world
+    dist.all_gather_object(every, records)
+    if rank == 0:
+        Path(tmp, "mc.json").write_text(json.dumps(every))
+    dist.destroy_process_group()
+
+
+def multicard_path() -> dict:
+    """MC: the partitioned lookup with each plan core on its own card, one
+    NCCL rank per card (``torch.cuda.device_count()`` of them), through the
+    serve CLI's multi-rank code at taobao's full width (C: huawei-25mb's;
+    batch 8192, 16,384 requests).  Gated for every case: every request
+    served, finite logits, each rank's chunk bytes 1/W of the whole
+    buffer, the pooled output of one batch within 1e-5 of the one-card
+    engine of the same plan, and every kernel the plan's lookup launches
+    launched on every rank; and on
+    one card K1 and K2, on more cards K1-K4 and K8, and on four K5-K7, the
+    dedup kernel and partials that C's ranks send each other.  Recorded:
+    each rank's allocated bytes, its core's lookup time, the rejoin's and
+    the symmetric group's times (CUDA events, each rank's own stream), the
+    whole lookup across the cards, the bytes the rejoin handed the
+    collectives beside the modeled ones."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.launch import serve
+
+    world = torch.cuda.device_count()
+    labels = mc_cases(world)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        ctx = mp.start_processes(_mc_rank, args=(world, tmp, labels), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + MC_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                check(time.monotonic() < deadline, f"[MC] ranks still running after "
+                      f"{MC_TIMEOUT_S}s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            check(False, f"[MC] a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        every = json.loads(Path(tmp, "mc.json").read_text())
+    counts = {name: 0 for name in KERNELS}
+    for i, label in enumerate(labels):
+        recs = [every[r][i] for r in range(world)]
+        lead = recs[0]
+        whole = lead["ranks"]["whole_chunk_bytes"]
+        queries = serve.build_parser().parse_args(MC_CASES[label]).queries
+        check(lead["served"] == lead["submitted"] == queries and not lead["batch_failures"]
+              and lead["logits_finite"], f"[MC {label}] serving: {lead}")
+        check(lead["pooled_ok"], f"[MC {label}] pooled max err {lead['pooled_max_err']} "
+              "against the one-card engine")
+        check(lead["cores"] == world,
+              f"[MC {label}] the plan has {lead['cores']} cores on {world} cards")
+        check(lead["ranks"]["chunk_bytes"] == [whole // world] * world
+              and all(r["chunk_bytes"] == whole // world for r in recs),
+              f"[MC {label}] chunk bytes per rank {lead['ranks']['chunk_bytes']} of {whole}")
+        for r in recs:
+            missing = [nm for nm in r["expected"] if not r["launches"][nm]]
+            check(not missing, f"[MC {label}] rank {r['rank']} launched no {missing}")
+        for name in KERNELS:
+            counts[name] += lead["launches"][name]
+        print(json.dumps({
+            "mc_path": label, "world": world, "cores": lead["cores"],
+            "whole_chunk_bytes": whole, "pooled_max_err": lead["pooled_max_err"],
+            "pooled_bitwise": lead["pooled_bitwise"],
+            "serve_wall_per_batch_ms": lead["serve_wall_per_batch_ms"],
+            "p50_us": lead["p50_us"], "p99_us": lead["p99_us"],
+            "one_card_lookup_ms": lead["one_card_lookup_ms"],
+            "collective_bytes_per_batch": lead["collective_bytes_per_batch"],
+            "rejoin_modeled": lead["rejoin_modeled"],
+            "per_rank": [{**{k: r.get(k) for k in (
+                "rank", "chunk_bytes", "allocated_bytes", "lookup_ms", "rejoin_ms", "sym_ms",
+                "mesh_lookup_ms")}, "launches": {nm: n for nm, n in r["launches"].items() if n}}
+                for r in recs]}), flush=True)
+    launched = {label: {nm for nm, n in every[0][i]["launches"].items() if n}
+                for i, label in enumerate(labels)}
+    if world == 1:
+        check({"multi_embedding_bag_ragged", "embedding_bag_ub"}
+              <= launched["A"] | launched["B"], f"[MC] K1 or K2 not launched: {launched}")
+    else:
+        check({"multi_embedding_bag_ragged", "embedding_bag_ub"} <= launched["A"],
+              f"[MC A] K1 or K2 not launched: {launched['A']}")
+        check({"embedding_bag_ub", "embedding_bag_gm", "embedding_bag_l1"} <= launched["B"],
+              f"[MC B] K2-K4 not launched: {launched['B']}")
+        check("multi_embedding_bag_dense" in launched["E"], f"[MC E] K8 not launched")
+    if world == 4:
+        c = every[0][labels.index("C")]["rejoin_modeled"]
+        check(c["sparse_all_to_all_bytes"] > 0,
+              f"[MC C] no table is split over the cards, the rejoin adds no partials: {c}")
+    if "M" in launched:
+        want = {f"multi_embedding_bag_ragged[{m}]" for m in ("dedup", "cache", "sparse")}
+        check(want | {"batch_dedup"} <= launched["M"],
+              f"[MC M] K5-K7 or the dedup kernel not launched: {launched['M']}")
+    return {"counts": counts}
+
+
+PHASES = ("main", "F", "G", "H", "R", "X", "M", "S", "T", "MC")
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(argv)
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build (default: all): "
+                         "main (paths A-E and the kernels), F, G, H, R, X, M, S, T, MC")
+    phases = set(ap.parse_args(argv).phases.split(","))
+    if phases - set(PHASES):
+        ap.error(f"unknown phases {sorted(phases - set(PHASES))}; known: {PHASES}")
     try:
         import torch
     except ImportError:
@@ -3022,10 +3294,66 @@ def main(argv=None) -> int:
         card = environment()
     with phase("build"):
         build_kernels()
-    runs = {}
-    for label in PATHS:
+    runs, kernels = {}, None
+    for label in PATHS if "main" in phases else ():
         with phase(label):
             runs[label] = main_path(label)
+    if "main" in phases:
+        main_kernels(runs)
+        with phase("kernels"):
+            counts = {name: sum(r["counts"][name] for r in runs.values()) for name in KERNELS}
+            kernels = kernel_phase(runs, counts)
+        for r in runs.values():  # the later phases need the card's memory, not these engines
+            r.pop("engine", None)
+            r.pop("indices", None)
+        torch.cuda.empty_cache()
+    # the preset paths run last: no profiler session of this script's own is
+    # open while a shadow build can run
+    for label in PRESETS:
+        if label in phases:
+            with phase(label):
+                runs[label] = preset_path(label)
+    for label, path in (("R", replay_path), ("X", faults_path), ("M", mesh_path)):
+        if label in phases:
+            with phase(label):
+                runs[label] = path()
+    if "S" in phases:
+        from repro_torch.models.registry import list_scenarios
+
+        with phase("S"):
+            for name in list_scenarios():
+                runs[f"S {name}"] = scenario_path(name)
+    if "T" in phases:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_t_") as tmp:
+            with phase("T-grad"):
+                runs["T-grad"] = grad_path()
+            with phase("T-dlrm"):
+                dlrm_train_path(Path(tmp))
+            for name in T_FAMILY:
+                with phase(name):
+                    family_path(name)
+            with phase("T-shard"):
+                shard_path()
+            with phase("T-remat"):
+                remat_path()
+            with phase("T-cli"):
+                train_cli_path(Path(tmp))
+    if "MC" in phases:
+        with phase("MC"):
+            runs["MC"] = multicard_path()
+    print(f"[card] {card}")
+    if kernels is not None:
+        for rec in kernels:
+            rec["launches"] = sum(r["counts"][rec["name"]] for r in runs.values())
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main_kernels(runs: dict) -> None:
+    """The main paths' launch gates: every kernel launched where it must be."""
     with phase("main-path launches"):
         check(runs["A"]["counts"]["multi_embedding_bag_ragged"] > 0, "K1 not launched on path A")
         check(runs["C"]["counts"]["multi_embedding_bag_ragged"] > 0, "K1 not launched on path C")
@@ -3039,51 +3367,6 @@ def main(argv=None) -> int:
                   f"{k} ({name}) not launched on path D")
         check(runs["E"]["counts"]["multi_embedding_bag_dense"] > 0, "K8 not launched on path E")
         check(runs["D"]["counts"]["batch_dedup"] > 0, "the dedup kernel not launched on path D")
-    counts = {name: sum(r["counts"][name] for r in runs.values()) for name in KERNELS}
-    with phase("kernels"):
-        kernels = kernel_phase(runs, counts)
-    for r in runs.values():  # the later phases need the card's memory, not these engines
-        r.pop("engine", None)
-        r.pop("indices", None)
-    torch.cuda.empty_cache()
-    # the preset paths run last: no profiler session of this script's own is
-    # open while a shadow build can run
-    for label in PRESETS:
-        with phase(label):
-            runs[label] = preset_path(label)
-    with phase("R"):
-        runs["R"] = replay_path()
-    with phase("X"):
-        runs["X"] = faults_path()
-    with phase("M"):
-        runs["M"] = mesh_path()
-    from repro_torch.models.registry import list_scenarios
-
-    with phase("S"):
-        for name in list_scenarios():
-            runs[f"S {name}"] = scenario_path(name)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_t_") as tmp:
-        with phase("T-grad"):
-            runs["T-grad"] = grad_path()
-        with phase("T-dlrm"):
-            dlrm_train_path(Path(tmp))
-        for name in T_FAMILY:
-            with phase(name):
-                family_path(name)
-        with phase("T-shard"):
-            shard_path()
-        with phase("T-remat"):
-            remat_path()
-        with phase("T-cli"):
-            train_cli_path(Path(tmp))
-    for rec in kernels:
-        rec["launches"] = sum(r["counts"][rec["name"]] for r in runs.values())
-    print(f"[card] {card}")
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -25,7 +25,10 @@ The host clock ranks only the host's enqueue there.  On the CPU
 ranks by ``wall_us``, and records ``"compiled": False``, as the reference
 records interpret mode: the ranking then reflects step count and padding,
 not the card.  The reference times its heaviest core alone; here one launch
-runs all cores, so the whole launch is timed.
+runs all cores, so the whole launch is timed.  Across cards (``mesh=``)
+each rank packs and times its own core, and every candidate is ranked by
+the slowest rank's time (an ``all_reduce`` of ``MAX`` over the core axis):
+the reference's heaviest core, and one pick on every rank.
 
 :class:`TuningCache` memoizes whole sweeps on a (plan shape digest, backend)
 key, the backend being ``"cuda"`` or ``"cpu"``; the access histograms are
@@ -184,6 +187,20 @@ def _device_us(run, calls: int, stream) -> float:
         f"(the last spun {cycles // 4:,} cycles)")
 
 
+def _rank_by_slowest(candidates: list, group, device) -> None:
+    """Each candidate's times become the slowest rank's (``all_reduce``
+    MAX over ``group``), the rank's own kept as ``rank_*``."""
+    import torch.distributed as dist
+
+    keys = ["wall_us"] + (["device_us"] if candidates[0]["device_us"] is not None else [])
+    t = torch.tensor([[c[key] for key in keys] for c in candidates], dtype=torch.float64,
+                     device=device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    for c, row in zip(candidates, t.tolist()):
+        for key, v in zip(keys, row):
+            c[f"rank_{key}"], c[key] = c[key], v
+
+
 def autotune_block_sizes(
     plan: Plan,
     tables: Sequence[TableSpec],
@@ -200,6 +217,7 @@ def autotune_block_sizes(
     cache: TuningCache | None = None,
     dtype: torch.dtype = torch.float32,
     device: torch.device | str = "cpu",
+    mesh=None,
 ) -> dict:
     """Sweep (block_r, block_b[, unique_cap, cache_rows, kernel_path]) on
     ``device``, record ``plan.meta["tuning"]``, return the best combination
@@ -211,6 +229,11 @@ def autotune_block_sizes(
     effective dedup width is 0.  ``cache`` short-circuits the sweep when the
     plan-shape digest was swept before on this backend: the prior record is
     re-stamped into ``plan.meta["tuning"]`` with a hit marker.
+
+    ``mesh`` times this rank's core alone (its place along ``"model"``) and
+    ranks each candidate by the slowest rank's time, recorded as its
+    ``wall_us``/``device_us``; the rank's own time is ``rank_wall_us``/
+    ``rank_device_us``.  Every rank of ``mesh`` must call it together.
     """
     if not plan.assignments:
         plan.meta["tuning"] = {"candidates": [], "best": None}
@@ -218,12 +241,18 @@ def autotune_block_sizes(
                 "cache_rows": None, "kernel_path": None}
     device = torch.device(device)
     backend = device.type
+    core, k = None, 1
+    if mesh is not None:
+        from repro_torch.launch.mesh import axis_rank, axis_size
+
+        core, k = axis_rank(mesh, "model"), axis_size(mesh, "model")
     cache_key = None
     if cache is not None:
         cache_key = plan_shape_digest(
             plan, tables, batch, backend,
             (block_r_candidates, block_b_candidates, unique_cap_candidates,
-             cache_rows_candidates, kernel_path_candidates, (iters, seed)),
+             cache_rows_candidates, kernel_path_candidates, (iters, seed))
+            + ((("model", k),) if mesh is not None else ()),
         )
         rec = cache.lookup(cache_key)
         if rec is not None:
@@ -255,7 +284,7 @@ def autotune_block_sizes(
                             packed = pack_plan(
                                 plan, tables, None, dtype=dtype, block_r=br, block_b=bb,
                                 unique_cap=uc, cache_rows=cr, freqs=freqs,
-                                kernel_path=kp, device=device,
+                                kernel_path=kp, device=device, core=core,
                             )
 
                             def run():
@@ -289,6 +318,8 @@ def autotune_block_sizes(
             "no feasible autotune candidates: every combination was skipped "
             "(kernel_path='sparse' needs a nonzero unique_cap candidate)"
         )
+    if mesh is not None:
+        _rank_by_slowest(candidates, mesh.get_group("model"), device)
     best = best_candidate(candidates, backend)
     tuning = {
         "candidates": candidates,

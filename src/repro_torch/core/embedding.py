@@ -7,6 +7,10 @@ Usage::
     packed = bag.pack(tables, device="cuda")             # placed per the plan
     pooled = bag.apply(packed, indices)                  # (N, B, E)
 
+Across cards each rank packs its own core (``bag.pack(tables, device=...,
+core=rank)``) and every rank calls ``bag.apply(packed, indices,
+mesh=mesh)`` with the same indices.
+
 ``indices`` is a list of per-table (B, s_i) int arrays or the pre-stacked
 (N, B, s_max) tensor with ``-1`` padding.
 """
@@ -88,6 +92,8 @@ class PartitionedEmbeddingBag:
         kernel_path: str | None = None,
         tuning_cache=None,
         device: torch.device | str = "cpu",
+        core: int | None = None,
+        mesh=None,
     ) -> PackedPlan:
         """Materialize the plan on ``device``.  ``autotune=True`` sweeps the
         fused kernel's ``block_r``/``block_b`` first on ``device`` (recorded
@@ -99,7 +105,11 @@ class PartitionedEmbeddingBag:
         without extra arguments.  ``kernel_path`` (``None`` = the planner's
         choice in ``plan.meta["kernel"]``) selects the dedup'd gather;
         ``tuning_cache`` (a :class:`repro_torch.core.autotune.TuningCache`)
-        lets the sweep reuse prior picks for shape-identical plans."""
+        lets the sweep reuse prior picks for shape-identical plans.
+
+        ``core`` keeps only that core's slice on ``device`` (one rank's
+        share of a device mesh); ``mesh`` is the mesh its sweep ranks
+        over, each rank timing its own core."""
         layout = layout or self.layout
         if freqs is None:
             freqs = self.planner_kwargs.get("freqs")
@@ -109,6 +119,7 @@ class PartitionedEmbeddingBag:
             best = autotune_block_sizes(
                 self.plan, self.workload.tables, batch=self.workload.batch,
                 freqs=freqs, cache=tuning_cache, dtype=self.dtype, device=device,
+                mesh=mesh,
             )
             block_r, block_b = best["block_r"], block_b or best["block_b"]
             # the sweep's winning access-reduction sizes ship with its block
@@ -132,6 +143,7 @@ class PartitionedEmbeddingBag:
             cache_rows=cache_rows,
             kernel_path=kernel_path,
             device=device,
+            core=core,
         )
 
     def layout_summary(self) -> dict:
@@ -147,6 +159,9 @@ class PartitionedEmbeddingBag:
         *,
         use_kernels="fused",
         reduce_mode: str = "sparse",
+        mesh=None,
+        axis: str = "model",
+        batch_axes: tuple[str, ...] = (),
     ) -> torch.Tensor:
         if isinstance(indices, (list, tuple)):
             indices = stack_indices(indices, self.s_max)
@@ -156,6 +171,9 @@ class PartitionedEmbeddingBag:
             n_tables=self.n_tables,
             use_kernels=use_kernels,
             reduce_mode=reduce_mode,
+            mesh=mesh,
+            axis=axis,
+            batch_axes=batch_axes,
         )
 
     def reference(self, table_data, indices) -> torch.Tensor:

@@ -1,10 +1,16 @@
-"""Execution of a placement :class:`Plan` on one device (paper §III-B).
+"""Execution of a placement :class:`Plan` on one device or across cards
+(paper §III-B).
 
 The paper places table *chunks* on individual cores, subtracts the chunk
 offset from the ids, clips them, and combines partial pools with atomic
-inter-core accumulation.  Here a plan core is one partition of the work on
-one device: ``K`` comes from the plan (``mesh_shape``), not from the number
-of GPUs.  The packed layout is the reference's, field for field:
+inter-core accumulation.  Without a mesh a plan core is one partition of
+the work on one device: ``K`` comes from the plan (``mesh_shape``), not
+from the number of GPUs.  With a device mesh (``mesh=``, a
+``torch.distributed`` ``DeviceMesh``) each plan core is its own rank's
+program, as the reference's ``shard_map`` runs it: the rank holds its
+core's slice (:meth:`PackedPlan.strip_core`) and the rejoin crosses the
+ranks by real collectives.  The packed layout is the reference's, field
+for field:
 
 * the per-core chunk inventory is a *ragged packed buffer*
   ``(K, R_total+1, E)``: every core's chunks concatenated row-wise, each
@@ -32,6 +38,15 @@ batch, so here one launch per table serves the whole batch.  The port still
 requires ``B % K == 0`` there, only so that it accepts the batches the
 reference accepts: its computation does not need it.
 
+Across cards (``mesh=``) the rejoins are the reference's collectives over
+the ``axis`` dim: ``"sparse"`` is an ``all_to_all`` of each rank's rows of
+the tables an owner holds, summed at the owner in sender order, then an
+``all_gather`` of the owner buckets; ``"psum"`` an ``all_reduce``;
+``"ring"`` K-1 send/receive steps to the next rank.  The symmetric group
+runs on the rank's ``B/K`` slice of the batch and is ``all_gather``-ed
+back.  ``batch_axes`` splits the batch over those dims and leaves the
+output split, as the reference's ``out_specs`` do.
+
 ``use_kernels``: ``"fused"`` (default) runs the CUDA kernels (their plain
 versions on CPU tensors); ``False`` is the plain gather path, the same math
 without kernels.  The access-reduction knobs arm the fused kernel as in
@@ -46,10 +61,12 @@ rows); they need the ragged layout, as in the reference.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Any, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.cost_model import freq_of
 from repro_torch.core.strategies import Plan, Strategy
@@ -64,9 +81,12 @@ from repro_torch.kernels.embedding_multi import (
 from repro_torch.kernels.ops import strategy_bag
 
 __all__ = [
+    "COLLECTIVE_BYTES",
     "STRATEGY_CODE",
     "PackedPlan",
+    "batch_share",
     "cache_plan_entries",
+    "mesh_lookup_stages",
     "pack_plan",
     "partitioned_lookup",
     "ragged_block_r",
@@ -102,8 +122,25 @@ class PackedPlan:
     bucket.  Port-only: ``step_runs`` is the schedule collapsed into the
     fused kernel's per-slot runs, on the device, and ``stage_rows`` the
     kernel's shared-memory staging capacity; ``host`` holds numpy copies of
-    the ``sym_*`` metadata, which the executor reads on the host.
+    the ``sym_*`` metadata, which the executor reads on the host, and, in
+    one rank's slice, the ``fingerprint`` of the whole pack it came from.
     """
+
+    # the reference's field lists: every array field, and the fields
+    # replicated across the core axis (every other one is core-sharded)
+    _ARRAY_FIELDS = (
+        "chunk_data", "slot_table", "slot_offset", "slot_rows",
+        "slot_row_start", "slot_strategy", "slot_rep", "slot_nrep",
+        "step_slot", "step_base", "step_block", "step_strategy",
+        "step_kpath",
+        "rejoin_send", "rejoin_owned_pos", "rejoin_bucket",
+        "sym_data", "sym_table", "sym_rows", "sym_strategy",
+        "cache_data", "cache_remap",
+    )
+    _REPLICATED_FIELDS = (
+        "rejoin_send", "rejoin_owned_pos", "rejoin_bucket",
+        "sym_data", "sym_table", "sym_rows", "sym_strategy",
+    )
 
     # asymmetric slots
     chunk_data: Any  # ragged: (K, R_total+1, E); dense: (K, S, R+1, E)
@@ -157,6 +194,48 @@ class PackedPlan:
     @property
     def chunk_bytes(self) -> int:
         return self.chunk_data.numel() * self.chunk_data.element_size()
+
+    def strip_core(self, core: int) -> "PackedPlan":
+        """Core ``core``'s slice of every core-sharded field, the replicated
+        fields as they are: what one rank of a device mesh holds (the
+        reference's ``strip_core``).  The core axis stays, at size 1, as
+        ``shard_map`` hands each program its block, so the executor serves
+        the slice as it serves a whole pack; ``step_runs`` keeps that
+        core's runs and ``stage_rows`` is sized to them."""
+        if not 0 <= core < self.n_cores:
+            raise IndexError(f"core {core} of a {self.n_cores}-core pack")
+        sl = slice(core, core + 1)
+        fields = {f: getattr(self, f)[sl] for f in self._ARRAY_FIELDS
+                  if f not in self._REPLICATED_FIELDS}
+        runs = self.step_runs[self.step_runs[:, 0] == core].clone()
+        runs[:, 0] = 0
+        row_bytes = self.chunk_data.shape[-1] * self.chunk_data.element_size()
+        return dataclasses.replace(
+            self, **fields, step_runs=runs,
+            stage_rows=ragged_stage_rows(runs.cpu().numpy(), self.block_r, row_bytes),
+        )
+
+    def to(self, device) -> "PackedPlan":
+        """The same pack with every tensor on ``device``."""
+        dev = torch.device(device)
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(dev) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def fingerprint(self) -> str:
+        """A digest of every tensor and layout field: two packs with one
+        fingerprint hold the same bytes."""
+        h = hashlib.sha256()
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                v = v.detach().cpu().contiguous()
+                h.update(f"{f.name}{tuple(v.shape)}{v.dtype}".encode())
+                if v.numel():
+                    h.update(v.reshape(-1).view(torch.uint8).numpy())
+            elif f.name != "host":
+                h.update(f"{f.name}={v!r}".encode())
+        return h.hexdigest()
 
 
 def _align(n: int, mult: int) -> int:
@@ -351,6 +430,7 @@ def pack_plan(
     cache_rows: int | None = None,
     kernel_path: str | None = None,
     device: torch.device | str = "cpu",
+    core: int | None = None,
 ) -> PackedPlan:
     """Materialize a Plan into the packed executor layout on ``device``.
 
@@ -371,7 +451,13 @@ def pack_plan(
     or ``"auto"`` (per chunk from ``plan.meta["kernel"]["per_chunk"]``;
     without dedup every step stays one-hot); ``None`` resolves from
     ``plan.meta["kernel"]["path"]``, defaulting to ``"onehot"``.
+
+    ``core`` puts only that core's slice on ``device``
+    (:meth:`PackedPlan.strip_core`): one rank's share of a device mesh.
+    The whole pack is built on the host all the same, and the slice's
+    ``host["fingerprint"]`` is the whole pack's, for the ranks to compare.
     """
+    rank_core = core  # the loops below reuse the name
     if layout not in ("ragged", "dense"):
         raise ValueError(f"unknown layout {layout!r}")
     access_meta = plan.meta.get("cache") or {}
@@ -639,16 +725,15 @@ def pack_plan(
         "sym_strategy": sym_strategy,
         "cache_remap": remap_np,
     }
-    dev = torch.device(device)
-    tensors = {name: torch.as_tensor(arr).to(dev) for name, arr in ints.items()}
+    tensors = {name: torch.as_tensor(arr) for name, arr in ints.items()}
     runs = ragged_runs(step_slot, step_base, step_strategy, br, max_slots)
     host = {
         "sym_table": sym_table, "sym_rows": sym_rows, "sym_strategy": sym_strategy,
     }
-    return PackedPlan(
-        chunk_data=buf.to(dev),
-        sym_data=sym_data.to(dev),
-        cache_data=cache_buf.to(dev),
+    packed = PackedPlan(
+        chunk_data=buf,
+        sym_data=sym_data,
+        cache_data=cache_buf,
         layout=layout,
         block_r=br,
         slot_window=slot_window,
@@ -656,11 +741,15 @@ def pack_plan(
         unique_cap=int(unique_cap),
         cache_rows=int(cache_rows),
         kernel_path=kernel_resolved,
-        step_runs=torch.as_tensor(runs).to(dev),
+        step_runs=torch.as_tensor(runs),
         stage_rows=ragged_stage_rows(runs, br, e * itemsize),
         host=host,
         **tensors,
     )
+    if rank_core is not None:
+        host["fingerprint"] = packed.fingerprint()
+        packed = packed.strip_core(rank_core)
+    return packed.to(device)
 
 
 # --------------------------------------------------------------------------
@@ -839,7 +928,7 @@ def _local_sym_lookup(
 
 
 # --------------------------------------------------------------------------
-# inter-core rejoin (device-local)
+# inter-core rejoin (device-local, without a mesh)
 # --------------------------------------------------------------------------
 
 
@@ -879,6 +968,186 @@ def _ring_psum(local: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------
+# rejoin across the ranks of a device mesh (one plan core per rank)
+# --------------------------------------------------------------------------
+
+# payload bytes the ranks of the rejoin's axis handed to each collective,
+# summed over the ranks and counting only what goes to another rank; every
+# rank sends the same shapes, so each rank counts the group's total.  The
+# all_reduce entry counts its input on every rank (its bytes on the wire
+# are the collective library's choice).  Read and reset by the caller.
+COLLECTIVE_BYTES: dict[str, int] = {}
+
+
+def _count(op: str, nbytes: int) -> None:
+    COLLECTIVE_BYTES[op] = COLLECTIVE_BYTES.get(op, 0) + int(nbytes)
+
+
+def _mesh_sparse_rejoin(local: torch.Tensor, packed: PackedPlan, group,
+                        me: int, k: int) -> torch.Tensor:
+    """The reference's ``_sparse_rejoin`` across ranks: ``local`` is this
+    rank's (N, B, E) partial.  Each rank sends every owner its rows of the
+    tables that owner holds (``all_to_all``), the owner sums what arrives
+    in sender order into its bucket, and an ``all_gather`` of the buckets
+    gives every rank the (N, B, E) output."""
+    from repro_torch.launch.mesh import all_gather_cat
+
+    n_tables, b, e = local.shape
+    send = packed.rejoin_send.long()  # (K, K, n_send), replicated
+    o = packed.rejoin_bucket.shape[1]
+    mine = send[me]  # (K, n_send): what this rank sends each owner
+    x = local[mine.clamp(min=0)]
+    x = torch.where((mine >= 0)[..., None, None], x, 0.0).contiguous()
+    arrived = torch.empty_like(x)
+    dist.all_to_all_single(arrived, x, group=group)
+    _count("all_to_all", x.nbytes * (k - 1))
+    recv = send[:, me]  # (K, n_send): what each sender sent this owner
+    pos = packed.rejoin_owned_pos.long()[recv.clamp(min=0)]
+    pos = torch.where(recv >= 0, pos, o)  # trash bucket for -1 padding
+    owned = local.new_zeros((o + 1, b, e))
+    owned.index_add_(0, pos.reshape(-1), arrived.view(-1, b, e))
+    owned = owned[:o]
+    gathered = all_gather_cat(owned, group)
+    _count("all_gather", owned.nbytes * k * (k - 1))
+    bucket = packed.rejoin_bucket.long().reshape(-1)
+    out = local.new_zeros((n_tables + 1, b, e))
+    out.index_add_(0, torch.where(bucket >= 0, bucket, n_tables), gathered)
+    return out[:n_tables]
+
+
+def _mesh_ring(local: torch.Tensor, group, me: int, k: int) -> torch.Tensor:
+    """The reference's ``_ring_psum``: K-1 steps, each sending the buffer
+    to the next rank and adding the one from the previous rank, so rank
+    ``r`` sums its own partial, then rank r-1's, r-2's, ...  (rank 0's
+    order is the one-card ``_ring_psum``'s)."""
+    acc, buf = local.clone(), local
+    nxt = dist.get_global_rank(group, (me + 1) % k)
+    prv = dist.get_global_rank(group, (me - 1) % k)
+    for _ in range(k - 1):
+        new = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, nxt, group),
+               dist.P2POp(dist.irecv, new, prv, group)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        _count("send", buf.nbytes * k)
+        buf = new
+        acc += buf
+    return acc
+
+
+def _mesh_rejoin(local: torch.Tensor, packed: PackedPlan, reduce_mode: str, group,
+                 me: int, k: int) -> torch.Tensor:
+    """This rank's (N, B, E) partial -> the (N, B, E) rejoined output,
+    through the collectives of ``reduce_mode`` over ``group`` (``me`` is
+    this rank's place in it, ``k`` its size)."""
+    if reduce_mode == "sparse":
+        return _mesh_sparse_rejoin(local, packed, group, me, k)
+    if reduce_mode == "ring":
+        return _mesh_ring(local, group, me, k)
+    out = local.clone()
+    dist.all_reduce(out, group=group)
+    _count("all_reduce", out.nbytes * k)
+    return out
+
+
+def _mesh_sym(packed: PackedPlan, idx: torch.Tensor, group, me: int, k: int, *,
+              n_tables: int, use_kernels) -> torch.Tensor:
+    """The symmetric group on this rank's ``B/K`` slice of the batch,
+    ``all_gather``-ed back along the batch -> (N, B, E)."""
+    b = idx.shape[1]
+    if b % k:
+        raise ValueError(
+            f"the symmetric group splits the batch over the {k} cores: "
+            f"batch {b} must be a multiple of {k}"
+        )
+    from repro_torch.launch.mesh import all_gather_cat
+
+    bl = b // k
+    sym = _local_sym_lookup(packed, idx[:, me * bl:(me + 1) * bl], n_tables=n_tables,
+                            use_kernels=use_kernels)
+    gathered = all_gather_cat(sym, group)
+    _count("all_gather_sym", sym.nbytes * k * (k - 1))
+    return gathered.view(k, n_tables, bl, -1).permute(1, 0, 2, 3).reshape(n_tables, b, -1)
+
+
+def batch_share(x: torch.Tensor, mesh, batch_axes, dim: int = 1) -> torch.Tensor:
+    """This rank's share of ``x``'s batch dim ``dim`` over the
+    ``batch_axes`` dims of ``mesh`` (the first axis the slowest), as the
+    reference's ``PartitionSpec`` splits it."""
+    from repro_torch.launch.mesh import axis_rank, axis_size
+
+    parts, pos = 1, 0
+    for ax in batch_axes:
+        parts, pos = parts * axis_size(mesh, ax), pos * axis_size(mesh, ax) + axis_rank(mesh, ax)
+    b = x.shape[dim]
+    if b % parts:
+        raise ValueError(f"batch {b} does not split over {parts} ranks of {batch_axes}")
+    return x.narrow(dim, pos * (b // parts), b // parts)
+
+
+def _mesh_context(packed, indices, mesh, axis, batch_axes):
+    """(this rank's share of the indices, the ``axis`` group, this rank's
+    place along it, its size), after checking that ``packed`` is one
+    core's slice of a plan of that many cores."""
+    from repro_torch.core.mesh import MeshShapeError
+    from repro_torch.launch.mesh import axis_rank, axis_size
+
+    k, me = axis_size(mesh, axis), axis_rank(mesh, axis)
+    if packed.n_cores != 1 or packed.rejoin_send.shape[0] != k:
+        raise MeshShapeError(
+            f"a rank of the {k}-rank {axis!r} axis runs one core's slice of a "
+            f"{k}-core plan; got {packed.n_cores} core(s) of a "
+            f"{packed.rejoin_send.shape[0]}-core plan (pack with core=rank)"
+        )
+    if batch_axes:
+        indices = batch_share(indices, mesh, batch_axes)
+    return indices, mesh.get_group(axis), me, k
+
+
+def _mesh_lookup(packed, indices, *, mesh, axis, batch_axes, n_tables, use_kernels,
+                 reduce_mode) -> torch.Tensor:
+    indices, group, me, k = _mesh_context(packed, indices, mesh, axis, batch_axes)
+    local = _local_asym_lookup(packed, indices, n_tables=n_tables, use_kernels=use_kernels)
+    out = _mesh_rejoin(local[0], packed, reduce_mode, group, me, k)
+    if packed.sym_data.shape[0]:
+        out = out + _mesh_sym(packed, indices, group, me, k, n_tables=n_tables,
+                              use_kernels=use_kernels)
+    return out
+
+
+def mesh_lookup_stages(
+    packed: PackedPlan,
+    indices,
+    *,
+    mesh,
+    n_tables: int,
+    use_kernels="fused",
+    reduce_mode: str = "sparse",
+    axis: str = "model",
+) -> dict:
+    """The stages of :func:`partitioned_lookup` across ``mesh``, each a
+    function of no arguments, to time alone: ``"lookup"`` (this rank's
+    core), ``"rejoin"`` (``reduce_mode``'s collectives on that core's
+    partial, computed once here) and, where the plan has a symmetric
+    group, ``"sym"`` (this rank's ``B/K`` slice and its ``all_gather``).
+    Every rank of ``mesh`` calls this, and then each stage, together."""
+    indices = torch.as_tensor(indices, device=packed.device)
+    indices, group, me, k = _mesh_context(packed, indices, mesh, axis, ())
+
+    def lookup():
+        return _local_asym_lookup(packed, indices, n_tables=n_tables,
+                                  use_kernels=use_kernels)[0]
+
+    partial = lookup()
+    stages = {"lookup": lookup,
+              "rejoin": lambda: _mesh_rejoin(partial, packed, reduce_mode, group, me, k)}
+    if packed.sym_data.shape[0]:
+        stages["sym"] = lambda: _mesh_sym(packed, indices, group, me, k, n_tables=n_tables,
+                                          use_kernels=use_kernels)
+    return stages
+
+
+# --------------------------------------------------------------------------
 # entry point
 # --------------------------------------------------------------------------
 
@@ -890,18 +1159,38 @@ def partitioned_lookup(
     n_tables: int,
     use_kernels="fused",
     reduce_mode: str = "sparse",
+    mesh=None,
+    axis: str = "model",
+    batch_axes: tuple[str, ...] = (),
 ) -> torch.Tensor:
     """Execute the plan. indices (N, B, s) int -> pooled (N, B, E) f32.
 
     ``use_kernels``: "fused" (default) = the CUDA kernels (plain versions on
     CPU tensors); False = the plain gather path.  ``reduce_mode``: "sparse"
     (default, owner-sharded), "psum" or "ring" — equal results.
+
+    ``mesh`` (a ``DeviceMesh``; every rank of it calls this with the same
+    indices) runs each plan core as its own rank: ``packed`` is this rank's
+    slice (``pack_plan(..., core=<rank along axis>)``) and ``axis`` the dim
+    the cores lie along.  ``batch_axes`` splits B over those dims: each
+    rank returns its (N, B/D, E) share.
     """
     if not (use_kernels is False or use_kernels == "fused"):
         raise ValueError(f"use_kernels must be 'fused' or False, got {use_kernels!r}")
     if reduce_mode not in ("sparse", "psum", "ring"):
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}")
     indices = torch.as_tensor(indices, device=packed.device)
+    if mesh is not None:
+        return _mesh_lookup(packed, indices, mesh=mesh, axis=axis, batch_axes=tuple(batch_axes),
+                            n_tables=n_tables, use_kernels=use_kernels,
+                            reduce_mode=reduce_mode)
+    if packed.rejoin_send.shape[0] != packed.n_cores:
+        from repro_torch.core.mesh import MeshShapeError
+
+        raise MeshShapeError(
+            f"this pack is one core's slice of a {packed.rejoin_send.shape[0]}-core "
+            "plan: look it up across the device mesh (mesh=)"
+        )
     local = _local_asym_lookup(
         packed, indices, n_tables=n_tables, use_kernels=use_kernels
     )

@@ -7,7 +7,8 @@ port's kernels do not have):
 
 * :func:`modeled_hbm_traffic` — bytes per executor path of a packed plan
   (the fused streaming kernel, the retired per-slot scan, a plain gather)
-  and the rejoin volume;
+  and the rejoin volume (:func:`modeled_rejoin_traffic`, which also
+  prices one rank's slice of a pack);
 * :func:`modeled_plan_traffic` — expected lookup bytes of a placement
   under an access histogram, with the access reduction's post-dedup and
   post-cache figures and cache hit rate when asked (``dedup=``/
@@ -39,6 +40,7 @@ __all__ = [
     "modeled_hbm_traffic",
     "modeled_kernel_path_traffic",
     "modeled_plan_traffic",
+    "modeled_rejoin_traffic",
 ]
 
 
@@ -120,10 +122,25 @@ def modeled_hbm_traffic(
         },
     }
 
-    # rejoin volume (total bytes sent across the group, ring collectives)
+    return {
+        "itemsize": item,
+        "batch": batch,
+        "seq": seq,
+        "paths": paths,
+        "rejoin": modeled_rejoin_traffic(packed, batch=batch, n_tables=n_tables),
+    }
+
+
+def modeled_rejoin_traffic(packed: PackedPlan, *, batch: int, n_tables: int) -> dict:
+    """The rejoin's volume: total bytes sent across the group by ring
+    collectives, per rejoin mode.  Reads only the replicated rejoin maps,
+    so one rank's slice of a pack prices the whole group's rejoin."""
+    item = packed.chunk_data.element_size()
+    e = int(packed.chunk_data.shape[-1])
+    send = _host(packed.rejoin_send)
+    k = int(send.shape[0])
     dense_partial = n_tables * batch * e * item
     psum_bytes = 2 * max(k - 1, 0) * dense_partial
-    send = _host(packed.rejoin_send)
     off_core_sends = 0
     for c in range(k):
         for d in range(k):
@@ -132,19 +149,12 @@ def modeled_hbm_traffic(
     a2a_bytes = off_core_sends * batch * e * item
     o = int(packed.rejoin_bucket.shape[1])
     gather_rejoin = max(k - 1, 0) * k * o * batch * e * item
-    rejoin = {
+    return {
         "psum_bytes": int(psum_bytes),
         "ring_bytes": int(psum_bytes),
         "sparse_all_to_all_bytes": int(a2a_bytes),
         "sparse_all_gather_bytes": int(gather_rejoin),
         "sparse_bytes": int(a2a_bytes + gather_rejoin),
-    }
-    return {
-        "itemsize": item,
-        "batch": batch,
-        "seq": seq,
-        "paths": paths,
-        "rejoin": rejoin,
     }
 
 

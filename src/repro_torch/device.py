@@ -9,8 +9,10 @@ __all__ = ["resolve_device"]
 def resolve_device(device=None) -> torch.device:
     """``None`` means ``"cuda"``; a CUDA device without a card raises (there
     is no silent CPU fallback — pass ``device="cpu"`` to run the plain
-    versions).  Also pins full-f32 matmuls: TF32 off for cuBLAS and cuDNN,
-    so the MLPs compute what the JAX package computes."""
+    versions).  Under a ``torch.distributed`` process group ``"cuda"`` (or
+    ``None``) is this rank's own card, ``cuda:LOCAL_RANK``, and a rank with
+    no card of its own raises.  Also pins full-f32 matmuls: TF32 off for
+    cuBLAS and cuDNN, so the MLPs compute what the JAX package computes."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -18,6 +20,18 @@ def resolve_device(device=None) -> torch.device:
                 "CUDA is not available: the port runs on the card by default; "
                 "pass device='cpu' to run the kernels' plain versions"
             )
+        if dev.index is None and torch.distributed.is_available() \
+                and torch.distributed.is_initialized():
+            from repro_torch.launch.mesh import local_rank
+
+            card = local_rank()
+            if card >= torch.cuda.device_count():
+                raise RuntimeError(
+                    f"rank {torch.distributed.get_rank()} needs card {card} but "
+                    f"only {torch.cuda.device_count()} are visible: start at "
+                    "most one rank per card"
+                )
+            dev = torch.device("cuda", card)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

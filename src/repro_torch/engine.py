@@ -22,6 +22,21 @@ integrity) holding the builtin policies; every value the JAX package's
 :meth:`InferenceEngine.build_scenario`, whose engine runs the scenario's
 tower over the lookups.  The engine builds on the card unless
 ``device="cpu"`` is passed, and raises when CUDA is absent.
+
+Across cards, every rank of a ``torchrun`` job builds the engine with the
+same config and seed and the device mesh
+(:func:`repro_torch.launch.mesh.init_card_mesh`)::
+
+    mesh = init_card_mesh()                       # one rank per card
+    engine = InferenceEngine.build(None, workload, config, mesh=mesh)
+    if engine.rank == 0:
+        pooled = engine.lookup(indices)           # each core on its own card
+        engine.close()
+    else:
+        engine.follow()                           # until rank 0 closes
+
+Each rank keeps on its card only its plan core's slice; rank 0 sends every
+lookup's indices to the others, which run it with it until ``close``.
 """
 from __future__ import annotations
 
@@ -359,8 +374,10 @@ class EngineConfig:
     n_cores: int | None = None  # deprecated: use mesh_shape (None = devices)
     # (hosts, cores_per_host); the plan has hosts * cores_per_host cores
     mesh_shape: tuple | list | None = None
-    # the JAX package skips its plan-cores == device-mesh check with this;
-    # plan cores are partitions of one device here, so there is no check
+    # without a device mesh plan cores are partitions of one card and any
+    # core count executes; with one (build(mesh=...)) a plan whose core
+    # count is not the mesh's "model" size builds only with this, and its
+    # lookups raise, as the JAX package's do
     simulate: bool = False
     # serving: batching + admission control + deadlines + degraded mode
     max_batch: int = 256
@@ -514,6 +531,42 @@ _TORCH_DTYPES = {
 }
 
 
+# the op header rank 0 sends the other ranks of a device mesh: (op, N, B, s)
+_OP_STOP, _OP_LOOKUP = 0, 1
+
+
+def _rank_record(mesh, packed, bag, workload) -> dict:
+    """What the ranks of a device mesh hold, gathered on every rank: each
+    rank's chunk bytes on its card, after a check that every rank packed
+    the same plan (the whole packs' fingerprints are equal; else raise).
+    Collective over the whole job: every rank calls it."""
+    import torch.distributed as dist
+
+    from repro_torch.core.traffic import modeled_rejoin_traffic
+    from repro_torch.launch.mesh import all_gather_cat
+
+    fp = packed.host["fingerprint"]
+    mine = torch.tensor([int(fp[i:i + 15], 16) for i in range(0, 60, 15)]
+                        + [packed.chunk_bytes], dtype=torch.int64, device=packed.device)
+    every = all_gather_cat(mine)
+    rows = every.view(-1, mine.numel()).tolist()
+    differ = [r for r, row in enumerate(rows) if row[:4] != rows[0][:4]]
+    if differ:
+        raise RuntimeError(
+            f"ranks {differ} packed another plan than rank 0: every rank must "
+            "build from the same config, tables and seed"
+        )
+    return {
+        "world": dist.get_world_size(),
+        "backend": str(dist.get_backend()),
+        "chunk_bytes": [row[4] for row in rows],
+        "whole_chunk_bytes": int(bag.plan.meta["layout"]["chunk_bytes"]),
+        "fingerprint": fp,
+        "rejoin_modeled": modeled_rejoin_traffic(
+            packed, batch=workload.batch, n_tables=len(workload.tables)),
+    }
+
+
 def _payload_indices(q) -> np.ndarray:
     """A query payload is either the raw (N, s) index array or a dict with
     an ``"indices"`` entry (the serving convention)."""
@@ -536,7 +589,8 @@ class InferenceEngine:
 
     def __init__(
         self, *, config, workload, bag, packed, device, freqs, table_data,
-        cost_model, manifest=None, scenario=None, tuning_cache=None,
+        cost_model, manifest=None, scenario=None, tuning_cache=None, mesh=None,
+        ranks=None,
     ):
         self.config = config
         self.workload = workload
@@ -548,8 +602,11 @@ class InferenceEngine:
         self.manifest = manifest  # pack-time integrity checksums (or None)
         self.scenario = scenario  # ScenarioModel wrapper (or None = pooled)
         self.tuning_cache = tuning_cache
+        self.mesh = mesh  # the DeviceMesh the plan cores run on, or None
+        self.ranks = ranks  # the mesh's build record (see build), or None
         self._table_data = table_data
         self._server = None
+        self._closed = False
 
     # -- construction -------------------------------------------------------
 
@@ -565,38 +622,77 @@ class InferenceEngine:
         rng: torch.Generator | None = None,
         tuning_cache=None,
         block_sizes: dict | None = None,
+        mesh=None,
     ) -> "InferenceEngine":
         """Build the pipeline from a declarative config on ``device``
-        (``None`` = ``"cuda"``, which raises when CUDA is absent).
+        (``None`` = ``"cuda"``, which raises when CUDA is absent; under a
+        process group, this rank's card).
 
         ``tables`` — per-table (m_i, E) arrays (numpy or torch), or ``None``
         to initialize fresh tables (``rng`` seeds them; default seed 0), or
         the string ``"abstract"`` for shape-only packing.  ``freqs``
         overrides ``config.distribution`` with explicit per-table
         :class:`~repro_torch.data.distributions.RowProbs`.  ``K`` is
-        ``mesh_shape``'s core count; without one it is the number of visible
-        CUDA devices (1 on the CPU), as the JAX package defaults to its
-        device count.  ``tuning_cache`` (a
+        ``mesh_shape``'s core count; without one it is the ``"model"`` size
+        of ``mesh``, or without a mesh the number of visible CUDA devices (1
+        on the CPU), as the JAX package defaults to its device count.
+        ``tuning_cache`` (a
         :class:`repro_torch.core.autotune.TuningCache`; default: a fresh one)
         memoizes ``tuning="sweep"`` sweeps across builds;
         ``block_sizes`` (``block_r``/``block_b``) packs at those sizes in
         place of the tuning policy's, with no sweep (:meth:`rebuild` on the
         card passes its own).
+
+        ``mesh`` (a ``DeviceMesh`` with a ``"model"`` dim, from
+        :func:`repro_torch.launch.mesh.init_card_mesh`) runs each plan core
+        on its own rank: every rank of the mesh calls ``build`` with the
+        same arguments, plans and packs on the host, keeps its core's slice
+        on its card, and the ranks compare the packs' fingerprints.  A plan
+        whose core count is not the ``"model"`` size raises
+        :class:`~repro_torch.core.mesh.MeshShapeError` unless
+        ``config.simulate``; such an engine packs the whole plan and its
+        lookups raise.  Drift replanning and integrity sweeps do not run
+        across ranks yet (ROADMAP A13) and raise on a mesh of more than one
+        rank.
         """
         from repro_torch.core.cost_model import analytic_model
         from repro_torch.core.embedding import PartitionedEmbeddingBag
-        from repro_torch.core.mesh import resolve_mesh_shape
+        from repro_torch.core.mesh import MeshShapeError, resolve_mesh_shape
         from repro_torch.device import resolve_device
 
         config = config if config is not None else EngineConfig()
         config.validate()
         device = resolve_device(device)
 
+        model_size = torch.cuda.device_count() if device.type == "cuda" else 1
+        if mesh is not None:
+            from repro_torch.launch.mesh import axis_size
+
+            if mesh.device_type != device.type:
+                raise ValueError(
+                    f"a {mesh.device_type} device mesh cannot serve from {device}")
+            model_size = axis_size(mesh, "model")
+            if mesh.size() > 1 and (config.drift != "none" or config.integrity != "none"):
+                raise ValueError(
+                    f"drift={config.drift!r} and integrity={config.integrity!r} do "
+                    f"not run across the {mesh.size()} ranks of a device mesh yet "
+                    "(ROADMAP A13): a shadow build's thread would issue collectives "
+                    "beside the served step's; use drift='none' and integrity='none'"
+                )
         hosts, cores_per_host = resolve_mesh_shape(
-            config.mesh_shape, config.n_cores,
-            default_cores=torch.cuda.device_count() if device.type == "cuda" else 1,
+            config.mesh_shape, config.n_cores, default_cores=model_size,
         )
         n_cores = hosts * cores_per_host
+        if mesh is not None and n_cores != model_size and not config.simulate:
+            raise MeshShapeError(
+                f"plan spans {n_cores} cores (mesh_shape {hosts}x{cores_per_host}) "
+                f"but the device mesh 'model' axis has {model_size} card(s) "
+                f"(world size {mesh.size()}); either run under a matching device "
+                f"mesh (torchrun --nproc-per-node {n_cores}), set "
+                f"mesh_shape=(1, {model_size}), or pass simulate=True for "
+                "plan/model-only work (execution will still raise)"
+            )
+        executable = mesh is not None and n_cores == model_size
         hw = _hardware_presets()[config.hardware]
         if config.hardware_options:
             hw = dataclasses.replace(hw, **config.hardware_options)
@@ -651,14 +747,25 @@ class InferenceEngine:
             from repro_torch.core.autotune import TuningCache
 
             tuning_cache = TuningCache()
+        core = None
+        if executable:
+            from repro_torch.launch.mesh import axis_rank
+
+            core = axis_rank(mesh, "model")
+            if device.type == "cuda":
+                from repro_torch.kernels.build import build_ranks
+
+                build_ranks()  # rank 0 compiles; the others wait, then load
         packed = bag.pack(
-            table_data, device=device, tuning_cache=tuning_cache,
+            table_data, device=device, tuning_cache=tuning_cache, core=core,
+            mesh=mesh if executable else None,
             **(block_sizes if block_sizes is not None
                else tuning.pack_kwargs(**config.tuning_options)),
         )
         manifest = INTEGRITY_POLICIES.create(config.integrity).manifest(
             packed, bag.plan, **config.integrity_options
         )
+        ranks = _rank_record(mesh, packed, bag, workload) if executable else None
         return cls(
             config=config,
             workload=workload,
@@ -670,24 +777,28 @@ class InferenceEngine:
             cost_model=model,
             manifest=manifest,
             tuning_cache=tuning_cache,
+            mesh=mesh,
+            ranks=ranks,
         )
 
     @classmethod
     def from_scenario(
         cls, scenario, config: EngineConfig | None = None, *, device=None, freqs=None,
+        mesh=None,
     ) -> "InferenceEngine":
         """An engine over a :class:`~repro_torch.models.scenarios.ScenarioModel`:
         the wrapper's workload and tables go through :meth:`build`, and the
         engine carries the wrapper, so :meth:`serve` runs its tower step
         (and drift hot-swaps rebuild it).  ``device=None`` is the
-        wrapper's own device."""
+        wrapper's own device.  ``mesh`` is :meth:`build`'s: the tower runs on
+        rank 0, over the lookup across the ranks."""
         config = config if config is not None else EngineConfig()
         name = getattr(scenario, "name", None)
         if config.model == "pooled" and name in SCENARIO_MODELS:
             config = dataclasses.replace(config, model=name)  # stamp the recipe
         engine = cls.build(
             scenario.table_data(), scenario.workload, config,
-            device=scenario.device if device is None else device, freqs=freqs,
+            device=scenario.device if device is None else device, freqs=freqs, mesh=mesh,
         )
         engine.scenario = scenario
         return engine
@@ -695,7 +806,7 @@ class InferenceEngine:
     @classmethod
     def build_scenario(
         cls, name: str | None = None, config: EngineConfig | None = None, *,
-        device=None, freqs=None, **factory_kwargs,
+        device=None, freqs=None, mesh=None, **factory_kwargs,
     ) -> "InferenceEngine":
         """Resolve a registered scenario by name (default: ``config.model``)
         on ``device`` (``None`` = the card) and build it.
@@ -709,13 +820,21 @@ class InferenceEngine:
             raise ValueError("build_scenario needs a scenario name (argument or config.model)")
         opts = {**config.model_options, **factory_kwargs}
         scenario = get_scenario(name, device=device, **opts)
-        return cls.from_scenario(scenario, config, device=scenario.device, freqs=freqs)
+        return cls.from_scenario(scenario, config, device=scenario.device, freqs=freqs,
+                                 mesh=mesh)
 
     def reference_view(self) -> "InferenceEngine":
         """A shallow engine view over the SAME bag/packed tables whose
         executor runs the plain gather path (``use_kernels="xla"``): equal
         results, no kernels.  A CPU engine's server serves from it in
-        degraded mode; a CUDA engine's server never does (see :meth:`serve`)."""
+        degraded mode; a CUDA engine's server never does (see :meth:`serve`).
+        Not across the ranks of a device mesh yet (ROADMAP A13)."""
+        if self.mesh is not None and self.mesh.size() > 1:
+            raise ValueError(
+                "the degraded mode's plain fallback (reference_view) does not run "
+                f"across the {self.mesh.size()} ranks of a device mesh yet (ROADMAP "
+                "A13): serve with degrade_after=0"
+            )
         return InferenceEngine(
             config=dataclasses.replace(self.config, use_kernels="xla"),
             workload=self.workload,
@@ -728,6 +847,8 @@ class InferenceEngine:
             manifest=self.manifest,
             scenario=self.scenario,
             tuning_cache=self.tuning_cache,
+            mesh=self.mesh,
+            ranks=self.ranks,
         )
 
     def rebuild(self, freqs) -> "InferenceEngine":
@@ -754,6 +875,7 @@ class InferenceEngine:
             freqs=freqs,
             tuning_cache=self.tuning_cache,
             block_sizes=block_sizes,
+            mesh=self.mesh,
         )
         engine.scenario = self.scenario
         return engine
@@ -794,19 +916,132 @@ class InferenceEngine:
     def _use_kernels(self):
         return "fused" if self.config.use_kernels == "fused" else False
 
+    @property
+    def rank(self) -> int:
+        """This process's rank in the job (0 without a mesh)."""
+        if self.mesh is None:
+            return 0
+        import torch.distributed as dist
+
+        return dist.get_rank()
+
+    def _require_executable(self) -> None:
+        """Raise when the plan's core count is not the device mesh's
+        ``"model"`` size (a ``simulate=True`` build): running it would
+        hand some cores no card or some cards no core."""
+        if self.mesh is None:
+            return
+        from repro_torch.core.mesh import MeshShapeError
+        from repro_torch.launch.mesh import axis_size
+
+        k, cores = axis_size(self.mesh, "model"), self.plan.n_cores
+        if cores != k:
+            raise MeshShapeError(
+                f"cannot execute: plan spans {cores} cores but the device mesh "
+                f"'model' axis has {k} card(s) — this engine was built with "
+                "simulate=True for plan/model work; to run lookups, rebuild "
+                f"under a matching device mesh (torchrun --nproc-per-node {cores})"
+            )
+
+    def _require_lead(self, what: str) -> None:
+        if self.rank != 0:
+            raise RuntimeError(
+                f"{what} runs on rank 0; rank {self.rank} follows it: call follow()")
+
     @torch.no_grad()
     def lookup(self, indices) -> torch.Tensor:
         """Partitioned pooled lookup: per-table index arrays (or the stacked
         (N, B, s_max) array with ``-1`` padding) → (N, B, E) f32 on the
-        engine's device."""
+        engine's device.  On a device mesh, rank 0 calls it (the other
+        ranks run :meth:`follow`)."""
+        self._require_executable()
         if not isinstance(indices, (list, tuple, torch.Tensor)):
             indices = torch.from_numpy(np.array(indices))
+        if self.mesh is not None:
+            if isinstance(indices, (list, tuple)):
+                from repro_torch.core.embedding import stack_indices
+
+                indices = stack_indices(indices, self.bag.s_max)
+            indices = self.broadcast_batch(indices)
         return self.bag.apply(
             self.packed,
             indices,
             use_kernels=self._use_kernels,
             reduce_mode=self.config.reduce_mode,
+            mesh=self.mesh,
         )
+
+    def lookup_stages(self, indices) -> dict:
+        """:meth:`lookup` across the device mesh as its stages, to time each
+        alone: :func:`repro_torch.core.partition.mesh_lookup_stages`'s
+        ``"lookup"``, ``"rejoin"`` and ``"sym"``, and ``"whole"``, the
+        lookup itself.  Every rank calls it, and then each stage, together
+        (after rank 0's :meth:`close`, not through :meth:`follow`)."""
+        from repro_torch.core.partition import mesh_lookup_stages
+
+        self._require_executable()
+        if self.mesh is None:
+            raise RuntimeError("lookup_stages() times the lookup across a device mesh")
+        idx = torch.as_tensor(indices, device=self.device)
+        kw = dict(use_kernels=self._use_kernels, reduce_mode=self.config.reduce_mode)
+        stages = mesh_lookup_stages(self.packed, idx, mesh=self.mesh,
+                                    n_tables=self.bag.n_tables, **kw)
+        stages["whole"] = lambda: self.bag.apply(self.packed, idx, mesh=self.mesh, **kw)
+        return stages
+
+    def broadcast_batch(self, indices) -> torch.Tensor:
+        """The stacked (N, B, s) indices on this engine's device.  On a
+        device mesh this is rank 0's half of a lookup: it sends the op
+        header and the indices to the other ranks, whose :meth:`follow`
+        then runs the lookup with rank 0.  A served step on rank 0 calls it
+        and then the lookup with ``mesh=engine.mesh``."""
+        idx = torch.as_tensor(indices, device=self.device)
+        if self.mesh is None:
+            return idx
+        import torch.distributed as dist
+
+        self._require_lead("a lookup")
+        if idx.dim() != 3:
+            raise ValueError(f"indices must be stacked (N, B, s), got {tuple(idx.shape)}")
+        idx = idx.to(torch.int32).contiguous()
+        dist.broadcast(torch.tensor([_OP_LOOKUP, *idx.shape], dtype=torch.int64,
+                                    device=self.device), src=0)
+        dist.broadcast(idx, src=0)
+        return idx
+
+    @torch.no_grad()
+    def follow(self) -> int:
+        """The serving loop of every rank but 0 on a device mesh: run each
+        lookup rank 0 sends, with rank 0, until rank 0's :meth:`close`.
+        Returns the number of lookups run."""
+        import torch.distributed as dist
+
+        if self.mesh is None or self.rank == 0:
+            raise RuntimeError("follow() runs on the ranks after 0 of a device mesh")
+        self._require_executable()
+        n = 0
+        while True:
+            header = torch.empty(4, dtype=torch.int64, device=self.device)
+            dist.broadcast(header, src=0)
+            op, *shape = header.tolist()
+            if op == _OP_STOP:
+                return n
+            idx = torch.empty(shape, dtype=torch.int32, device=self.device)
+            dist.broadcast(idx, src=0)
+            self.bag.apply(self.packed, idx, use_kernels=self._use_kernels,
+                           reduce_mode=self.config.reduce_mode, mesh=self.mesh)
+            n += 1
+
+    def close(self) -> None:
+        """On rank 0 of a device mesh, end the other ranks' :meth:`follow`
+        loops (once).  Nothing to do elsewhere."""
+        if self.ranks is None or self.rank != 0 or self._closed:
+            return
+        import torch.distributed as dist
+
+        self._closed = True
+        dist.broadcast(torch.tensor([_OP_STOP, 0, 0, 0], dtype=torch.int64,
+                                    device=self.device), src=0)
 
     def _default_step(self):
         """payloads (list of queries) → (N, B, E) numpy."""
@@ -863,9 +1098,15 @@ class InferenceEngine:
         ``fault_injector`` threads a seeded
         :class:`repro_torch.serving.faults.FaultInjector` through the server
         and the replan path.
+
+        On a device mesh the server runs on rank 0 only, and a step that
+        looks up calls :meth:`broadcast_batch` first (the default step does,
+        through :meth:`lookup`); the other ranks run :meth:`follow`.
         """
         from repro_torch.serving.server import Server
 
+        if self.mesh is not None:
+            self._require_lead("the server")
         if make_step is None and self.scenario is not None:
             # the scenario's tower over the lookups, re-invoked on every
             # drift hot-swap and heal rebuild
@@ -1013,6 +1254,8 @@ class InferenceEngine:
                     "reduction_vs_flat", "bucket_entries", "unique_cap",
                 )
             }
+        if self.ranks is not None:
+            out["ranks"] = self.ranks
         if self._server is not None:
             out["server"] = self._server.stats()
         return out
@@ -1131,6 +1374,19 @@ class InferenceEngine:
                 f"{xh['flat_allgather_bytes']:,.0f}B "
                 f"({xh['reduction_vs_flat']:.1f}x reduction, "
                 f"{xh['bucket_entries']} bucket entries)"
+            )
+        if self.ranks is not None:
+            r = self.ranks
+            per = ", ".join(f"{b:,}" for b in r["chunk_bytes"])
+            mod = r["rejoin_modeled"]
+            lines.append(
+                f"cards: {r['world']} ranks ({r['backend']}), one plan core each: "
+                f"chunk bytes per rank [{per}] of {r['whole_chunk_bytes']:,} in all"
+            )
+            lines.append(
+                f"rejoin modeled (core/traffic.py, per batch of {self.workload.batch}): "
+                f"sparse all_to_all {mod['sparse_all_to_all_bytes']:,}B + all_gather "
+                f"{mod['sparse_all_gather_bytes']:,}B, psum/ring {mod['psum_bytes']:,}B"
             )
         if self.config.drift != "none":
             lines.append(f"drift policy={self.config.drift} "

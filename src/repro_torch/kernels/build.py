@@ -8,7 +8,9 @@ Libraries go to ``build/repro_torch/`` at the repository root (or
 an edited source is rebuilt and a stale library is never loaded.  Nothing is
 built at import time: the first wrapper call on a CUDA tensor builds what it
 needs, and :func:`build` compiles every kernel at once, one ``nvcc`` process
-per source, all started together.
+per source, all started together.  In a job of one process per card,
+:func:`build_ranks` has rank 0 compile while the other ranks wait, so that
+W ranks do not each start every ``nvcc`` of the same sources.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build", "build_dir", "c_function", "check_launch",
+__all__ = ["SOURCES", "build", "build_dir", "build_ranks", "c_function", "check_launch",
            "dtype_code", "route", "sm_count", "stream_of"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -92,6 +94,22 @@ def build(names=SOURCES) -> dict[str, dict]:
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
     if failed:
         raise RuntimeError("\n".join(failed))
+    return report
+
+
+def build_ranks(names=SOURCES) -> dict[str, dict]:
+    """:func:`build` once for a ``torch.distributed`` job on one host: rank
+    0 compiles what is missing while the other ranks wait at a barrier, and
+    after it every rank finds the libraries built.  Every rank calls it at
+    the same point (it is a collective); without a process group it is
+    :func:`build`."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return build(names)
+    # a failed build ends rank 0 here, and the others' barrier on its timeout
+    report = build(names) if dist.get_rank() == 0 else {}
+    dist.barrier()
     return report
 
 

@@ -34,6 +34,22 @@ counters::
     PYTHONPATH=src python -m repro_torch.launch.serve --preset taobao-zipf12 \
         --drift zipf:1.2@80,hotset:0.01:0.9:-1@64 --queries 73728
 
+Under ``torchrun`` each plan core runs on its own card (one process per
+card, NCCL between them; ``--device cpu`` runs gloo between CPU
+processes), the plan's core count defaulting to the number of ranks::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --workload taobao --batch 8192 --queries 16384 --distribution uniform
+
+Every rank builds the engine from the same config and seed and keeps its
+core's slice on its card; rank 0 serves, prints the report (each rank's
+chunk bytes, the rejoin's modeled bytes and, after serving, the bytes it
+handed the collectives) and returns the record, while the others run
+each batch's lookup with it until it is done, then exit 0.  Any rank's
+exception ends the run with a non-zero exit.  Drift replanning, integrity
+sweeps and the degraded mode's fallback do not run across ranks yet
+(``--set degrade_after=0`` on the CPU).
+
 Legacy flag spellings (``--planner``, ``--layout``, ``--kernels``,
 ``--reduce``, ``--autotune``, ``--dedup``, ``--cache``, ``--replan``,
 ``--replan-threshold``) still work: each maps onto the corresponding
@@ -229,6 +245,20 @@ def config_from_args(args) -> EngineConfig:
     return config
 
 
+def _job_mesh(device: str):
+    """The device mesh of a ``torch.distributed`` job (a process group
+    already started, or ``torchrun``'s environment), else ``None``."""
+    import os
+
+    import torch.distributed as dist
+
+    if not (dist.is_initialized() or "WORLD_SIZE" in os.environ):
+        return None
+    from repro_torch.launch.mesh import init_card_mesh
+
+    return init_card_mesh(device_type=device)
+
+
 def main(argv=None) -> dict:
     """Serve ``--queries`` requests in batches of ``max_batch`` and print the
     plan report and per-distribution latency (or, under a drift schedule or
@@ -237,7 +267,12 @@ def main(argv=None) -> dict:
     parameters, each traffic label's server stats, the last server, the
     serving wall time, the logits of every request the last server served,
     and the last batch submitted (its inputs and the logits of the requests
-    of it that were served)."""
+    of it that were served).
+
+    In a ``torch.distributed`` job that holds on rank 0; every other rank
+    returns ``{"engine", "rank", "followed"}`` (the lookups it ran) once
+    rank 0 closes the engine, which it does on returning.  Every rank may
+    then run more lookups together (:meth:`InferenceEngine.lookup_stages`)."""
     args = build_parser().parse_args(argv)
     config = config_from_args(args)  # also resolves --preset into args
     from repro_torch.data.workloads import WORKLOADS
@@ -245,7 +280,9 @@ def main(argv=None) -> dict:
     if args.workload not in ["smoke", *WORKLOADS]:
         raise SystemExit(f"unknown workload {args.workload!r}")
     batch = config.max_batch  # precedence: --config < --batch < --set
-    if args.save_config:
+    mesh = _job_mesh(args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    if args.save_config and lead:
         config.save(args.save_config)
         print(f"[serve] wrote {args.save_config}")
 
@@ -286,12 +323,12 @@ def main(argv=None) -> dict:
 
         def step(payloads):
             dense = torch.as_tensor(np.stack([q["dense"] for q in payloads]), device=device)
-            idx = torch.as_tensor(
-                np.stack([q["indices"] for q in payloads], axis=1), device=device
-            )
+            # on a device mesh: rank 0 sends the indices to the other ranks
+            idx = engine.broadcast_batch(np.stack([q["indices"] for q in payloads], axis=1))
             logits = forward_packed(
                 cfg, engine.bag, engine.packed, params,
                 {"dense": dense, "indices": idx},
+                mesh=engine.mesh,
                 use_kernels=engine._use_kernels,
                 reduce_mode=engine.config.reduce_mode,
             )
@@ -300,22 +337,28 @@ def main(argv=None) -> dict:
         return step
 
     t0 = time.perf_counter()
-    engine = InferenceEngine.build(params["tables"], wl, config, device=device, freqs=freqs0)
+    engine = InferenceEngine.build(params["tables"], wl, config, device=device, freqs=freqs0,
+                                   mesh=mesh)
     build_s = time.perf_counter() - t0
-    for line in engine.plan_report().splitlines():
-        print(f"[serve] {line}")
-    print(f"[serve] built in {build_s:.2f}s on {device}")
+    if not lead:
+        return {"engine": engine, "rank": engine.rank, "followed": engine.follow()}
+    try:
+        for line in engine.plan_report().splitlines():
+            print(f"[serve] {line}")
+        print(f"[serve] built in {build_s:.2f}s on {device}")
 
-    # (B,) logits -> one scalar per request handle
-    split = lambda out, n: [out[i] for i in range(n)]  # noqa: E731
-    result = {"engine": engine, "cfg": cfg, "params": params, "stats": {},
-              "build_s": build_s, "n_batches": n_batches}
-    if schedule is not None or config.drift != "none":
-        schedule = schedule or dist_lib.DriftSchedule([(1, dist0)], cycle=True)
-        return _serve(result, [("drift", schedule)], engine, make_step, split, wl,
-                      batch, n_batches, drift=True)
-    return _serve(result, _resolve_dists(args.distribution), engine, make_step, split,
-                  wl, batch, n_batches, drift=False)
+        # (B,) logits -> one scalar per request handle
+        split = lambda out, n: [out[i] for i in range(n)]  # noqa: E731
+        result = {"engine": engine, "cfg": cfg, "params": params, "stats": {},
+                  "build_s": build_s, "n_batches": n_batches}
+        if schedule is not None or config.drift != "none":
+            schedule = schedule or dist_lib.DriftSchedule([(1, dist0)], cycle=True)
+            return _serve(result, [("drift", schedule)], engine, make_step, split, wl,
+                          batch, n_batches, drift=True)
+        return _serve(result, _resolve_dists(args.distribution), engine, make_step, split,
+                      wl, batch, n_batches, drift=False)
+    finally:
+        engine.close()
 
 
 def _serve(result, legs, engine, make_step, split, wl, batch, n_batches, *, drift):
@@ -324,10 +367,13 @@ def _serve(result, legs, engine, make_step, split, wl, batch, n_batches, *, drif
     each batch index; its server replans per the config's drift policy."""
     from repro_torch.data import distributions as dist_lib
 
+    from repro_torch.core.partition import COLLECTIVE_BYTES
+
     n_dense = result["cfg"].n_dense
     rng = np.random.default_rng(0)
     for label, dist in legs:
         srv = engine.serve(make_step=make_step, split_fn=split)
+        COLLECTIVE_BYTES.clear()
         every = []
         t0 = time.perf_counter()
         for b in range(n_batches):
@@ -357,11 +403,28 @@ def _serve(result, legs, engine, make_step, split, wl, batch, n_batches, *, drif
             line += (f" replans={r['replans']} parity_failures="
                      f"{r['parity_failures']} last_drift={r['last_drift']:.3f}")
         print(line)
+        if engine.ranks is not None:
+            _print_collectives(engine, srv.total_batches, result)
         _print_robustness(s)
         for ev in s.get("replan", {}).get("events", []):
             print(f"[serve]   replan@batch={ev['batch']} drift={ev['drift']:.3f} "
                   f"parity_ok={ev['parity_ok']}")
     return result
+
+
+def _print_collectives(engine, batches: int, result: dict) -> None:
+    """The bytes the rejoin handed the collectives per served batch, beside
+    what ``core/traffic.py`` models for the same rejoin."""
+    from repro_torch.core.partition import COLLECTIVE_BYTES
+
+    batches = max(batches, 1)
+    measured = {op: n / batches for op, n in sorted(COLLECTIVE_BYTES.items())}
+    result["collective_bytes"] = measured
+    modeled = engine.ranks["rejoin_modeled"]
+    key = {"sparse": "sparse_bytes", "psum": "psum_bytes", "ring": "ring_bytes"}
+    print(f"[serve]   collectives per batch (all ranks): "
+          + " ".join(f"{op}={n:,.0f}B" for op, n in measured.items())
+          + f"; rejoin modeled {modeled[key[engine.config.reduce_mode]]:,}B")
 
 
 def _served(handles) -> np.ndarray:
@@ -402,3 +465,5 @@ def _print_robustness(s: dict) -> None:
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

@@ -251,13 +251,25 @@ def forward_packed(
     mlp_params: Params,
     batch: dict,
     *,
+    mesh=None,
+    axis: str = "model",
+    batch_axes: tuple[str, ...] = (),
     use_kernels="fused",
     reduce_mode: str = "sparse",
 ) -> torch.Tensor:
     """The paper's partitioned serving path (fused kernels + owner-sharded
-    sparse rejoin by default) -> (B,) logits."""
+    sparse rejoin by default) -> (B,) logits.  ``mesh``/``axis``/
+    ``batch_axes`` run the lookup across cards (see
+    :func:`repro_torch.core.partition.partitioned_lookup`); with
+    ``batch_axes`` the logits are this rank's share of the batch."""
     emb = bag.apply(
-        packed, batch["indices"], use_kernels=use_kernels, reduce_mode=reduce_mode,
+        packed, batch["indices"], mesh=mesh, axis=axis, batch_axes=batch_axes,
+        use_kernels=use_kernels, reduce_mode=reduce_mode,
     )  # (N, B, E) f32
-    bot = mlp_params["bottom"](batch["dense"])
+    dense = batch["dense"]
+    if mesh is not None and batch_axes:
+        from repro_torch.core.partition import batch_share
+
+        dense = batch_share(dense, mesh, batch_axes, dim=0)
+    bot = mlp_params["bottom"](dense)
     return mlp_params["top"](interact(bot, emb.to(bot.dtype)))[..., 0]

@@ -489,6 +489,49 @@ def test_engine_on_card_matches_cpu(cuda, planner):
         torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
 
 
+def _cards_cases(rank, tmp):
+    """Every case of ``test_torch_multicard`` with one plan core per card."""
+    from test_torch_multicard import CASES, _inputs
+    from repro_torch.launch.mesh import init_card_mesh
+
+    mesh = init_card_mesh()
+    wl, tables, idx = _inputs()
+    out = {}
+    for name, cfg in CASES.items():
+        if cfg.get("mesh_shape") and np.prod(cfg["mesh_shape"]) != mesh.size():
+            continue
+        eng = InferenceEngine.build(tables, wl, EngineConfig(**cfg), mesh=mesh)
+        assert eng.device == torch.device("cuda", rank)
+        if rank == 0:
+            out[name] = eng.lookup(idx).cpu()
+            eng.close()
+        else:
+            eng.follow()
+    torch.save(out, f"{tmp}/cards_{rank}.pt")
+
+
+def test_partitioned_lookup_across_cards(cuda, tmp_path):
+    """One NCCL rank per card (every card of the host, two or more), each
+    holding one plan core: each case equals the one-card engine of the same
+    plan within 1e-5."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards")
+    from test_torch_multicard import CASES, _inputs, spawn
+
+    codes, errors = spawn(_cards_cases, tmp_path, world=n, device="cuda", timeout_s=300)
+    assert codes == [0] * n, errors
+    got = torch.load(tmp_path / "cards_0.pt")
+    wl, tables, idx = _inputs()
+    for name, cfg in CASES.items():
+        if name not in got:
+            continue
+        cfg = dict(cfg)
+        cfg.setdefault("mesh_shape", [1, n])
+        one = InferenceEngine.build(tables, wl, EngineConfig(**cfg))
+        torch.testing.assert_close(got[name], one.lookup(idx).cpu(), **TOL, msg=name)
+
+
 def _access_case(cuda, dtype, *, unique_cap, cache_rows, seed=4):
     """Two cores, every strategy code, padding steps, -1 and out-of-window
     ids, a spill-prone slot, hot lookups split off through ``hidx``."""
