@@ -226,7 +226,20 @@ X] <message>`` before it raises):
    each rank's allocated bytes, its core's lookup, the rejoin's and the
    symmetric group's times by CUDA events, the whole lookup across the
    cards, and the bytes the rejoin handed the collectives beside the
-   modeled ones.
+   modeled ones.  Then, on two or more cards, the taobao-zipf12 preset
+   across them (``MC_DRIFT``): R replays F inline (gated: the replan
+   batches and parity of the one-card engine of the same plan at K=W, run
+   in rank 0's process, and every served logit within 1e-5 of its), F
+   overlapped (gated: replans, no replan error or abandoned build, every
+   request served, K5, K7 and the dedup kernel launched on every rank; K6's
+   launches a rank recorded), I is F's first 24 batches with a sweep every
+   8 after rank 1 flipped a bit in its first chunk region and rank W-1 in
+   its tail (gated: both found at the first sweep under their global keys
+   and healed, logits after it within 1e-5 of the one-card engine).  Every
+   rank ends on rank 0's generation, and every follower holds no share of
+   another generation than 0 and that one.  Recorded from rank 0's op log:
+   each rank's shadow build seconds, the swap points' and sweeps' times and
+   each generation's cache rows; and each rank's allocated bytes.
 
 ``--phases`` runs a subset after the build (``main`` is paths A-E and the
 kernel phase; e.g. ``--phases MC`` on four cards).  The last line is
@@ -3056,17 +3069,26 @@ MC_CASES = {
           "--distribution", ZIPF, "--set", f"distribution={ZIPF}", "--set", "planner=hierarchical",
           "--set", "mesh_shape=[2,2]", "--set", "access=full", "--set", "hardware=a100"],
 }
+# MC under drift and integrity on W >= 2 cards: R replays F inline, F is
+# the preset overlapped, I is F's first 24 batches (its zipf phase: no
+# replan) with a sweep every 8 batches after two bit flips
+MC_DRIFT = {
+    "R": R_ARGS,
+    "F": PRESETS["F"],
+    "I": PRESETS["F"] + ["--queries", "12288", "--set", 'integrity_options={"check_every": 8}'],
+}
+MC_FLIP_BIT = 1 << 22
 MC_TIMEOUT_S = 900
 
 
 def mc_cases(world: int) -> list:
     """The MC cases a job of ``world`` cards runs: A and B at K = 1 on one
     card; each rejoin of A and C, B and E at K = world on more; M at [2,2]
-    on 4."""
+    on 4; then R, F and I on more than one."""
     if world == 1:
         return ["A", "B"]
     return (["A", "A-psum", "A-ring", "B", "C", "C-psum", "C-ring", "E"]
-            + (["M"] if world == 4 else []))
+            + (["M"] if world == 4 else []) + list(MC_DRIFT))
 
 
 def _mc_expected(engine) -> list:
@@ -3152,6 +3174,170 @@ def _mc_case(label: str, world: int) -> dict:
     return rec
 
 
+def _mc_flip(engine, kind: str) -> list:
+    """Flip ``MC_FLIP_BIT`` in the first element of the first row of this
+    rank's first ``kind`` region (``chunk`` or ``tail``); returns its key."""
+    import torch
+
+    m = engine.manifest
+    key = min(k for k in m.spans if k[0] == kind)
+    lo, _ = m.spans[key]
+    raw = engine.packed.chunk_data[key[1] - m.core, lo, 0:1].view(torch.int32)
+    raw ^= MC_FLIP_BIT
+    return list(key)
+
+
+def _mc_drift_case(label: str, world: int) -> dict:
+    """One of MC's cases under drift and integrity on this rank: the serve
+    CLI across the job's cards (I: rank 1 flips a bit in its first chunk
+    region and rank W-1 one in its tail before it follows rank 0), then, on
+    rank 0, for R and I the one-card engine of the same plan at K = W (its
+    block size pinned to the mesh's sweep pick) through the same CLI and
+    traffic."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.engine import InferenceEngine
+    from repro_torch.launch import serve
+
+    argv = MC_DRIFT[label]
+    rank = dist.get_rank()
+    flipped, allocated = [], []
+    follow = InferenceEngine.follow
+    kinds = (["chunk"] * (rank == 1) + ["tail"] * (rank == world - 1)) if label == "I" else []
+
+    def flip_then_follow(engine):
+        flipped.extend(_mc_flip(engine, kind) for kind in kinds)
+        allocated.append(torch.cuda.memory_allocated(engine.device))  # generation 0 built
+        return follow(engine)
+
+    InferenceEngine.follow = flip_then_follow
+    reset_counts()
+    try:
+        res = serve.main(argv)
+    finally:
+        InferenceEngine.follow = follow
+    rec = {"case": label, "rank": rank, "argv": argv, "launches": read_counts(),
+           "flipped": flipped}
+    if rank == 0:
+        (s,) = res["stats"].values()
+        engine, logits = res["engine"], res["served_logits"]
+        rec.update(served=s["served"], submitted=s["submitted"],
+                   batch_failures=s["batch_failures"], batch=engine.config.max_batch,
+                   logits_finite=bool(np.isfinite(logits).all()),
+                   serve_wall_per_batch_ms=res["serve_wall_s"] / res["n_batches"] * 1e3,
+                   p50_us=s["p50_us"], p99_us=s["p99_us"],
+                   replan={k: v for k, v in s["replan"].items() if k != "events"},
+                   events=s["replan"]["events"],
+                   integrity={k: s["integrity"][k] for k in (
+                       "checks", "corruptions_detected", "heals", "heal_failures",
+                       "quarantined_regions", "events")},
+                   generation=res["server"].step_fn.engine.generation,
+                   op_log=engine.op_log, block_r=engine.packed.block_r,
+                   cache_rows=engine.packed.cache_rows,
+                   allocated_end=torch.cuda.memory_allocated(engine.device))
+        if label in ("R", "I"):
+            job_mesh = serve._job_mesh
+            serve._job_mesh = lambda device: None  # the one-card engine in this rank
+            try:
+                one = serve.main(argv + [
+                    "--set", f"mesh_shape=[1,{world}]", "--set", "tuning=fixed",
+                    "--set", f'tuning_options={{"block_r": {engine.packed.block_r}}}'])
+            finally:
+                serve._job_mesh = job_mesh
+            (os_,) = one["stats"].values()
+            # I: the requests served after the first sweep healed the flips
+            start = (s["integrity"]["events"][0]["batch"] * rec["batch"]
+                     if label == "I" and s["integrity"]["events"] else 0)
+            want = one["served_logits"]
+            rec.update(
+                one_events=[[e["batch"], e["parity_ok"]] for e in os_["replan"]["events"]],
+                compared_from=start,
+                logit_max_err=float(np.abs(logits[start:] - want[start:]).max())
+                if len(logits) == len(want) else None,
+                logits_ok=bool(len(logits) == len(want)
+                               and np.allclose(logits[start:], want[start:], **TOL)))
+            del one
+    else:
+        rec.update(follow=res["engine"].follow_stats, cache_rows=res["engine"].packed.cache_rows,
+                   allocated_start=allocated[0])
+    del res
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _mc_drift_gates(label: str, world: int, recs: list) -> None:
+    """R, F and I's gates and record (rank 0's record carries each rank's
+    shadow build seconds, swap-point and sweep times from its op log)."""
+    lead = recs[0]
+    check(lead["served"] == lead["submitted"] and not lead["batch_failures"]
+          and lead["logits_finite"], f"[MC {label}] serving: {lead['served']} of "
+          f"{lead['submitted']}, {lead['batch_failures']} failed batches")
+    r = lead["replan"]
+    check(not r["replan_errors"] and not r["abandoned"],
+          f"[MC {label}] replan errors or abandoned builds: {lead['events']}")
+    for rec in recs[1:]:
+        f = rec["follow"]
+        check(f["generation"] == lead["generation"],
+              f"[MC {label}] rank {rec['rank']} serves generation "
+              f"{f['generation']}, rank 0 {lead['generation']}")
+        # the other generations' shares are freed on every follower
+        check(f["held"] == sorted({0, lead["generation"]})
+              and f["shares_alive"] == [g for g in f["held"] if g],
+              f"[MC {label}] rank {rec['rank']} holds generations {f['held']}, "
+              f"shares alive {f['shares_alive']}")
+    if label == "R":
+        events = [[e["batch"], e["parity_ok"]] for e in lead["events"]]
+        check(r["replans"] >= 1 and events == lead["one_events"],
+              f"[MC R] replan batches {events}, one card {lead['one_events']}")
+    if label in ("R", "I"):
+        check(lead["logits_ok"], f"[MC {label}] logits max err {lead['logit_max_err']} "
+              "against the one-card engine")
+    if label == "F":
+        check(r["replans"] >= 1, f"[MC F] no replan: {lead['events']}")
+        for rec in recs:
+            missing = [nm for nm in ("multi_embedding_bag_ragged[dedup]",
+                                     "multi_embedding_bag_ragged[sparse]", "batch_dedup")
+                       if not rec["launches"][nm]]
+            check(not missing, f"[MC F] rank {rec['rank']} launched no {missing}")
+    if label == "I":
+        flipped = [k for rec in recs for k in rec["flipped"]]
+        integ = lead["integrity"]
+        first = integ["events"][0] if integ["events"] else {}
+        check(first.get("regions") == flipped and first.get("healed")
+              and integ["corruptions_detected"] == 2 and integ["heals"] == 1
+              and not integ["heal_failures"],
+              f"[MC I] flipped {flipped}, integrity {integ}")
+    joins = [e for e in lead["op_log"] if e["op"] == "join"]
+    sweeps = [e for e in lead["op_log"] if e["op"] == "verify"]
+    heals = [e for e in lead["op_log"] if e["op"] == "heal"]
+    print(json.dumps({
+        "mc_drift": label, "world": world, "served": lead["served"],
+        "batches": lead["submitted"] // lead["batch"], "block_r": lead["block_r"],
+        "replan": lead["replan"], "events": lead["events"],
+        "one_card_events": lead.get("one_events"), "logit_max_err": lead.get("logit_max_err"),
+        "integrity": {k: v for k, v in lead["integrity"].items() if k != "events"},
+        "integrity_events": lead["integrity"]["events"][:2],
+        "serve_wall_per_batch_ms": lead["serve_wall_per_batch_ms"],
+        "p50_us": lead["p50_us"], "p99_us": lead["p99_us"],
+        "shadow_build_s": [e["build_s"] for e in joins],
+        "swap_point_ms": [e["ms"] for e in joins],
+        "sweep_ms": [e["ms"] for e in sweeps][:6], "sweep_wall_ms": [e["wall_ms"] for e in sweeps][:6],
+        "heal_ms": [e["ms"] for e in heals],
+        "cache_launches": [rec["launches"]["multi_embedding_bag_ragged[cache]"] for rec in recs],
+        # each generation's cache rows a rank (0: the built one, then each swap point's)
+        "cache_rows": [[rec["cache_rows"] for rec in recs]] + [e["cache_rows"] for e in joins],
+        # each follower's allocated bytes with generation 0 built and at the end
+        # (generation 0 and the live one held), and rank 0's at the end
+        "allocated": [[lead["allocated_end"]]] + [
+            [rec["allocated_start"], rec["follow"]["allocated"]] for rec in recs[1:]],
+        "shares_alive": [rec["follow"]["shares_alive"] for rec in recs[1:]],
+        "per_rank_launches": [{nm: n for nm, n in rec["launches"].items() if n} for rec in recs],
+    }, default=str), flush=True)
+
+
 def _mc_rank(rank: int, world: int, tmp: str, labels: list) -> None:
     """One rank of MC: a NCCL process group over the job's cards, then
     every case; rank 0 writes every rank's records to ``tmp``."""
@@ -3164,7 +3350,8 @@ def _mc_rank(rank: int, world: int, tmp: str, labels: list) -> None:
 
     init_card_mesh(device_type=DEVICE, init_method=f"file://{tmp}/group", rank=rank,
                    world_size=world, timeout_s=MC_TIMEOUT_S / 2)
-    records = [_mc_case(label, world) for label in labels]
+    records = [(_mc_drift_case if label in MC_DRIFT else _mc_case)(label, world)
+               for label in labels]
     every = [None] * world
     dist.all_gather_object(every, records)
     if rank == 0:
@@ -3214,6 +3401,11 @@ def multicard_path() -> dict:
     for i, label in enumerate(labels):
         recs = [every[r][i] for r in range(world)]
         lead = recs[0]
+        for name in KERNELS:
+            counts[name] += lead["launches"][name]
+        if label in MC_DRIFT:
+            _mc_drift_gates(label, world, recs)
+            continue
         whole = lead["ranks"]["whole_chunk_bytes"]
         queries = serve.build_parser().parse_args(MC_CASES[label]).queries
         check(lead["served"] == lead["submitted"] == queries and not lead["batch_failures"]
@@ -3228,8 +3420,6 @@ def multicard_path() -> dict:
         for r in recs:
             missing = [nm for nm in r["expected"] if not r["launches"][nm]]
             check(not missing, f"[MC {label}] rank {r['rank']} launched no {missing}")
-        for name in KERNELS:
-            counts[name] += lead["launches"][name]
         print(json.dumps({
             "mc_path": label, "world": world, "cores": lead["cores"],
             "whole_chunk_bytes": whole, "pooled_max_err": lead["pooled_max_err"],

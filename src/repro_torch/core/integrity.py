@@ -18,6 +18,12 @@ so identical buffers give identical manifests in both packages.  The check
 stays on the host: a sweep copies each buffer to the host once and
 checksums its regions with :func:`zlib.crc32`.
 
+One rank of a device mesh holds one core's slice of the buffers
+(``PackedPlan.strip_core``): its manifest keys the slice's regions by the
+slice's *global* core, so the union of the ranks' ``chunk``/``tail``/
+``cache`` regions is the one-process manifest of the same plan.  The
+symmetric tables are replicated, and each rank checksums its own copy.
+
 ``verify`` returns the mismatching region keys; ``repair`` re-materializes
 exactly those regions from the source tables, writing the rows that
 ``pack_plan`` copied into the live buffers in place (on the card, on the
@@ -70,45 +76,51 @@ class IntegrityManifest:
 
     ``checksums`` maps a region key ``(kind, core_or_table, slot)`` to its
     CRC32 (``slot = -1`` for whole-array regions); ``spans`` gives the
-    ragged-buffer row range of ``chunk``/``tail`` regions.
+    ragged-buffer row range of ``chunk``/``tail`` regions.  ``core`` is the
+    global core of the buffers' first core (0 for a whole pack).
     """
 
     checksums: dict[tuple, int]
     spans: dict[tuple, tuple[int, int]]
     meta: dict
+    core: int = 0
 
     @classmethod
-    def from_packed(cls, packed, plan) -> "IntegrityManifest":
+    def from_packed(cls, packed, plan, *, core: int | None = None) -> "IntegrityManifest":
+        """The manifest of ``packed``; ``core`` is the global core of a
+        one-core slice (a rank's share of a device mesh), whose regions are
+        keyed by it (``None``: a whole pack, keyed 0..K-1)."""
         checksums: dict[tuple, int] = {}
         spans: dict[tuple, tuple[int, int]] = {}
         chunk = _host(packed.chunk_data)
         k = chunk.shape[0]
+        base = 0 if core is None else int(core)
         if packed.layout == "ragged":
             slot_table = _host(packed.slot_table)
             slot_rows = _host(packed.slot_rows)
             slot_start = _host(packed.slot_row_start)
             br = max(int(packed.block_r), 1)
-            for core in range(k):
+            for c in range(k):
                 end = 0
                 for s_i in range(slot_table.shape[1]):
-                    if slot_table[core, s_i] < 0:
+                    if slot_table[c, s_i] < 0:
                         continue
-                    lo = int(slot_start[core, s_i])
-                    hi = lo + _align(int(slot_rows[core, s_i]) + 1, br)
-                    key = ("chunk", core, s_i)
+                    lo = int(slot_start[c, s_i])
+                    hi = lo + _align(int(slot_rows[c, s_i]) + 1, br)
+                    key = ("chunk", base + c, s_i)
                     spans[key] = (lo, hi)
-                    checksums[key] = _crc(chunk[core, lo:hi])
+                    checksums[key] = _crc(chunk[c, lo:hi])
                     end = max(end, hi)
-                key = ("tail", core, -1)
+                key = ("tail", base + c, -1)
                 spans[key] = (end, chunk.shape[1])
-                checksums[key] = _crc(chunk[core, end:])
+                checksums[key] = _crc(chunk[c, end:])
         else:  # dense layout: one region per core (no ragged spans to carve)
-            for core in range(k):
-                checksums[("chunk", core, -1)] = _crc(chunk[core])
+            for c in range(k):
+                checksums[("chunk", base + c, -1)] = _crc(chunk[c])
         if packed.cache_rows:
             cache = _host(packed.cache_data)
-            for core in range(k):
-                checksums[("cache", core, -1)] = _crc(cache[core])
+            for c in range(k):
+                checksums[("cache", base + c, -1)] = _crc(cache[c])
         sym = _host(packed.sym_data)
         for i in range(sym.shape[0]):
             checksums[("sym", i, -1)] = _crc(sym[i])
@@ -117,19 +129,26 @@ class IntegrityManifest:
             spans=spans,
             meta={"layout": packed.layout, "block_r": int(packed.block_r),
                   "regions": len(checksums)},
+            core=base,
         )
+
+    def _local(self, key: tuple) -> int:
+        """The buffers' own core index of a ``chunk``/``tail``/``cache``
+        key's global core."""
+        return key[1] - self.core
 
     # -- verification -------------------------------------------------------
 
     def _current(self, key: tuple, chunk, cache, sym) -> int:
         kind, a, _ = key
         if kind in ("chunk", "tail"):
+            c = self._local(key)
             if key in self.spans:
                 lo, hi = self.spans[key]
-                return _crc(chunk[a, lo:hi])
-            return _crc(chunk[a])
+                return _crc(chunk[c, lo:hi])
+            return _crc(chunk[c])
         if kind == "cache":
-            return _crc(cache[a]) if cache is not None else self.checksums[key]
+            return _crc(cache[self._local(key)]) if cache is not None else self.checksums[key]
         return _crc(sym[a])
 
     def verify(self, packed) -> list[tuple]:
@@ -173,28 +192,31 @@ class IntegrityManifest:
             return rows.to(chunk.device)
 
         # chunk regions first: the cache rebuild below reads from them.
+        # ``core`` is the key's global core (the plan's), ``c`` its index
+        # in these buffers (0 on a rank's one-core slice)
         for key in bad:
             kind, core, s_i = key
+            c = self._local(key)
             if kind == "tail":
                 lo, hi = self.spans[key]
-                chunk[core, lo:hi] = 0  # padding is zeros by construction
+                chunk[c, lo:hi] = 0  # padding is zeros by construction
                 healed.append(key)
             elif kind == "chunk" and key in self.spans:
                 lo, hi = self.spans[key]
-                chunk[core, lo:hi] = 0
+                chunk[c, lo:hi] = 0
                 a = per_core[core][s_i]
                 rows = src(a.table_idx, a.row_offset, a.rows)
                 if rows is not None:
-                    chunk[core, lo : lo + a.rows] = rows
+                    chunk[c, lo : lo + a.rows] = rows
                     healed.append(key)
                 else:
                     quarantined.append(key)
             elif kind == "chunk":  # dense layout: rebuild the whole core
-                chunk[core] = 0
+                chunk[c] = 0
                 for s, a in enumerate(per_core.get(core, [])):
                     rows = src(a.table_idx, a.row_offset, a.rows)
                     if rows is not None:
-                        chunk[core, s, : a.rows] = rows
+                        chunk[c, s, : a.rows] = rows
                 (healed if table_data is not None else quarantined).append(key)
             elif kind == "sym":
                 ti = int(sym_table[core])
@@ -211,11 +233,11 @@ class IntegrityManifest:
             for key in bad:
                 if key[0] != "cache":
                     continue
-                core = key[1]
-                remap = packed.cache_remap[core].long()
+                c = self._local(key)
+                remap = packed.cache_remap[c].long()
                 rows = torch.nonzero(remap >= 0).squeeze(1)
-                cache[core] = 0
-                cache[core, remap[rows]] = chunk[core, rows]
+                cache[c] = 0
+                cache[c, remap[rows]] = chunk[c, rows]
                 healed.append(key)
 
         # quarantined (zeroed, no source) regions get their checksum

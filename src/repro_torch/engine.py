@@ -37,11 +37,24 @@ same config and seed and the device mesh
 
 Each rank keeps on its card only its plan core's slice; rank 0 sends every
 lookup's indices to the others, which run it with it until ``close``.
+
+Rank 0 alone runs a :class:`~repro_torch.serving.server.Server`.  All the
+other ranks must do travels as one ordered op stream that rank 0 sends from
+its main thread: lookups, a drift rebuild's announcement and its swap point,
+the server's decision on it, integrity sweeps and heals.  So every rank
+issues every collective in the same order, and a shadow build, on any rank,
+issues none.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import itertools
 import json
+import threading
+import time
+import weakref
 from pathlib import Path
 from typing import Any, Callable, Mapping, Protocol, Sequence, runtime_checkable
 
@@ -296,7 +309,8 @@ class _ChecksumIntegrity:
     def manifest(self, packed, plan, **options):
         from repro_torch.core.integrity import IntegrityManifest
 
-        return IntegrityManifest.from_packed(packed, plan)
+        # a rank of a device mesh keys its slice's regions by its plan core
+        return IntegrityManifest.from_packed(packed, plan, core=options.get("core"))
 
     def server_config(self, **options):
         return {
@@ -531,18 +545,137 @@ _TORCH_DTYPES = {
 }
 
 
-# the op header rank 0 sends the other ranks of a device mesh: (op, N, B, s)
-_OP_STOP, _OP_LOOKUP = 0, 1
+# the op header rank 0 sends the other ranks of a device mesh: (op,
+# generation, executor, N, B, s).  Generation 0 is the pack every rank built;
+# rank 0 numbers each rebuild's.  The executor is 1 for the fused kernels, 0
+# for the plain path (the CPU's degraded fallback).  REPLAN is followed by
+# the measured histograms.
+(_OP_STOP, _OP_LOOKUP, _OP_REPLAN, _OP_JOIN, _OP_COMMIT, _OP_DROP, _OP_VERIFY,
+ _OP_HEAL) = range(8)
+_HEADER = 6
+# how long a follower waits at a swap point for its share of a rebuild: the
+# same work took rank 0 ``build_s``, so a share still building after twice
+# that, plus a second for the host's scheduling, is counted as stalled (a
+# failed build) rather than holding rank 0's pump.  JOIN carries the wait
+# in milliseconds in the header's N.
+_JOIN_WAIT_TIMES, _JOIN_WAIT_SLACK_S = 2.0, 1.0
+# at the end of the job a follower waits this long for a share still
+# building, as the server's drain does for its own under a build timeout
+_END_WAIT_S = 5.0
 
 
-def _rank_record(mesh, packed, bag, workload) -> dict:
-    """What the ranks of a device mesh hold, gathered on every rank: each
-    rank's chunk bytes on its card, after a check that every rank packed
-    the same plan (the whole packs' fingerprints are equal; else raise).
-    Collective over the whole job: every rank calls it."""
+def _on_main_thread(what: str) -> None:
+    if threading.current_thread() is not threading.main_thread():
+        raise RuntimeError(
+            f"{what} issues collectives across the ranks of a device mesh: "
+            "only a rank's main thread may")
+
+
+def _gather(obj) -> list:
+    """Every rank's ``obj``, in rank order (a collective: every rank calls
+    it, from its main thread)."""
+    import torch.distributed as dist
+
+    _on_main_thread("a gather")
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, obj)
+    return every
+
+
+def _recv_object():
+    import torch.distributed as dist
+
+    box = [None]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+class _Generation:
+    """One pack across the ranks, shared by its engine and that engine's
+    views: its number, and whether every rank has joined its build."""
+
+    __slots__ = ("number", "joined", "__weakref__")
+
+    def __init__(self, number: int = 0, joined: bool = True):
+        self.number, self.joined = number, joined
+
+
+class _OpStream:
+    """Rank 0's end of the ordered op stream of a device mesh, shared by the
+    engine rank 0 built and every rebuild of it.
+
+    Each op is sent from rank 0's main thread.  A rebuild on a shadow
+    thread queues its REPLAN, and a generation rank 0 no longer holds queues
+    its DROP; both go out before rank 0's next op, after the server's
+    decision on the last swap point (COMMIT when its live step serves that
+    generation, else DROP)."""
+
+    def __init__(self, device):
+        self.device = device
+        self.queued: collections.deque = collections.deque()  # (op, generation, payload)
+        self.generations = itertools.count(1)  # next() is atomic: any thread may number
+        self.server = None  # the Server whose decision ends a swap point
+        self.swap = None  # (generation, the server's replan events at its swap point)
+        self.closed = False
+        # each rank's seconds at the swap points, sweeps and heals
+        self.log: collections.deque = collections.deque(maxlen=256)
+
+    def queue(self, op: int, gen: int, payload=None) -> None:
+        self.queued.append((op, gen, payload))
+
+    def send(self, op: int, gen: int = 0, *, executor: int = 1, shape=(0, 0, 0),
+             payload=None) -> None:
+        """Send one op, after the decision and the queued ops before it."""
+        _on_main_thread("an op")
+        self._decide()
+        while self.queued:
+            self._header(*self.queued.popleft())
+        self._header(op, gen, payload, executor, shape)
+
+    def _decide(self) -> None:
+        if self.swap is None:
+            return
+        gen, events = self.swap
+        srv = self.server
+        if len(srv.replan_events) == events:
+            return  # the parity probe or the integrity gate is still to come
+        self.swap = None
+        live = getattr(srv.step_fn, "engine", None)
+        self._header(_OP_COMMIT if live is not None and live.generation == gen else _OP_DROP,
+                     gen)
+
+    def _header(self, op, gen, payload=None, executor=1, shape=(0, 0, 0)) -> None:
+        import torch.distributed as dist
+
+        dist.broadcast(torch.tensor([op, gen, executor, *shape], dtype=torch.int64,
+                                    device=self.device), src=0)
+        if payload is not None:
+            dist.broadcast_object_list([payload], src=0)
+
+
+def _rank_summary(packed, bag, workload, chunk_bytes: list) -> dict:
+    """What the ranks of a device mesh hold: each rank's chunk bytes on its
+    card, beside the whole buffer's and the rejoin's modeled bytes."""
     import torch.distributed as dist
 
     from repro_torch.core.traffic import modeled_rejoin_traffic
+
+    return {
+        "world": dist.get_world_size(),
+        "backend": str(dist.get_backend()),
+        "chunk_bytes": chunk_bytes,
+        "whole_chunk_bytes": int(bag.plan.meta["layout"]["chunk_bytes"]),
+        "fingerprint": packed.host["fingerprint"],
+        "rejoin_modeled": modeled_rejoin_traffic(
+            packed, batch=workload.batch, n_tables=len(workload.tables)),
+    }
+
+
+def _rank_record(mesh, packed, bag, workload) -> dict:
+    """:func:`_rank_summary`, gathered on every rank after a check that
+    every rank packed the same plan (the whole packs' fingerprints are
+    equal; else raise).  Collective over the whole job: every rank calls
+    it."""
     from repro_torch.launch.mesh import all_gather_cat
 
     fp = packed.host["fingerprint"]
@@ -556,15 +689,7 @@ def _rank_record(mesh, packed, bag, workload) -> dict:
             f"ranks {differ} packed another plan than rank 0: every rank must "
             "build from the same config, tables and seed"
         )
-    return {
-        "world": dist.get_world_size(),
-        "backend": str(dist.get_backend()),
-        "chunk_bytes": [row[4] for row in rows],
-        "whole_chunk_bytes": int(bag.plan.meta["layout"]["chunk_bytes"]),
-        "fingerprint": fp,
-        "rejoin_modeled": modeled_rejoin_traffic(
-            packed, batch=workload.batch, n_tables=len(workload.tables)),
-    }
+    return _rank_summary(packed, bag, workload, [row[4] for row in rows])
 
 
 def _payload_indices(q) -> np.ndarray:
@@ -606,7 +731,13 @@ class InferenceEngine:
         self.ranks = ranks  # the mesh's build record (see build), or None
         self._table_data = table_data
         self._server = None
-        self._closed = False
+        # across the ranks of a device mesh: this pack's generation, rank
+        # 0's op stream (None elsewhere), this rank's plan core, and the
+        # seconds this rank's build took
+        self._gen = _Generation()
+        self._stream = None
+        self._core = None
+        self.build_s = None
 
     # -- construction -------------------------------------------------------
 
@@ -623,6 +754,7 @@ class InferenceEngine:
         tuning_cache=None,
         block_sizes: dict | None = None,
         mesh=None,
+        _shadow: bool = False,
     ) -> "InferenceEngine":
         """Build the pipeline from a declarative config on ``device``
         (``None`` = ``"cuda"``, which raises when CUDA is absent; under a
@@ -651,9 +783,13 @@ class InferenceEngine:
         whose core count is not the ``"model"`` size raises
         :class:`~repro_torch.core.mesh.MeshShapeError` unless
         ``config.simulate``; such an engine packs the whole plan and its
-        lookups raise.  Drift replanning and integrity sweeps do not run
-        across ranks yet (ROADMAP A13) and raise on a mesh of more than one
-        rank.
+        lookups raise.  Drift rebuilds, integrity sweeps and heals run
+        across the ranks through rank 0's op stream (:meth:`rebuild`,
+        :meth:`verify_integrity`, :meth:`heal`).
+
+        ``_shadow=True`` (a rebuild's share on one rank) issues no
+        collective: the kernels are built, ``block_sizes`` pins the pack's
+        sizes, and the ranks compare the packs at the swap point.
         """
         from repro_torch.core.cost_model import analytic_model
         from repro_torch.core.embedding import PartitionedEmbeddingBag
@@ -672,13 +808,6 @@ class InferenceEngine:
                 raise ValueError(
                     f"a {mesh.device_type} device mesh cannot serve from {device}")
             model_size = axis_size(mesh, "model")
-            if mesh.size() > 1 and (config.drift != "none" or config.integrity != "none"):
-                raise ValueError(
-                    f"drift={config.drift!r} and integrity={config.integrity!r} do "
-                    f"not run across the {mesh.size()} ranks of a device mesh yet "
-                    "(ROADMAP A13): a shadow build's thread would issue collectives "
-                    "beside the served step's; use drift='none' and integrity='none'"
-                )
         hosts, cores_per_host = resolve_mesh_shape(
             config.mesh_shape, config.n_cores, default_cores=model_size,
         )
@@ -752,21 +881,23 @@ class InferenceEngine:
             from repro_torch.launch.mesh import axis_rank
 
             core = axis_rank(mesh, "model")
-            if device.type == "cuda":
+            if device.type == "cuda" and not _shadow:
                 from repro_torch.kernels.build import build_ranks
 
                 build_ranks()  # rank 0 compiles; the others wait, then load
         packed = bag.pack(
             table_data, device=device, tuning_cache=tuning_cache, core=core,
-            mesh=mesh if executable else None,
+            mesh=mesh if executable and not _shadow else None,
             **(block_sizes if block_sizes is not None
                else tuning.pack_kwargs(**config.tuning_options)),
         )
         manifest = INTEGRITY_POLICIES.create(config.integrity).manifest(
-            packed, bag.plan, **config.integrity_options
+            packed, bag.plan, **({"core": core} if core is not None else {}),
+            **config.integrity_options
         )
-        ranks = _rank_record(mesh, packed, bag, workload) if executable else None
-        return cls(
+        ranks = (_rank_record(mesh, packed, bag, workload)
+                 if executable and not _shadow else None)
+        engine = cls(
             config=config,
             workload=workload,
             bag=bag,
@@ -780,6 +911,10 @@ class InferenceEngine:
             mesh=mesh,
             ranks=ranks,
         )
+        engine._core = core
+        if executable and not _shadow and torch.distributed.get_rank() == 0:
+            engine._stream = _OpStream(device)
+        return engine
 
     @classmethod
     def from_scenario(
@@ -828,14 +963,10 @@ class InferenceEngine:
         executor runs the plain gather path (``use_kernels="xla"``): equal
         results, no kernels.  A CPU engine's server serves from it in
         degraded mode; a CUDA engine's server never does (see :meth:`serve`).
-        Not across the ranks of a device mesh yet (ROADMAP A13)."""
-        if self.mesh is not None and self.mesh.size() > 1:
-            raise ValueError(
-                "the degraded mode's plain fallback (reference_view) does not run "
-                f"across the {self.mesh.size()} ranks of a device mesh yet (ROADMAP "
-                "A13): serve with degrade_after=0"
-            )
-        return InferenceEngine(
+        Across the ranks of a device mesh the view's lookups send the plain
+        executor in the op header, so the other ranks run the plain path on
+        the same generation."""
+        view = InferenceEngine(
             config=dataclasses.replace(self.config, use_kernels="xla"),
             workload=self.workload,
             bag=self.bag,
@@ -850,23 +981,44 @@ class InferenceEngine:
             mesh=self.mesh,
             ranks=self.ranks,
         )
+        view._gen, view._stream, view._core = self._gen, self._stream, self._core
+        return view
 
     def rebuild(self, freqs) -> "InferenceEngine":
         """Same config and tables, re-planned and re-packed under new
         histograms on the same device: the shadow re-pack the drift policy
         runs off the hot path.  The tables are this engine's own (never
         re-initialized), and the tuning cache carries over so a
-        shape-identical re-plan skips the block-size sweep.  On the card a
-        swept engine's rebuild keeps its block sizes and runs no sweep: the
-        candidates lie within the noise of one another there, and a sweep
-        under serving load would pick among equals and outlast a drift
-        policy's build timeout.  The CPU sweeps as the reference does.  The
-        scenario wrapper carries over, so a hot-swap re-invokes the same
-        tower's ``make_step``."""
-        block_sizes = None
-        if self.device.type == "cuda" and self.config.tuning == "sweep":
-            block_sizes = {"block_r": self.packed.block_r,
-                           "block_b": self.packed.block_b or None}
+        shape-identical re-plan skips the block-size sweep.  On the card,
+        and across the ranks of a device mesh, a swept engine's rebuild
+        keeps its block sizes and runs no sweep: on the card the candidates
+        lie within the noise of one another, and a sweep under serving load
+        would pick among equals and outlast a drift policy's build timeout;
+        across ranks a sweep is a collective.  A CPU engine sweeps as the
+        reference does.  The scenario wrapper carries over, so a hot-swap
+        re-invokes the same tower's ``make_step``.
+
+        Across the ranks of a device mesh rank 0 calls it (from the pump
+        thread or a shadow thread): it announces the rebuild to the other
+        ranks (REPLAN, with ``freqs``), which build their shares alongside;
+        no rank issues a collective while it builds, and the first op for
+        the new engine is its swap point (:meth:`_join`)."""
+        if self._across:
+            self._require_lead("a rebuild")
+            stream = self._stream
+            gen = next(stream.generations)
+            if threading.current_thread() is threading.main_thread():
+                stream.send(_OP_REPLAN, gen, payload=freqs)
+            else:
+                stream.queue(_OP_REPLAN, gen, freqs)
+            try:
+                engine = self._shadow(freqs, gen)
+            except BaseException:
+                stream.queue(_OP_DROP, gen)
+                raise
+            # once rank 0 lets go of this generation, so do the others
+            weakref.finalize(engine._gen, stream.queue, _OP_DROP, gen)
+            return engine
         engine = InferenceEngine.build(
             self._table_data if self._table_data is not None else "abstract",
             self.workload,
@@ -874,33 +1026,188 @@ class InferenceEngine:
             device=self.device,
             freqs=freqs,
             tuning_cache=self.tuning_cache,
-            block_sizes=block_sizes,
+            block_sizes=self._kept_block_sizes() if self.device.type == "cuda" else None,
             mesh=self.mesh,
         )
         engine.scenario = self.scenario
         return engine
 
+    def _kept_block_sizes(self) -> dict | None:
+        """A swept engine's own block sizes, for a rebuild that runs no
+        sweep (``None``: the tuning policy packs without one)."""
+        if self.config.tuning != "sweep":
+            return None
+        return {"block_r": self.packed.block_r, "block_b": self.packed.block_b or None}
+
+    # -- across the ranks of a device mesh ----------------------------------
+
+    @property
+    def _across(self) -> bool:
+        return self.mesh is not None and self.mesh.size() > 1
+
+    @property
+    def generation(self) -> int:
+        """Which pack across the ranks this engine serves: 0 for the one
+        every rank built, then each rebuild's number (0 without a mesh)."""
+        return self._gen.number
+
+    @property
+    def op_log(self) -> list:
+        """On rank 0 of a device mesh, each rank's times at the recent swap
+        points (``build_s``: its shadow build), integrity sweeps and heals
+        (``ms``: its own host time), beside rank 0's wall ``ms`` of the op."""
+        return list(self._stream.log) if self._stream is not None else []
+
+    def _shadow(self, freqs, gen: int) -> "InferenceEngine":
+        """This rank's share of rebuild ``gen``: the whole plan planned and
+        packed on the host from ``freqs``, this core's slice kept on the
+        card, and no collective (``build(_shadow=True)``)."""
+        t0 = time.perf_counter()
+        card = (torch.cuda.device(self.device) if self.device.type == "cuda"
+                else contextlib.nullcontext())
+        with card:  # a thread starts on card 0
+            engine = InferenceEngine.build(
+                self._table_data if self._table_data is not None else "abstract",
+                self.workload, self.config, device=self.device, freqs=freqs,
+                tuning_cache=self.tuning_cache, block_sizes=self._kept_block_sizes(),
+                mesh=self.mesh, _shadow=True,
+            )
+        engine.scenario = self.scenario
+        engine._gen = _Generation(gen, joined=False)
+        engine._stream = self._stream
+        engine.build_s = time.perf_counter() - t0
+        return engine
+
+    def _build_report(self) -> dict:
+        return {"fingerprint": self.packed.host["fingerprint"],
+                "chunk_bytes": self.packed.chunk_bytes, "cache_rows": self.packed.cache_rows,
+                "build_s": self.build_s}
+
+    def _join(self) -> None:
+        """The swap point of a rebuild across ranks, on rank 0 before the
+        first op for its generation: every rank reports its share (JOIN),
+        and the ranks compare the packs' fingerprints.  If a rank failed,
+        packed another plan or was still building when its wait ran out
+        (``_JOIN_WAIT_TIMES``), every rank drops the generation (DROP) and this
+        raises, naming the ranks.  Then the server's decision on the
+        shadow (after its integrity gate and parity probe) commits or drops
+        it on every rank."""
+        if self._gen.joined:
+            return
+        stream, gen = self._stream, self.generation
+        t0 = time.perf_counter()
+        wait_ms = int((_JOIN_WAIT_TIMES * self.build_s + _JOIN_WAIT_SLACK_S) * 1e3)
+        stream.send(_OP_JOIN, gen, shape=(wait_ms, 0, 0))
+        every = _gather(self._build_report())
+        fp = self.packed.host["fingerprint"]
+        failed = {r: rec.get("error") or "packed another plan than rank 0"
+                  for r, rec in enumerate(every)
+                  if rec.get("error") or rec["fingerprint"] != fp}
+        if failed:
+            stream.send(_OP_DROP, gen)
+            raise RuntimeError(f"rebuild {gen} failed on ranks {sorted(failed)}: " + "; ".join(
+                f"rank {r}: {msg}" for r, msg in sorted(failed.items())))
+        self._gen.joined = True
+        ms = (time.perf_counter() - t0) * 1e3
+        build_s = [rec["build_s"] for rec in every]
+        cache_rows = [rec["cache_rows"] for rec in every]
+        self.ranks = {**_rank_summary(self.packed, self.bag, self.workload,
+                                      [rec["chunk_bytes"] for rec in every]),
+                      "build_s": build_s, "join_ms": ms}
+        stream.log.append({"op": "join", "generation": gen, "build_s": build_s, "ms": ms,
+                           "cache_rows": cache_rows})
+        if stream.server is not None:
+            stream.swap = (gen, len(stream.server.replan_events))
+        else:
+            stream.send(_OP_COMMIT, gen)
+
+    def _replicated(self, key: tuple) -> bool:
+        """Whether more than one rank holds a region: the symmetric tables
+        on every rank, and every region when the mesh has a data axis."""
+        from repro_torch.launch.mesh import axis_size
+
+        return key[0] == "sym" or self.mesh.size() > axis_size(self.mesh, "model")
+
+    def _verify_local(self) -> dict:
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        bad = self.manifest.verify(self.packed)
+        rank = dist.get_rank()
+        # a region more than one rank holds is named with the rank
+        bad = [(*k, rank) if self._replicated(k) else k for k in bad]
+        return {"bad": bad, "ms": (time.perf_counter() - t0) * 1e3}
+
+    def _heal_local(self) -> dict:
+        """Repair this rank's slice (``manifest.repair``: a fresh sweep,
+        then each corrupt region rebuilt from the plan's rows of this
+        rank's core)."""
+        import torch.distributed as dist
+
+        from repro_torch.core.integrity import region_label
+
+        rank = dist.get_rank()
+        t0 = time.perf_counter()
+        self.packed, report = self.manifest.repair(
+            self.packed, self.plan, self.workload.tables, self._table_data)
+        labels = {region_label(k): k for k in self.manifest.checksums}
+        for kind in ("healed", "quarantined"):
+            report[kind] = [f"{lb}@rank{rank}" if self._replicated(labels[lb]) else lb
+                            for lb in report[kind]]
+        return {**report, "ms": (time.perf_counter() - t0) * 1e3}
+
     # -- data-plane integrity -----------------------------------------------
 
     def verify_integrity(self) -> list[tuple]:
         """Re-checksum the packed buffers against the pack-time manifest;
-        returns the corrupt region keys (empty = clean, or no manifest)."""
+        returns the corrupt region keys (empty = clean, or no manifest).
+
+        Across the ranks of a device mesh (rank 0; VERIFY) each rank checks
+        its own slice and the keys are gathered, keyed by the global core;
+        a region more than one rank holds (a symmetric table) carries the
+        rank as a fourth element."""
         if self.manifest is None:
             return []
-        return self.manifest.verify(self.packed)
+        if not self._across:
+            return self.manifest.verify(self.packed)
+        self._join()
+        t0 = time.perf_counter()
+        self._stream.send(_OP_VERIFY, self.generation)
+        every = _gather(self._verify_local())
+        order = {"chunk": 0, "tail": 0, "cache": 1, "sym": 2}
+        bad = sorted((k for rec in every for k in rec["bad"]), key=lambda k: (
+            order[k[0]], k[1], k[0] == "tail", k[2], k[3] if len(k) > 3 else -1))
+        self._stream.log.append({"op": "verify", "generation": self.generation,
+                                 "ms": [rec["ms"] for rec in every],
+                                 "wall_ms": (time.perf_counter() - t0) * 1e3})
+        return bad
 
     def heal(self) -> dict:
         """Targeted repair of corrupt buffer regions, in place on the
         engine's device: re-materialize them from the source tables
         (bit-exact) or zero-quarantine regions with no source.  The steps
         read ``self.packed`` when they run, so the next batch sees the
-        repaired buffers."""
+        repaired buffers.
+
+        Across the ranks of a device mesh (rank 0; HEAL) each rank repairs
+        its own slice and the reports are gathered."""
         if self.manifest is None:
             return {"healed": [], "quarantined": [], "clean": True}
-        self.packed, report = self.manifest.repair(
-            self.packed, self.plan, self.workload.tables, self._table_data
-        )
-        return report
+        if not self._across:
+            self.packed, report = self.manifest.repair(
+                self.packed, self.plan, self.workload.tables, self._table_data
+            )
+            return report
+        self._join()
+        t0 = time.perf_counter()
+        self._stream.send(_OP_HEAL, self.generation)
+        every = _gather(self._heal_local())
+        self._stream.log.append({"op": "heal", "generation": self.generation,
+                                 "ms": [rec["ms"] for rec in every],
+                                 "wall_ms": (time.perf_counter() - t0) * 1e3})
+        return {"healed": [lb for rec in every for lb in rec["healed"]],
+                "quarantined": [lb for rec in every for lb in rec["quarantined"]],
+                "clean": all(rec["clean"] for rec in every)}
 
     # -- execution ----------------------------------------------------------
 
@@ -992,56 +1299,156 @@ class InferenceEngine:
     def broadcast_batch(self, indices) -> torch.Tensor:
         """The stacked (N, B, s) indices on this engine's device.  On a
         device mesh this is rank 0's half of a lookup: it sends the op
-        header and the indices to the other ranks, whose :meth:`follow`
-        then runs the lookup with rank 0.  A served step on rank 0 calls it
-        and then the lookup with ``mesh=engine.mesh``."""
+        header (this engine's generation and executor) and the indices to
+        the other ranks, whose :meth:`follow` then runs the lookup with rank
+        0.  A served step on rank 0 calls it and then the lookup with
+        ``mesh=engine.mesh``."""
         idx = torch.as_tensor(indices, device=self.device)
         if self.mesh is None:
             return idx
         import torch.distributed as dist
 
         self._require_lead("a lookup")
+        self._require_executable()
         if idx.dim() != 3:
             raise ValueError(f"indices must be stacked (N, B, s), got {tuple(idx.shape)}")
         idx = idx.to(torch.int32).contiguous()
-        dist.broadcast(torch.tensor([_OP_LOOKUP, *idx.shape], dtype=torch.int64,
-                                    device=self.device), src=0)
+        self._join()
+        self._stream.send(_OP_LOOKUP, self.generation,
+                          executor=int(self._use_kernels == "fused"), shape=idx.shape)
         dist.broadcast(idx, src=0)
         return idx
 
     @torch.no_grad()
     def follow(self) -> int:
         """The serving loop of every rank but 0 on a device mesh: run each
-        lookup rank 0 sends, with rank 0, until rank 0's :meth:`close`.
-        Returns the number of lookups run."""
+        op rank 0 sends, with rank 0, until rank 0's :meth:`close`.
+        Returns the number of lookups run.
+
+        Besides lookups (on the generation and with the executor the
+        header names) that is a rebuild's share (REPLAN: built on a thread
+        when the drift policy overlaps its builds, else inline, while this
+        rank keeps serving the live generation; a newer REPLAN supersedes
+        it), its report at the swap point (JOIN, waiting for the share no
+        longer than the header says), the decision (COMMIT or DROP), and
+        integrity sweeps and heals of this rank's slice (VERIFY, HEAL).  A
+        rank holds the generations rank 0 holds and the one pending share:
+        a superseded, failed or dropped share is let go of, once its thread
+        has ended.  An op for a generation this rank does not hold raises,
+        which ends the job.  ``follow_stats`` records the lookups by
+        executor, the generation committed last, the generations held at
+        the end, the rebuild shares still alive then and, on the card, the
+        bytes allocated then."""
         import torch.distributed as dist
+
+        from repro_torch.serving.server import _ShadowBuild
 
         if self.mesh is None or self.rank == 0:
             raise RuntimeError("follow() runs on the ranks after 0 of a device mesh")
         self._require_executable()
-        n = 0
-        while True:
-            header = torch.empty(4, dtype=torch.int64, device=self.device)
-            dist.broadcast(header, src=0)
-            op, *shape = header.tolist()
-            if op == _OP_STOP:
-                return n
-            idx = torch.empty(shape, dtype=torch.int32, device=self.device)
-            dist.broadcast(idx, src=0)
-            self.bag.apply(self.packed, idx, use_kernels=self._use_kernels,
-                           reduce_mode=self.config.reduce_mode, mesh=self.mesh)
-            n += 1
+        held = {0: self}  # the generations rank 0 still holds
+        pending = None  # the announced rebuild's share, not yet committed or dropped
+        retired: list = []  # let-go shares whose threads were still running
+        shares = weakref.WeakValueDictionary()  # every share built, while alive
+        lookups = {"fused": 0, "plain": 0}
+        live = 0
+        overlap = bool(self.config.drift_options.get("overlap", False))
+
+        def share(freqs, gen):
+            shares[gen] = engine = self._shadow(freqs, gen)
+            return engine
+
+        def let_go():
+            nonlocal pending
+            if pending is not None:
+                pending.step_fn = None
+                retired.append(pending)
+                pending = None
+
+        def end():
+            let_go()
+            for build in retired:
+                if build.ident is not None:
+                    build.join(timeout=_END_WAIT_S)
+                if not build.is_alive():
+                    build.step_fn = None
+
+        def report(build, wait_s) -> dict:
+            if build.ident is not None:
+                build.join(timeout=wait_s)
+            if build.is_alive():
+                return {"error": f"its share was still building {wait_s:.1f} s after rank 0's"}
+            if build.error is not None:
+                return {"error": repr(build.error)}
+            return build.step_fn._build_report()
+
+        def engine_of(gen):
+            if gen in held:
+                return held[gen]
+            if pending is not None and pending.gen == gen and pending.step_fn is not None:
+                return pending.step_fn  # joined: its integrity gate and parity probe
+            raise RuntimeError(
+                f"rank {self.rank} holds no generation {gen} (holds {sorted(held)}): "
+                "the ranks' op streams disagree")
+
+        try:
+            while True:
+                header = torch.empty(_HEADER, dtype=torch.int64, device=self.device)
+                dist.broadcast(header, src=0)
+                op, gen, executor, *shape = header.tolist()
+                for build in [b for b in retired if not b.is_alive()]:
+                    build.step_fn = None  # a let-go share that finished since
+                    retired.remove(build)
+                if op == _OP_STOP:
+                    return sum(lookups.values())
+                if op == _OP_LOOKUP:
+                    eng = engine_of(gen)
+                    idx = torch.empty(shape, dtype=torch.int32, device=self.device)
+                    dist.broadcast(idx, src=0)
+                    eng.bag.apply(eng.packed, idx, use_kernels="fused" if executor else False,
+                                  reduce_mode=eng.config.reduce_mode, mesh=self.mesh)
+                    lookups["fused" if executor else "plain"] += 1
+                elif op == _OP_REPLAN:
+                    let_go()
+                    pending = _ShadowBuild(lambda freqs, g=gen: share(freqs, g), _recv_object())
+                    pending.gen = gen
+                    pending.start() if overlap else pending.run()
+                elif op == _OP_JOIN:
+                    if pending is None or pending.gen != gen:
+                        raise RuntimeError(f"rank {self.rank} was not building generation {gen}")
+                    rec = report(pending, shape[0] / 1e3)
+                    _gather(rec)
+                    if "error" in rec:
+                        let_go()
+                elif op == _OP_COMMIT:
+                    held[gen] = engine_of(gen)
+                    pending, live = None, gen
+                elif op == _OP_DROP:
+                    if pending is not None and pending.gen == gen:
+                        let_go()
+                    if gen:
+                        held.pop(gen, None)
+                elif op == _OP_VERIFY:
+                    _gather(engine_of(gen)._verify_local())
+                elif op == _OP_HEAL:
+                    _gather(engine_of(gen)._heal_local())
+                else:
+                    raise RuntimeError(f"unknown op {op} from rank 0")
+        finally:
+            end()
+            self.follow_stats = {
+                "lookups": lookups, "generation": live, "held": sorted(held),
+                "shares_alive": sorted(shares.keys()),
+                "allocated": (torch.cuda.memory_allocated(self.device)
+                              if self.device.type == "cuda" else None)}
 
     def close(self) -> None:
         """On rank 0 of a device mesh, end the other ranks' :meth:`follow`
         loops (once).  Nothing to do elsewhere."""
-        if self.ranks is None or self.rank != 0 or self._closed:
+        if self._stream is None or self._stream.closed:
             return
-        import torch.distributed as dist
-
-        self._closed = True
-        dist.broadcast(torch.tensor([_OP_STOP, 0, 0, 0], dtype=torch.int64,
-                                    device=self.device), src=0)
+        self._stream.closed = True
+        self._stream.send(_OP_STOP)
 
     def _default_step(self):
         """payloads (list of queries) → (N, B, E) numpy."""
@@ -1101,7 +1508,12 @@ class InferenceEngine:
 
         On a device mesh the server runs on rank 0 only, and a step that
         looks up calls :meth:`broadcast_batch` first (the default step does,
-        through :meth:`lookup`); the other ranks run :meth:`follow`.
+        through :meth:`lookup`); the other ranks run :meth:`follow`.  A
+        replan announces its rebuild to them, the server's swap point joins
+        their shares (the step's ``join_ranks`` hook), and the integrity
+        cadence, gate and heal run on every rank's slice; all of it is sent
+        from the thread that pumps the server, which must be rank 0's main
+        thread.
         """
         from repro_torch.serving.server import Server
 
@@ -1132,6 +1544,9 @@ class InferenceEngine:
                 step.bag = eng.bag
             step.engine = eng
             step.rebuild = lambda: _wire(maker(eng), eng)
+            if eng._across:
+                # the server's swap point for a shadow built across ranks
+                step.join_ranks = eng._join
             if eng.manifest is not None:
                 step.integrity_verify = eng.verify_integrity
 
@@ -1206,6 +1621,8 @@ class InferenceEngine:
         kwargs.update(server_kwargs)  # explicit kwargs override the config
         srv = Server(step0, **kwargs)
         self._server = srv
+        if self._stream is not None:
+            self._stream.server = srv  # its decisions end the swap points
         return srv
 
     # -- introspection ------------------------------------------------------
@@ -1393,9 +1810,10 @@ class InferenceEngine:
                          f"{self.config.drift_options}")
         if self.config.validation != "clip" or self.config.integrity != "none":
             regions = len(self.manifest.checksums) if self.manifest else 0
+            where = " in this rank's slice" if self._across else ""
             lines.append(
                 f"integrity validation={self.config.validation} "
                 f"checksums={self.config.integrity}"
-                + (f" ({regions} regions)" if regions else "")
+                + (f" ({regions} regions{where})" if regions else "")
             )
         return "\n".join(lines)

@@ -46,9 +46,19 @@ core's slice on its card; rank 0 serves, prints the report (each rank's
 chunk bytes, the rejoin's modeled bytes and, after serving, the bytes it
 handed the collectives) and returns the record, while the others run
 each batch's lookup with it until it is done, then exit 0.  Any rank's
-exception ends the run with a non-zero exit.  Drift replanning, integrity
-sweeps and the degraded mode's fallback do not run across ranks yet
-(``--set degrade_after=0`` on the CPU).
+exception ends the run with a non-zero exit.  The presets and
+``--drift``/``--set drift=replan`` run there too: a replan's shadow build
+runs on every rank (each packs the whole plan on the host and keeps its
+core's slice), the swap point compares the ranks' packs, the integrity
+sweeps and heals check each rank's own slice, and the report prints the
+replans and integrity events from rank 0, as one card does::
+
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --preset taobao-zipf12 --drift zipf:1.2@80,hotset:0.01:0.9:-1@64 \
+        --queries 73728
+
+On the CPU (``--device cpu``, gloo) the degraded mode's fallback serves
+across the ranks as well; on the card there is none.
 
 Legacy flag spellings (``--planner``, ``--layout``, ``--kernels``,
 ``--reduce``, ``--autotune``, ``--dedup``, ``--cache``, ``--replan``,

@@ -918,6 +918,15 @@ class Server:
         if build.ident is not None:  # started as a thread (overlap mode)
             build.join()
         measured = build.measured
+        # a shadow built across the ranks of a device mesh: every rank
+        # reports its share here, on the pump thread (a failed or
+        # mismatching rank raises, and counts as a failed build)
+        join_ranks = getattr(build.step_fn, "join_ranks", None)
+        if build.error is None and join_ranks is not None:
+            try:
+                join_ranks()
+            except Exception as e:
+                build.error = e
         if build.error is not None:
             # a crashing re-pack must not take serving down with it
             self.replan_errors += 1

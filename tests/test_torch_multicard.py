@@ -71,8 +71,7 @@ CASES = {
 SCENARIO = SCENARIOS["transformer"].default_config
 BITWISE = ("sparse", "ring", "split_sparse", "split_ring", "symmetric", "dense", "hier_dedup")
 CLI = ["--device", "cpu", "--workload", "smoke", "--batch", str(BATCH), "--queries", "256",
-       "--distribution", "uniform", "--set", "degrade_after=0",
-       "--set", 'planner_options={"shard_rocks": false}']
+       "--distribution", "uniform", "--set", 'planner_options={"shard_rocks": false}']
 
 
 def _inputs():
@@ -189,19 +188,6 @@ def _mesh_cases(rank, tmp):
         out["simulate"] = None
     except MeshShapeError as e:
         out["simulate"] = str(e)
-    # not across ranks yet: drift replans, integrity sweeps, the CPU's
-    # degraded fallback
-    out["refused"] = []
-    for cfg in (dict(SMOKE, drift="replan"), dict(SMOKE, integrity="checksum")):
-        try:
-            InferenceEngine.build(tables, wl, EngineConfig(**cfg), device="cpu", mesh=mesh)
-        except ValueError as e:
-            out["refused"].append(str(e))
-    eng = InferenceEngine.build(tables, wl, EngineConfig(**SMOKE), device="cpu", mesh=mesh)
-    try:
-        eng.reference_view()
-    except ValueError as e:
-        out["refused"].append(str(e))
     # a scenario tower on rank 0 over the lookup across the ranks
     eng = InferenceEngine.build_scenario("transformer", EngineConfig(**SCENARIO), device="cpu",
                                          mesh=mesh, batch=BATCH)
@@ -447,11 +433,6 @@ def test_data_by_model_mesh_splits_the_batch(cases):
         assert got["pooled"].shape == (len(wl.tables), half, 16)
         assert torch.equal(got["pooled"], pooled[:, d * half:(d + 1) * half])
         assert torch.equal(got["logits"], logits[d * half:(d + 1) * half])
-
-
-def test_replans_integrity_and_fallback_refused_across_ranks(cases):
-    for c in cases:
-        assert len(c["refused"]) == 3 and all("ROADMAP A13" in m for m in c["refused"])
 
 
 def test_scenario_tower_over_four_ranks(cases):
