@@ -4,6 +4,7 @@ against their plain versions.
 
     python3 chip_smoke.py                 # needs one CUDA card
     python3 chip_smoke.py --phases MC     # the lookup across every card
+    python3 chip_smoke.py --phases MC-LM  # the sharded LMs across every card
 
 Phases (any failure raises and exits non-zero; each prints ``[phase X]
 start`` and ``[phase X] ok <seconds>``, and a failed check prints ``[FAIL
@@ -241,8 +242,24 @@ X] <message>`` before it raises):
    each rank's shadow build seconds, the swap points' and sweeps' times and
    each generation's cache rows; and each rank's allocated bytes.
 
+9. the sharded LMs across cards, MC-LM: one NCCL rank per card, a
+   ``ShardCtx`` over the card mesh and every leaf a ``DTensor`` placed by
+   the sharding rules; olmo-1b and granite-moe-3b-a800m at 4 layers and
+   their published widths in f32 on (1, 1) on one card, on (1, W), (W, 1)
+   and, on four, (2, 2) on W cards.  Each run: a train step's loss and
+   gradients, one AdamW step at 4 x 512 (remat on), a 4 x 256 prefill and
+   16 decode steps.  Gated against the same parameters and batches
+   unsharded on rank 0's card: the loss within 1e-5 relative, every
+   gradient leaf and the prefill's and each decode step's logits within
+   ``1e-5 * max(|ref|, 1)``; every rank's local bytes of the parameters,
+   AdamW's moments and the caches equal to ``per_device_bytes`` of their
+   specs (fewer parameter bytes than one card's on more than one card).
+   Recorded per rank: step, prefill and decode-per-token times (host
+   clock around synchronized work), peak allocated memory beside one
+   card's, and whether each gate held bitwise.
+
 ``--phases`` runs a subset after the build (``main`` is paths A-E and the
-kernel phase; e.g. ``--phases MC`` on four cards).  The last line is
+kernel phase; e.g. ``--phases MC`` or ``--phases MC-LM`` on four cards).  The last line is
 ``{"ok": true, "device": {...}}``; with the kernel phase, the line before
 it is the JSON record of every kernel.
 """
@@ -3355,7 +3372,7 @@ def _mc_rank(rank: int, world: int, tmp: str, labels: list) -> None:
     every = [None] * world
     dist.all_gather_object(every, records)
     if rank == 0:
-        Path(tmp, "mc.json").write_text(json.dumps(every))
+        Path(tmp, "records.json").write_text(json.dumps(every))
     dist.destroy_process_group()
 
 
@@ -3375,28 +3392,13 @@ def multicard_path() -> dict:
     whole lookup across the cards, the bytes the rejoin handed the
     collectives beside the modeled ones."""
     import torch
-    import torch.multiprocessing as mp
 
     from repro_torch.launch import serve
 
     world = torch.cuda.device_count()
     labels = mc_cases(world)
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
-        ctx = mp.start_processes(_mc_rank, args=(world, tmp, labels), nprocs=world,
-                                 join=False, start_method="spawn")
-        deadline = time.monotonic() + MC_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
-                check(time.monotonic() < deadline, f"[MC] ranks still running after "
-                      f"{MC_TIMEOUT_S}s")
-        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-            check(False, f"[MC] a rank failed: {e}")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        every = json.loads(Path(tmp, "mc.json").read_text())
+    every = _spawn_ranks("MC", _mc_rank, world, labels)
     counts = {name: 0 for name in KERNELS}
     for i, label in enumerate(labels):
         recs = [every[r][i] for r in range(world)]
@@ -3455,14 +3457,296 @@ def multicard_path() -> dict:
     return {"counts": counts}
 
 
-PHASES = ("main", "F", "G", "H", "R", "X", "M", "S", "T", "MC")
+# --------------------------------------------------------------------------
+# sharded LMs across cards (MC-LM)
+# --------------------------------------------------------------------------
+
+# label -> (arch, layers kept): each at its published width in f32
+MC_LM = {"olmo": ("olmo-1b", 4), "granite": ("granite-moe-3b-a800m", 4)}
+MC_LM_TRAIN, MC_LM_PREFILL, MC_LM_DECODE = (4, 512), (4, 256), 16
+MC_LM_TOL = 1e-5
+
+
+def mc_lm_meshes(world: int) -> list:
+    """The ``(data, model)`` meshes MC-LM runs on ``world`` cards: (1, 1)
+    on one; (1, W), (W, 1) and, on four, (2, 2) on more."""
+    if world == 1:
+        return [(1, 1)]
+    return [(1, world), (world, 1)] + ([(2, 2)] if world == 4 else [])
+
+
+def _mc_lm_inputs(cfg, device) -> tuple:
+    """The train batch, the prefill prompt and the decode tokens, drawn on
+    ``device`` from seed 1 (the same on every rank)."""
+    import torch
+
+    g = torch.Generator(device).manual_seed(1)
+    (b, s), (pb, ps) = MC_LM_TRAIN, MC_LM_PREFILL
+
+    def ids(*shape):
+        return torch.randint(0, cfg.vocab, shape, generator=g, dtype=torch.int32, device=device)
+
+    return {"tokens": ids(b, s), "labels": ids(b, s)}, {"tokens": ids(pb, ps)}, ids(pb,
+                                                                                    MC_LM_DECODE)
+
+
+def _mc_lm_shapes():
+    from repro_torch.configs.base import ShapeCfg
+
+    (b, s), (pb, ps) = MC_LM_TRAIN, MC_LM_PREFILL
+    cap = ps + MC_LM_DECODE
+    return (ShapeCfg("mc-lm", "train", s, b), ShapeCfg("mc-lm", "prefill", cap, pb),
+            ShapeCfg("mc-lm", "decode", cap, pb))
+
+
+def _grads_only():
+    """An optimizer whose update hands back the gradients: the train
+    step's ``value_and_grad`` gradients, exactly."""
+    from repro_torch.training.optimizer import Optimizer
+
+    return Optimizer(lambda p: {}, lambda g, state, p: (g, state), "grads")
+
+
+def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) -> dict:
+    """Loss and gradients of one train step, one AdamW step, the prefill's
+    logits and caches and each decode step's logits, every input placed by
+    ``place`` first.  Timed by the host clock around synchronized work:
+    the AdamW step (the second step of the run), a second prefill and the
+    decode steps after the first."""
+    import torch
+
+    from repro_torch import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.training.optimizer import adamw
+
+    shape_t, shape_p, shape_d = _mc_lm_shapes()
+    n_dp = sh.dp_size(ctx.mesh) if ctx is not None else 1
+    train, prompt, nxt = inputs
+    params = place(params, sh.param_pspecs(params, False))
+    train = place(train, sh.batch_pspecs(cfg, shape_t, False, n_dp))
+    prompt = place(prompt, sh.batch_pspecs(cfg, shape_p, False, n_dp))
+    tok_spec = sh.batch_pspecs(cfg, shape_d, False, n_dp)
+    out = {"params": params}
+    grads, _, m = T.make_train_step(cfg, ctx, _grads_only(), shape_t)(params, {}, train)
+    out.update(loss=m["loss"], grads=grads)
+    opt = adamw(3e-4)
+    state = opt.init(params)
+    step = T.make_train_step(cfg, ctx, opt, shape_t)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["new_params"], out["state"], _ = step(params, state, train)
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    prefill = T.make_prefill_step(cfg, ctx, shape_p)
+    out["prefill"], out["cache"] = prefill(params, prompt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()  # a second prefill, warm
+    prefill(params, prompt)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    serve, c, out["decode"] = T.make_serve_step(cfg, ctx), out["cache"], []
+    for t in range(MC_LM_DECODE):
+        if t == 1:  # the steps after the first, warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        lg, c = serve(params, c, place({"tokens": nxt[:, t:t + 1]}, tok_spec))
+        out["decode"].append(lg)
+    torch.cuda.synchronize()
+    out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (MC_LM_DECODE - 1)
+    out["cache_out"] = c
+    return out
+
+
+def _mc_lm_case(label: str, meshes: list) -> list:
+    """``label``'s MC-LM runs on this rank, one a ``(data, model)`` card mesh
+    of ``meshes``, every leaf placed by the sharding rules; rank 0 first
+    runs the same parameters and batches unsharded on its card (the
+    reference) and holds each sharded run against it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import sharding as sh
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.dryrun import make_ctx
+    from repro_torch.launch.mesh import init_card_mesh
+    from repro_torch.models import registry
+    from repro_torch.tree import leaves
+
+    rank = dist.get_rank()
+    arch, layers = MC_LM[label]
+    cfg, reduced = _lm_cut(arch, layers)
+    dev = resolve_device(DEVICE)
+    params = registry.Bundle(cfg).init(torch.Generator(dev).manual_seed(0))
+    inputs = _mc_lm_inputs(cfg, dev)
+    shape_t, _, shape_d = _mc_lm_shapes()
+    ref, one_card = None, None
+    if rank == 0:
+        torch.cuda.reset_peak_memory_stats()
+        ref = _mc_lm_run(cfg, params, inputs)
+        one_card = {k: ref.pop(k) for k in ("step_ms", "prefill_ms", "decode_ms_per_token")}
+        one_card["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        for k in ("params", "new_params", "state", "cache", "cache_out"):
+            ref.pop(k)
+        torch.cuda.empty_cache()
+    recs = []
+    for data, model in meshes:
+        dist.barrier()
+        mesh = init_card_mesh(data, model, device_type=DEVICE)
+        ctx = make_ctx(mesh, shape_t, False)
+        torch.cuda.reset_peak_memory_stats()
+        got = _mc_lm_run(cfg, params, inputs, ctx,
+                         lambda tree, specs: sh.with_sharding(mesh, tree, specs))
+        rec = {"mc_lm": label, "arch": arch, "mesh": [data, model], "rank": rank,
+               "reduced": reduced, "one_card": one_card, "shard_batch": ctx.shard_batch,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+               **{k: got[k] for k in ("step_ms", "prefill_ms", "decode_ms_per_token")}}
+        pspecs = sh.param_pspecs(got["params"], False)
+        moments = {"m": got["state"]["m"], "v": got["state"]["v"]}
+        cspecs = sh.cache_pspecs(cfg, shape_d, False, sh.dp_size(mesh))
+        rec["bytes"] = {name: [sh.local_bytes(t), sh.per_device_bytes(t, specs, mesh)]
+                        for name, t, specs in (
+                            ("params", got["params"], pspecs),
+                            ("new_params", got["new_params"], pspecs),
+                            ("moments", moments, sh.opt_pspecs(moments, pspecs)),
+                            ("cache", got["cache"], cspecs),
+                            ("cache_out", got["cache_out"], cspecs))}
+        rec["whole_param_bytes"] = sum(x.numel() * x.element_size()
+                                       for x in leaves(got["params"]))
+
+        def whole(x):  # a collective: every rank calls it
+            return x.full_tensor() if sh.is_dtensor(x) else x
+
+        errs, bitwise = {}, {}
+
+        def gate(name, g, want):
+            g = whole(g)
+            if ref is not None:
+                errs[name] = max(errs.get(name, 0.0), _rel(g, want))
+                bitwise[name] = bitwise.get(name, True) and bool(torch.equal(g, want))
+
+        loss = float(whole(got["loss"]))
+        mine = leaves(got["grads"])
+        for g, w in zip(mine, leaves(ref["grads"]) if ref else mine):
+            gate("grads", g, w)
+        gate("prefill", got["prefill"], ref["prefill"] if ref else None)
+        finite = True
+        for t, g in enumerate(got["decode"]):
+            gate("decode", g, ref["decode"][t] if ref else None)
+            finite = finite and bool(torch.isfinite(whole(g)).all())
+        if ref is not None:
+            want = float(ref["loss"])
+            rec.update(loss=loss, loss_ref=want, loss_rel_err=abs(loss - want) / abs(want),
+                       loss_bitwise=loss == want, max_rel_err=errs, bitwise=bitwise,
+                       finite=finite)
+        recs.append(rec)
+        del got
+        torch.cuda.empty_cache()
+    return recs
+
+
+def _mc_lm_rank(rank: int, world: int, tmp: str) -> None:
+    """One rank of MC-LM: a NCCL process group over the job's cards, then
+    every model on every mesh; rank 0 writes every rank's records to
+    ``tmp``."""
+    import os
+
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    from repro_torch.launch.mesh import init_card_mesh
+
+    init_card_mesh(device_type=DEVICE, init_method=f"file://{tmp}/group", rank=rank,
+                   world_size=world, timeout_s=MC_TIMEOUT_S / 2)
+    records = [rec for label in MC_LM for rec in _mc_lm_case(label, mc_lm_meshes(world))]
+    every = [None] * world
+    dist.all_gather_object(every, records)
+    if rank == 0:
+        Path(tmp, "records.json").write_text(json.dumps(every))
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(label: str, fn, world: int, *args) -> list:
+    """``fn(rank, world, tmp, *args)`` on one spawned process per card, a
+    failed or late rank failing the phase; -> what rank 0 wrote to
+    ``tmp/records.json``."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mc_") as tmp:
+        ctx = mp.start_processes(fn, args=(world, tmp, *args), nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + MC_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+                check(time.monotonic() < deadline, f"[{label}] ranks still running after "
+                      f"{MC_TIMEOUT_S}s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            check(False, f"[{label}] a rank failed: {e}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        return json.loads(Path(tmp, "records.json").read_text())
+
+
+def multicard_lm_path() -> dict:
+    """MC-LM: the dense and MoE LM families sharded across the job's cards,
+    one NCCL rank per card (``torch.cuda.device_count()``), a ``ShardCtx``
+    over the card mesh and every leaf placed by the sharding rules
+    (``DTensor``): olmo-1b and granite-moe-3b-a800m at 4 layers and their
+    published widths in f32, on each mesh of ``mc_lm_meshes``.  Each run:
+    one train step's loss and gradients (``value_and_grad``), one AdamW
+    step at 4 x 512 (remat on), a 4 x 256 prefill and 16 decode steps.
+    Gated against the same parameters and batches unsharded on rank 0's
+    card: the loss within 1e-5 relative, every gradient leaf, the
+    prefill's and every decode step's logits within ``1e-5 * max(|ref|,
+    1)``; on every rank the local bytes of the parameters (before and
+    after the step), AdamW's moments and the caches (after prefill and
+    after decode) equal to ``per_device_bytes`` of their specs, and on
+    more than one card fewer parameter bytes than one card holds.
+    Recorded per rank: the step's, prefill's and decode's times per token
+    (host clock around synchronized work, each after a first call of the
+    same shapes), the peak allocated memory beside one card's, and whether
+    each gate held bitwise."""
+    import torch
+
+    world = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    every = _spawn_ranks("MC-LM", _mc_lm_rank, world)
+    for i in range(len(every[0])):
+        recs = [every[r][i] for r in range(world)]
+        lead = recs[0]
+        tag = f"[MC-LM {lead['mc_lm']} {tuple(lead['mesh'])}]"
+        check(lead["loss_rel_err"] <= MC_LM_TOL,
+              f"{tag} loss {lead['loss']} vs {lead['loss_ref']}")
+        for name, err in lead["max_rel_err"].items():
+            check(err <= MC_LM_TOL, f"{tag} {name} off by {err} relative")
+        check(lead["finite"], f"{tag} non-finite decode logits")
+        for r in recs:
+            for name, (local, per_device) in r["bytes"].items():
+                check(local == per_device, f"{tag} rank {r['rank']} holds {local} bytes of "
+                      f"{name}, its specs {per_device}")
+            check(world == 1 or r["bytes"]["params"][0] < r["whole_param_bytes"],
+                  f"{tag} rank {r['rank']} holds every parameter")
+        print(json.dumps({
+            "mc_lm": lead["mc_lm"], "arch": lead["arch"], "mesh": lead["mesh"],
+            "world": world, "reduced": lead["reduced"], "loss": lead["loss"],
+            "loss_rel_err": lead["loss_rel_err"], "loss_bitwise": lead["loss_bitwise"],
+            "max_rel_err": lead["max_rel_err"], "bitwise": lead["bitwise"],
+            "one_card": lead["one_card"], "whole_param_bytes": lead["whole_param_bytes"],
+            "per_rank": [{k: r[k] for k in ("rank", "step_ms", "prefill_ms",
+                                            "decode_ms_per_token", "peak_gb", "bytes")}
+                         for r in recs]}), flush=True)
+    return {}
+
+
+PHASES = ("main", "F", "G", "H", "R", "X", "M", "S", "T", "MC", "MC-LM")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run after the build (default: all): "
-                         "main (paths A-E and the kernels), F, G, H, R, X, M, S, T, MC")
+                         "main (paths A-E and the kernels), F, G, H, R, X, M, S, T, MC, MC-LM")
     phases = set(ap.parse_args(argv).phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}; known: {PHASES}")
@@ -3531,6 +3815,9 @@ def main(argv=None) -> int:
     if "MC" in phases:
         with phase("MC"):
             runs["MC"] = multicard_path()
+    if "MC-LM" in phases:
+        with phase("MC-LM"):
+            multicard_lm_path()
     print(f"[card] {card}")
     if kernels is not None:
         for rec in kernels:

@@ -12,8 +12,13 @@ Layout::
   leaves are copied to the host before the writer thread starts, so the
   caller may go on updating its tensors;
 * ``restore`` validates the manifest and each leaf's shape, and places each
-  leaf on its placement's device (``shardings``, the elastic restart) or
-  on the device of the leaf it replaces;
+  leaf on its placement's device, or as its ``DTensor`` placement on a
+  device mesh (``shardings``, the elastic restart), or on the device of the
+  leaf it replaces;
+* a state placed on a device mesh (``DTensor`` leaves) is saved whole:
+  every rank calls ``save`` (each leaf's ``full_tensor()`` is a
+  collective), rank 0 alone writes, in the same format, so one process or
+  another mesh restores it;
 * ``latest_step``/``cleanup`` implement keep-last-N retention;
 * a torn checkpoint (no ``_COMPLETE``) is ignored by restore; the loop's
   crash recovery (training/loop.py) relies on this.
@@ -32,7 +37,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.tree import flatten, unflatten
+from repro_torch.tree import flatten, is_dtensor, unflatten
 
 __all__ = ["cleanup", "latest_step", "restore", "save", "steps"]
 
@@ -42,6 +47,8 @@ def _dtype_name(dtype: torch.dtype) -> str:
 
 
 def _to_host(x) -> np.ndarray:
+    if is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach().to("cpu", copy=True)
         if x.dtype == torch.bfloat16:
@@ -59,9 +66,10 @@ def save(
     async_: bool = False,
 ) -> Path:
     """Write ``tree`` as checkpoint ``step``; with ``async_`` the files are
-    written by a thread (returned path exists once it has finished)."""
+    written by a thread (returned path exists once it has finished).  With
+    ``DTensor`` leaves every rank of their mesh calls this, and only rank 0
+    writes (the others return the path without waiting for it)."""
     directory = Path(directory)
-    directory.mkdir(parents=True, exist_ok=True)
     final = directory / f"step_{step:08d}"
     tmp = directory / f".tmp_step_{step:08d}"
 
@@ -69,6 +77,9 @@ def save(
     dtypes = [_dtype_name(x.dtype) if isinstance(x, torch.Tensor) else str(np.asarray(x).dtype)
               for x in flat]
     host_leaves = [_to_host(x) for x in flat]  # copied before any thread starts
+    if any(is_dtensor(x) for x in flat) and torch.distributed.get_rank() != 0:
+        return final
+    directory.mkdir(parents=True, exist_ok=True)
 
     def _write():
         if tmp.exists():
@@ -109,11 +120,14 @@ def latest_step(directory: str | Path) -> int | None:
 def restore(directory: str | Path, step: int | None, tree_like: Any, *,
             shardings: Any = None) -> tuple[Any, int]:
     """Load checkpoint ``step`` (or the latest complete one) into the
-    structure of ``tree_like``.  Each leaf goes to the device of its
-    placement in ``shardings`` (the same structure, leaves with a
-    ``device``, as :func:`repro_torch.sharding.with_sharding` builds them:
-    the elastic restart, structure from ``param_struct``, placement from
-    the new topology); without one, to the device of the ``tree_like``
+    structure of ``tree_like``.  Each leaf goes where its entry in
+    ``shardings`` (the same structure, as
+    :func:`repro_torch.sharding.with_sharding` builds it: the elastic
+    restart, structure from ``param_struct``, placement from the new
+    topology) says: a ``DTensor`` entry (a device mesh; ``meta`` or not)
+    makes it a ``DTensor`` of that mesh and those placements, on this
+    rank's device; a :class:`~repro_torch.sharding.Placement`, its
+    ``device``.  Without ``shardings``, to the device of the ``tree_like``
     leaf it replaces, or the CPU for a ``meta`` or non-tensor leaf.
     Raises ``FileNotFoundError`` without a complete checkpoint and
     ``ValueError`` on a leaf count or shape that differs."""
@@ -144,6 +158,14 @@ def restore(directory: str | Path, step: int | None, tree_like: Any, *,
         t = torch.from_numpy(arr)
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
+        if is_dtensor(placed):
+            from torch.distributed.tensor import distribute_tensor
+
+            from repro_torch.device import resolve_device
+
+            dev = resolve_device(placed.device_mesh.device_type)
+            loaded.append(distribute_tensor(t.to(dev), placed.device_mesh, placed.placements))
+            continue
         if placed is not None:
             device = placed.device
         elif isinstance(like, torch.Tensor) and like.device.type != "meta":

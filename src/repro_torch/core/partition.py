@@ -92,6 +92,7 @@ __all__ = [
     "ragged_block_r",
     "ragged_core_rows",
     "vocab_parallel_embed",
+    "vocab_parallel_embed_shard",
 ]
 
 STRATEGY_CODE: dict[Strategy, int] = {
@@ -1244,3 +1245,38 @@ def vocab_parallel_embed(table: torch.Tensor, tokens: torch.Tensor, n_shards: in
         emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
         out = emb if out is None else out + emb
     return out
+
+
+class _SumOverGroup(torch.autograd.Function):
+    """A sum over ``group``'s ranks (``all_reduce``) whose backward is the
+    identity: the output is replicated over the group, so each rank's
+    gradient already is the whole gradient of its own partial (summing
+    the ranks' gradients again would count it once a rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed as dist
+
+        x = x.clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def vocab_parallel_embed_shard(table_shard: torch.Tensor, tokens: torch.Tensor, index: int,
+                               group) -> torch.Tensor:
+    """One rank of the model axis (the JAX package's ``shard_map`` form):
+    (V/K, d) row shard number ``index``, (B, S) tokens -> (B, S, d).  The
+    offset-subtract, the masked local gather, then the sum over ``group``
+    (the model axis's ranks; :class:`_SumOverGroup`).  A token's row comes
+    from its own rank and every other rank adds zeros, so the result
+    equals a plain gather."""
+    vl = table_shard.shape[0]
+    local = tokens.long() - index * vl
+    valid = (local >= 0) & (local < vl)
+    emb = table_shard[torch.where(valid, local, 0)]
+    emb = torch.where(valid[..., None], emb, torch.zeros_like(emb))
+    return _SumOverGroup.apply(emb, group)

@@ -9,13 +9,17 @@ batch-split knobs), and :mod:`repro_torch.sharding` and the dry-run divide
 each leaf's bytes by it.  Single pod: 16 x 16 = 256 chips (data x model);
 multi-pod: 2 pods x 256 = 512 chips with a leading "pod" axis.
 
-:func:`init_card_mesh` is the device mesh the partitioned lookup runs on
-across cards (the JAX package's ``("data", "model")`` device mesh): a
-``torch.distributed`` :class:`~torch.distributed.device_mesh.DeviceMesh`
-over one process per card, NCCL between cards, or gloo between CPU
-processes::
+:func:`init_card_mesh` is the device mesh the partitioned lookup and the
+sharded LMs run on across cards (the JAX package's ``("data", "model")``
+device mesh): a ``torch.distributed``
+:class:`~torch.distributed.device_mesh.DeviceMesh` over one process per
+card, NCCL between cards, or gloo between CPU processes::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve --workload taobao
+
+A ``ShardCtx`` over it places every LM leaf by the sharding rules
+(:func:`repro_torch.sharding.with_sharding`).  Both kinds of mesh answer
+:func:`axis_sizes`/:func:`axis_size`.
 """
 from __future__ import annotations
 
@@ -24,8 +28,8 @@ import datetime
 import math
 import os
 
-__all__ = ["Mesh", "all_gather_cat", "axis_rank", "axis_size", "init_card_mesh",
-           "local_rank", "make_debug_mesh", "make_production_mesh"]
+__all__ = ["Mesh", "all_gather_cat", "axis_rank", "axis_size", "axis_sizes", "init_card_mesh",
+           "is_device_mesh", "local_rank", "make_debug_mesh", "make_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,9 +143,23 @@ def init_card_mesh(
     return init_device_mesh(device_type, (data, model), mesh_dim_names=("data", "model"))
 
 
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``DeviceMesh`` (ranks behind its axes), not a
+    :class:`Mesh` shape."""
+    return not isinstance(mesh, Mesh) and hasattr(mesh, "mesh_dim_names")
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """Each axis name of ``mesh`` mapped to its size, for a :class:`Mesh`
+    (its ``shape``) and for a ``DeviceMesh`` (its ``mesh_dim_names``)."""
+    if is_device_mesh(mesh):
+        return {n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.shape)}
+    return dict(mesh.shape)
+
+
 def axis_size(mesh, axis: str) -> int:
-    """The size of one named dim of a ``DeviceMesh``."""
-    return int(mesh.shape[mesh.mesh_dim_names.index(axis)])
+    """The size of one named axis of a :class:`Mesh` or a ``DeviceMesh``."""
+    return axis_sizes(mesh)[axis]
 
 
 def axis_rank(mesh, axis: str) -> int:

@@ -12,6 +12,13 @@ written as the JAX package writes it, reductions in the same order, and
 parameters are cast to the activations' dtype at each use, as there; no
 fused attention kernel is used.  :func:`attention` is the scenario towers' entry (their
 non-causal, rope-free, uncached case); :func:`lm_attention` is the LM's.
+
+The LM layers also take ``DTensor`` activations and caches (a sharded LM
+on a ``DeviceMesh``): matmuls take :func:`rows`, heads stay whole
+(:func:`whole_heads`), row-wise work and the attention core run on each
+rank's local shard (:func:`per_shard`, :func:`_per_shard_heads`), and a
+cache whose slots lie split over a mesh axis is written and read
+rank-locally (:func:`_cache_attend_split`).
 """
 from __future__ import annotations
 
@@ -21,6 +28,8 @@ from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.tree import is_dtensor
 
 __all__ = [
     "AttnSpec",
@@ -35,9 +44,12 @@ __all__ = [
     "make_norm",
     "mlp_apply",
     "mlp_init",
+    "per_shard",
+    "rows",
     "rms_norm",
     "rope_inv_freq",
     "sinusoidal_positions",
+    "whole_heads",
 ]
 
 Params = Mapping[str, Any]
@@ -75,9 +87,13 @@ def rms_norm(x: torch.Tensor, scale=None, eps: float = 1e-6) -> torch.Tensor:
     """The mean square in f32, the normalized activation in ``x``'s dtype;
     ``scale`` is zero-initialized (the output is scaled by ``1 + scale``)."""
     dt = x.dtype
-    msq = torch.einsum("...d,...d->...", x.float(), x.float()) / x.shape[-1]
-    r = torch.rsqrt(msq + eps)[..., None].to(dt)
-    y = x * r
+
+    def normalize(x):
+        msq = torch.einsum("...d,...d->...", x.float(), x.float()) / x.shape[-1]
+        r = torch.rsqrt(msq + eps)[..., None].to(dt)
+        return x * r
+
+    y = per_shard(normalize, x)
     if scale is not None:
         y = y * (1.0 + scale).to(dt)
     return y
@@ -88,17 +104,60 @@ def layer_norm(x: torch.Tensor, scale=None, bias=None, eps: float = 1e-5) -> tor
     mean square in f32, the normalized activation in ``x``'s dtype."""
     dt = x.dtype
     d = x.shape[-1]
-    xf = x.float()
-    mu = torch.einsum("...d->...", xf) / d
-    msq = torch.einsum("...d,...d->...", xf, xf) / d
-    var = torch.clamp(msq - torch.square(mu), min=0.0)
-    r = torch.rsqrt(var + eps)
-    y = (x - mu[..., None].to(dt)) * r[..., None].to(dt)
+
+    def normalize(x):
+        xf = x.float()
+        mu = torch.einsum("...d->...", xf) / d
+        msq = torch.einsum("...d,...d->...", xf, xf) / d
+        var = torch.clamp(msq - torch.square(mu), min=0.0)
+        r = torch.rsqrt(var + eps)
+        return (x - mu[..., None].to(dt)) * r[..., None].to(dt)
+
+    y = per_shard(normalize, x)
     if scale is not None:
         y = y * scale.to(dt)
     if bias is not None:
         y = y + bias.to(dt)
     return y
+
+
+def per_shard(fn, x: torch.Tensor, dims: tuple = (-1,)) -> torch.Tensor:
+    """``fn(x)`` for an ``fn`` that treats each slice along every dim but
+    ``dims`` on its own and keeps those other dims' sizes.  A ``DTensor``
+    runs it on its local shard, as one card would, once ``dims`` are
+    whole and no sum is owed on any rank (a partial or split ``dims`` is
+    replicated first); the result keeps those placements, and its local
+    gradient is its shard's.  Any other tensor runs it as it is."""
+    if not is_dtensor(x):
+        return fn(x)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    whole = {d % x.ndim for d in dims}
+    pl = [Replicate() if p.is_partial() or any(p.is_shard(d) for d in whole) else p
+          for p in x.placements]
+    if pl != list(x.placements):
+        x = x.redistribute(x.device_mesh, pl)
+    out = fn(x.to_local())
+    shape = [x.shape[d] if any(p.is_shard(d) for p in pl) else n
+             for d, n in enumerate(out.shape)]
+    return DTensor.from_local(out, x.device_mesh, pl, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (..., d) ready to multiply a weight: a ``DTensor`` owes no sum
+    and keeps each row's leading dims whole but the first (a split
+    sequence, Megatron's sequence parallelism, is gathered here), so a
+    matmul's flattening of the leading dims splits only the first.  Any
+    other tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_partial() or any(p.is_shard(d) for d in range(1, x.ndim - 1))
+          else p for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
 
 
 def make_norm(kind: str, d: int):
@@ -330,14 +389,13 @@ def lm_attention(
         raise ValueError(f"unknown cache_mode {cache_mode!r}")
     b, sq, _ = x.shape
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
-    g = h // kvh
     dt = x.dtype
     cross = kv_x is not None or precomputed_kv is not None
-    q = (x @ params["wq"].to(dt)).reshape(b, sq, h, dh)
+    q = whole_heads(rows(x) @ params["wq"].to(dt), kvh).reshape(b, sq, h, dh)
     if precomputed_kv is None:
         src = x if kv_x is None else kv_x
-        k = (src @ params["wk"].to(dt)).reshape(b, src.shape[1], kvh, dh)
-        v = (src @ params["wv"].to(dt)).reshape(b, src.shape[1], kvh, dh)
+        k = whole_heads(rows(src) @ params["wk"].to(dt), kvh).reshape(b, src.shape[1], kvh, dh)
+        v = whole_heads(rows(src) @ params["wv"].to(dt), kvh).reshape(b, src.shape[1], kvh, dh)
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"])
         if precomputed_kv is None:
@@ -366,32 +424,143 @@ def lm_attention(
             slot = cache_pos
             kv_valid = cache_pos + sq
         slot = min(slot, smax - sq)  # as dynamic_update_slice clamps
+        if _slot_split(ck) is not None:
+            out, new_cache = _cache_attend_split(
+                q, k, v, ck, cv, slot, kvh=kvh, causal=causal, window=window,
+                kv_valid=kv_valid, base=cache_pos)
+            return rows(out.to(dt)) @ params["wo"].to(dt), new_cache
         ck, cv = ck.clone(), cv.clone()
         ck[:, slot:slot + sq] = k.to(ck.dtype)
         cv[:, slot:slot + sq] = v.to(cv.dtype)
         new_cache = (ck, cv)
         k, v = ck, cv
 
-    qg = q.reshape(b, sq, kvh, g, dh)
     # masks follow token order (the cache slot), not M-RoPE's position
     # values, as the JAX package's do
     base = cache_pos if cache_pos is not None else 0
-    qidx = (base + torch.arange(sq, device=x.device))[None, :].expand(b, sq)
 
-    def attend(qg_c, qpos_c):
-        if qg_c.shape[1] == 1:
-            return _single_shot_attn(qg_c, k, v, q_positions=qpos_c, causal=causal,
-                                     window=window, kv_valid_len=kv_valid)
-        return _online_softmax_attn(qg_c, k, v, block=spec.attn_block, q_positions=qpos_c,
-                                    causal=causal, window=window, kv_valid_len=kv_valid)
+    def attend_all(q, k, v):
+        bl, hl, kvl = q.shape[0], q.shape[2], k.shape[2]
+        qg = q.reshape(bl, sq, kvl, hl // kvl, dh)
+        qidx = (base + torch.arange(sq, device=q.device))[None, :].expand(bl, sq)
 
-    if q_chunk is not None and sq > q_chunk and sq % q_chunk == 0:
-        out = torch.cat([attend(qg[:, i:i + q_chunk], qidx[:, i:i + q_chunk])
-                         for i in range(0, sq, q_chunk)], dim=1)
-    else:
-        out = attend(qg, qidx)
-    out = out.reshape(b, sq, h * dh).to(dt)
-    return out @ params["wo"].to(dt), new_cache
+        def attend(qg_c, qpos_c):
+            if qg_c.shape[1] == 1:
+                return _single_shot_attn(qg_c, k, v, q_positions=qpos_c, causal=causal,
+                                         window=window, kv_valid_len=kv_valid)
+            return _online_softmax_attn(qg_c, k, v, block=spec.attn_block, q_positions=qpos_c,
+                                        causal=causal, window=window, kv_valid_len=kv_valid)
+
+        if q_chunk is not None and sq > q_chunk and sq % q_chunk == 0:
+            out = torch.cat([attend(qg[:, i:i + q_chunk], qidx[:, i:i + q_chunk])
+                             for i in range(0, sq, q_chunk)], dim=1)
+        else:
+            out = attend(qg, qidx)
+        return out.reshape(bl, sq, hl * dh)
+
+    out = _per_shard_heads(attend_all, q, k, v).to(dt)
+    return rows(out) @ params["wo"].to(dt), new_cache
+
+
+def whole_heads(t: torch.Tensor, n_kv: int) -> torch.Tensor:
+    """A projection (B, S, heads * dh) before its head reshape.  A
+    ``DTensor`` whose last dim a mesh axis splits but whose ``n_kv`` KV
+    heads that axis does not divide is replicated over that axis, so no
+    rank holds part of a head (GSPMD splits inside a head there, with the
+    same values); q, k and v alike, so each rank's query heads are the
+    groups of its KV heads."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard(t.ndim - 1) and n_kv % size else p
+          for p, size in zip(t.placements, t.device_mesh.shape)]
+    return t if pl == list(t.placements) else t.redistribute(t.device_mesh, pl)
+
+
+def _per_shard_heads(fn, q, k, v):
+    """``fn(q, k, v)`` -> (B, Sq, H * dh), attention over whole sequences
+    (q (B, Sq, H, dh), k and v (B, Skv, KV, dh)).  ``DTensor`` inputs run
+    it on each rank's own batch rows and heads, as one card would: every
+    mesh dim keeps q's split of the batch (dim 0) or of the heads (dim 2)
+    and replicates the rest, k and v placed alike (their heads split with
+    q's, as :func:`whole_heads` left them)."""
+    if not is_dtensor(q):
+        return fn(q, k, v)
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = q.device_mesh
+    pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate() for p in q.placements]
+    out = fn(*(_local_as(t, mesh, pl) for t in (q, k, v)))
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _local_as(t, mesh, pl) -> torch.Tensor:
+    """This rank's shard of ``t`` placed as ``pl`` (a plain ``t`` counts
+    as replicated)."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not is_dtensor(t):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, pl).to_local()
+
+
+def _slot_split(cache: torch.Tensor) -> int | None:
+    """The mesh dim that splits a ``DTensor`` cache's slots (dim 1), or
+    ``None``."""
+    if not is_dtensor(cache):
+        return None
+    dims = [i for i, p in enumerate(cache.placements) if p.is_shard(1)]
+    if len(dims) > 1:
+        raise NotImplementedError("a cache's slots split over more than one mesh axis")
+    return dims[0] if dims else None
+
+
+def _cache_attend_split(q, k, v, ck, cv, slot: int, *, kvh: int, causal: bool, window,
+                        kv_valid: int, base: int):
+    """Attention against a cache whose slots a mesh axis splits
+    (``cache_pspecs``' ``P(None, b, model, None, None)``), flash-decoding
+    style: q, k and v are replicated over that axis; each rank writes the
+    new K/V into the slots it holds (the others write nothing), scores its
+    own slots, and the ranks' partial softmaxes meet by their log-sum-exp:
+    the axis's max, then one sum of each rank's ``exp(s - max)`` and its
+    products with V.  Each term equals one card's; only the sums' order
+    differs.  -> (out (B, Sq, H * dh) placed as the cache's batch, (ck, cv)
+    new, placed as the old)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh, ax = ck.device_mesh, _slot_split(ck)
+    group = mesh.get_group(ax)
+    pl = [Replicate() if i == ax else p for i, p in enumerate(ck.placements)]
+    q_l, k_l, v_l = (_local_as(t, mesh, pl) for t in (q, k, v))
+    ck_l, cv_l = ck.to_local().clone(), cv.to_local().clone()
+    b, sq, h, dh = q_l.shape
+    smax = ck.shape[1]
+    off = mesh.get_local_rank(ax) * -(-smax // mesh.size(ax))  # torch.chunk's split
+    n = ck_l.shape[1]
+    lo, hi = max(slot, off), min(slot + sq, off + n)
+    if lo < hi:
+        ck_l[:, lo - off:hi - off] = k_l[:, lo - slot:hi - slot].to(ck_l.dtype)
+        cv_l[:, lo - off:hi - off] = v_l[:, lo - slot:hi - slot].to(cv_l.dtype)
+
+    g = h // kvh
+    qf = (q_l.reshape(b, sq, kvh, g, dh) * (1.0 / math.sqrt(dh))).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, ck_l.float())
+    qpos = (base + torch.arange(sq, device=q_l.device))[None, :].expand(b, sq)
+    mask = _kv_mask(off + torch.arange(n, device=q_l.device), qpos, causal, window, kv_valid)
+    s = torch.where(mask[:, None, None], s, _NEG)
+    m = s.amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p, cv_l.float())
+    both = torch.cat([acc, p.sum(dim=-1)[..., None]], dim=-1)
+    dist.all_reduce(both, group=group)
+    out = both[..., :dh] / torch.clamp(both[..., dh:], min=1e-30)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h * dh)
+    new = tuple(DTensor.from_local(t, mesh, ck.placements, run_check=False,
+                                   shape=ck.shape, stride=ck.stride()) for t in (ck_l, cv_l))
+    return DTensor.from_local(out, mesh, pl, run_check=False), new
 
 
 # --------------------------------------------------------------------------
@@ -424,8 +593,9 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Te
     bo`` with the tanh approximation (``jax.nn.gelu``'s default)."""
     dt = x.dtype
     if kind == "swiglu":
+        x = rows(x)
         h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
-        return h @ params["wo"].to(dt)
+        return rows(h) @ params["wo"].to(dt)
     if kind == "gelu":
         h = F.gelu(x @ params["wi"].to(dt) + params["bi"].to(dt), approximate="tanh")
         return h @ params["wo"].to(dt) + params["bo"].to(dt)

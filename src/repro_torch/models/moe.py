@@ -5,9 +5,11 @@ Dispatch and combine are dense one-hot einsums over fixed-size token groups;
 tokens beyond an expert's capacity are dropped.  Capacity positions come
 from an f32 cumulative sum of the routing one-hots in ``(G, T*k, E)``
 layout, as in the JAX package, so that the same routing gives the same
-positions.  ``constrain`` is the JAX package's hook for sharding
-annotations; on one device there is nothing to shard, so it is accepted and
-ignored.
+positions.  ``constrain(name, x)`` is the JAX package's hook for sharding
+annotations, called where it calls it: on the dispatched tokens ``xe``,
+the expert hidden ``h`` and the expert outputs ``ye``.  A sharded LM on a
+``DeviceMesh`` passes ``transformer._moe_constrain``'s redistributes (the
+expert-parallel all-to-alls); without one (``None``) nothing is called.
 
 The JAX package can store each expert as ``virtual_factor`` slices of its
 ff columns (``E * v`` virtual experts, routed alike); the port keeps whole
@@ -21,7 +23,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, dense_init, rows
 
 __all__ = ["MoESpec", "merge_virtual_experts", "moe_apply", "moe_init"]
 
@@ -73,17 +75,17 @@ def merge_virtual_experts(params: Params, n_experts: int) -> dict:
 def moe_apply(
     params: Params, x: torch.Tensor, spec: MoESpec, constrain=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x (..., T, d) -> (out (..., T, d), aux_loss scalar).  ``constrain``
-    is accepted and ignored (see the module docstring)."""
+    """x (..., T, d) -> (out (..., T, d), aux_loss scalar); ``constrain``
+    as the module docstring says."""
     lead, (t, d) = x.shape[:-2], x.shape[-2:]
-    xf = x.reshape(-1, t, d)  # (G, T, d): groups = flattened leading dims
+    xf = rows(x).reshape(-1, t, d)  # (G, T, d): groups = flattened leading dims
     if t > spec.group_size and t % spec.group_size == 0:
         xf = xf.reshape(-1, spec.group_size, d)
-    out, aux = _moe_groups(params, xf, spec)
+    out, aux = _moe_groups(params, xf, spec, constrain)
     return out.reshape(*lead, t, d), aux
 
 
-def _moe_groups(params: Params, xf: torch.Tensor, spec: MoESpec):
+def _moe_groups(params: Params, xf: torch.Tensor, spec: MoESpec, constrain=None):
     """Route and compute one batch of token groups (G, gs, d)."""
     dt = xf.dtype
     g, t = xf.shape[0], xf.shape[-2]
@@ -112,9 +114,15 @@ def _moe_groups(params: Params, xf: torch.Tensor, spec: MoESpec):
     combine = ((gate_vals.to(dt)[..., None] * routed)[..., None] * cap_oh).sum(dim=2)
 
     xe = torch.einsum("gtec,gtd->gecd", dispatch.to(dt), xf)  # (G, E, C, d)
+    if constrain is not None:
+        xe = constrain("xe", xe)
     h = F.silu(torch.einsum("gecd,edf->gecf", xe, params["wg"].to(dt)))
     h = h * torch.einsum("gecd,edf->gecf", xe, params["wi"].to(dt))
+    if constrain is not None:
+        h = constrain("h", h)
     ye = torch.einsum("gecf,efd->gecd", h, params["wo"].to(dt))  # (G, E, C, d)
+    if constrain is not None:
+        ye = constrain("ye", ye)
     out = torch.einsum("gtec,gecd->gtd", combine.to(dt), ye)
     return out, aux.float()
 

@@ -70,6 +70,11 @@ class Bundle:
 
     # -- params ---------------------------------------------------------------
     def init(self, generator: torch.Generator | None = None):
+        """Fresh parameters from ``generator``.  Across the ranks of a card
+        mesh every rank seeds the same generator, and
+        ``sharding.with_sharding`` places the tree (rank 0's values
+        scattered); the step builders take a ``ShardCtx`` over that mesh
+        as they take one over a shape."""
         return T.init_params(self.cfg, generator)
 
     def param_struct(self, dtype: torch.dtype | None = None):

@@ -31,15 +31,32 @@ The JAX package's ``models/transformer.py`` in eager PyTorch on one device:
   ``jax.checkpoint``): the backward keeps each layer's input and recomputes
   the rest.
 
-A :class:`ShardCtx` is accepted wherever the JAX package accepts one.  One
-card holds the whole model, so its mesh is a shape
-(:mod:`repro_torch.launch.mesh`): the embedding runs vocab-parallel over
-the model axis, the batch-split knobs clamp by the data axes
-(:func:`_dp_size`), and the sharding constraints change no value.
+A :class:`ShardCtx` is accepted wherever the JAX package accepts one, over
+either kind of mesh (:mod:`repro_torch.launch.mesh`):
+
+* a :class:`~repro_torch.launch.mesh.Mesh` shape, one card holding the
+  whole model: the embedding runs vocab-parallel over the model axis's row
+  shards in turn, the batch-split knobs clamp by the data axes
+  (:func:`_dp_size`), and the sharding constraints change no value;
+* a ``DeviceMesh`` over one rank per card, the leaves placed as
+  ``DTensor`` objects by the sharding rules
+  (:func:`repro_torch.sharding.with_sharding`; batches by
+  ``batch_pspecs``, caches by ``cache_pspecs``): ``DTensor`` propagates
+  the placements through every op as GSPMD does in the JAX package, with
+  the plain tensors the model makes (positions, masks, zeros) read as
+  replicated (``implicit_replication``).  The embedding is the JAX
+  package's ``shard_map`` form (each rank's row shard, summed over the
+  model axis), the sequence-parallel and expert-parallel constraints are
+  ``redistribute`` calls, attention keeps heads whole
+  (:func:`repro_torch.models.layers.lm_attention`), and decode writes and
+  reads the sequence-sharded cache rank-locally.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import math
 from typing import Any
 
 import numpy as np
@@ -47,7 +64,8 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
-from repro_torch.core.partition import vocab_parallel_embed
+from repro_torch.core.partition import vocab_parallel_embed, vocab_parallel_embed_shard
+from repro_torch.launch.mesh import axis_size, is_device_mesh
 from repro_torch.models import layers as L
 from repro_torch.models.layers import AttnSpec, Params
 from repro_torch.models.mamba2 import (
@@ -57,7 +75,8 @@ from repro_torch.models.mamba2 import (
     mamba_init_state,
 )
 from repro_torch.models.moe import merge_virtual_experts, moe_apply, moe_init
-from repro_torch.tree import tree_map, value_and_grad
+from repro_torch.sharding import P, cache_pspecs, is_dtensor, placements
+from repro_torch.tree import plain_as_replicated, tree_map, value_and_grad
 
 __all__ = [
     "AUX_LOSS_WEIGHT",
@@ -85,8 +104,8 @@ _ATTN_FAMILIES = ("dense", "moe", "vlm")  # a stack of dense_block layers
 @dataclasses.dataclass(frozen=True)
 class ShardCtx:
     """The mesh context threaded through the model code (``None`` = one
-    device, no mesh): ``mesh`` maps axis names to sizes through its
-    ``shape`` (:class:`repro_torch.launch.mesh.Mesh`)."""
+    device, no mesh): ``mesh`` is a :class:`repro_torch.launch.mesh.Mesh`
+    shape or a ``DeviceMesh`` over the cards (see the module docstring)."""
 
     mesh: Any
     model_axis: str = "model"
@@ -96,6 +115,42 @@ class ShardCtx:
     @property
     def batch_spec(self):
         return self.data_axes if self.shard_batch else None
+
+
+def _on_cards(ctx) -> bool:
+    """Whether ``ctx``'s mesh is a ``DeviceMesh``: the leaves are placed."""
+    return ctx is not None and is_device_mesh(ctx.mesh)
+
+
+def _scope(ctx):
+    """On a ``DeviceMesh``, ``implicit_replication()`` (re-entrant,
+    :func:`repro_torch.tree.plain_as_replicated`): a plain tensor the
+    model makes (positions, masks, zeros) joins the ``DTensor`` objects as
+    replicated; else nothing."""
+    return plain_as_replicated() if _on_cards(ctx) else contextlib.nullcontext()
+
+
+def _constrain(ctx, x, spec: P):
+    """``x`` redistributed to ``spec`` on a ``DeviceMesh`` (the JAX
+    package's ``with_sharding_constraint``); a plain tensor, or a shape
+    mesh, as it is."""
+    if not _on_cards(ctx) or not is_dtensor(x):
+        return x
+    return _ContiguousGrad.apply(x).redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    ``redistribute``'s backward can give a strided one, which the view in
+    the backward of the einsum before it cannot take."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -229,14 +284,45 @@ def params_from_jax(cfg: ArchConfig, params_np: dict, device="cpu") -> Params:
 def embed_tokens(cfg: ArchConfig, params: Params, tokens: torch.Tensor, ctx=None) -> torch.Tensor:
     """The rows of ``embed`` at ``tokens``; with a ``ctx``, vocab-parallel
     over the model axis's row shards (the same values: each token's row
-    plus zeros)."""
+    plus zeros): in turn on a shape mesh, one shard a rank on a
+    ``DeviceMesh`` (:func:`_embed_on_cards`)."""
     if ctx is None:
         return params["embed"][tokens.long()]
-    return vocab_parallel_embed(params["embed"], tokens, ctx.mesh.shape[ctx.model_axis])
+    if _on_cards(ctx):
+        return _embed_on_cards(ctx, params["embed"], tokens)
+    return vocab_parallel_embed(params["embed"], tokens, axis_size(ctx.mesh, ctx.model_axis))
+
+
+def _embed_on_cards(ctx, table, tokens):
+    """The JAX package's ``shard_map`` embedding on a ``DeviceMesh``: the
+    table's rows split over the model axis (``P(model, None)``), the tokens
+    as they come (split over the data axes, replicated over the model
+    axis), each rank's masked gather of its own shard summed over the model
+    axis (:func:`vocab_parallel_embed_shard`) -> (B, S, d) placed as the
+    tokens.  The table's gradient is partial over every axis that splits
+    the tokens, so ``value_and_grad`` sums it there (the data-parallel
+    reduction)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh, m = ctx.mesh, ctx.mesh.mesh_dim_names.index(ctx.model_axis)
+    n = mesh.ndim
+    if not is_dtensor(table):
+        table = DTensor.from_local(table, mesh, [Replicate()] * n, run_check=False)
+    table = table.redistribute(mesh, placements(P(ctx.model_axis, None), mesh))
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * n, run_check=False)
+    tok_pl = list(tokens.placements)
+    tok_pl[m] = Replicate()
+    tokens = tokens.redistribute(mesh, tok_pl)
+    grad_pl = [Partial() if tp.is_shard() else p for tp, p in zip(tok_pl, table.placements)]
+    out = vocab_parallel_embed_shard(table.to_local(grad_placements=grad_pl),
+                                     tokens.to_local(), mesh.get_local_rank(m),
+                                     mesh.get_group(m))
+    return DTensor.from_local(out, mesh, tok_pl, run_check=False)
 
 
 def lm_logits(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    return h @ params["lm_head"].to(h.dtype)
+    return L.rows(h) @ params["lm_head"].to(h.dtype)
 
 
 def ce_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -249,7 +335,14 @@ def ce_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor) -> torc
         logits = torch.where(vmask, logits, -1e30)
     labels = labels.long()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    lab = torch.clamp(labels, min=0)
+    if is_dtensor(logits):
+        # the vocab dim may lie split over the model axis: the label's logit
+        # as a masked sum (one term, so exact), which a split dim allows
+        vocab = torch.arange(vpad, device=logits.device)
+        ll = torch.where(vocab == lab[..., None], logits, 0.0).sum(dim=-1)
+    else:
+        ll = torch.gather(logits, -1, lab[..., None])[..., 0]
     mask = (labels >= 0).float()
     return ((lse - ll) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
@@ -266,26 +359,57 @@ def _norm(cfg: ArchConfig, p, x):
 
 def _sp_constrain(ctx, h, cfg: ArchConfig | None = None):
     """The JAX package's sequence-parallel constraint on the residual stream
-    (batch x seq/TP x d between layers, under remat).  One card holds the
-    whole stream: accepted, ``h`` returned as it is."""
-    return h
+    (batch x seq/TP x d between layers, under remat), under its conditions:
+    ``cfg.seq_parallel``, a 3-d ``h`` and the sequence divisible by the
+    model axis.  On a ``DeviceMesh`` a ``redistribute``; on a shape mesh one
+    card holds the whole stream, and ``h`` is returned as it is."""
+    if not _on_cards(ctx) or h.ndim != 3 or (cfg is not None and not cfg.seq_parallel):
+        return h
+    if h.shape[1] % axis_size(ctx.mesh, ctx.model_axis):
+        return h
+    return _constrain(ctx, h, P(ctx.batch_spec, ctx.model_axis, None))
 
 
 def _moe_constrain(ctx):
     """The JAX package's expert-parallel constraints for the expert GEMMs
-    (``None`` without a ctx): the hook ``moe_apply`` takes, here returning
-    each tensor as it is (one card holds every expert)."""
+    (``None`` without a ctx), the hook ``moe_apply`` takes.  On a
+    ``DeviceMesh``: ``xe`` goes from token-sharded to expert-sharded over
+    ``"data"`` (an all-to-all, the EP dispatch), ``h`` expert- and
+    ff-sharded, ``ye`` back to token-sharded (the EP return).  Two
+    constraints back to back, as in the JAX package, whose docstring
+    records that one alone gathered the one-hots to global size.  On a
+    shape mesh one card holds every expert: each tensor as it is."""
     if ctx is None:
         return None
-    return lambda name, x: x
+    if not _on_cards(ctx):
+        return lambda name, x: x
+    pod = "pod" if "pod" in ctx.data_axes else None
+    g_shard = tuple(ctx.data_axes) if ctx.shard_batch else None
+    specs = {
+        "xe": [P(g_shard, None, None, None), P(pod, "data", None, None)],
+        "h": [P(pod, "data", None, ctx.model_axis)],
+        "ye": [P(pod, "data", None, None), P(g_shard, None, None, None)],
+    }
+
+    def constrain(name, x):
+        for spec in specs[name]:
+            x = _constrain(ctx, x, spec)
+        return x
+
+    return constrain
 
 
-def _checkpointed(fn):
+def _checkpointed(fn, ctx=None):
     """``fn`` rematerialised in the backward (the JAX package's
     ``jax.checkpoint``): autograd keeps its inputs and recomputes its
-    activations."""
+    activations, in ``ctx``'s :func:`_scope` wherever the backward runs."""
+    @functools.wraps(fn)
+    def scoped(*args):
+        with _scope(ctx):
+            return fn(*args)
+
     def run(*args):
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(scoped, *args, use_reentrant=False)
 
     return run
 
@@ -293,17 +417,30 @@ def _checkpointed(fn):
 def dense_block(cfg: ArchConfig, p: Params, h, positions, *, cache=None, cache_pos=None,
                 cache_mode="linear", q_chunk=None, ctx=None):
     """Pre-norm attention, then the MLP or (``cfg.moe``) the routed experts
-    -> (h, new cache or None, the MoE aux loss or 0)."""
+    -> (h, new cache or None, the MoE aux loss or 0).  On a ``DeviceMesh``
+    each branch's output takes the residual stream's placements before it
+    is added (:func:`_placed_like`)."""
     a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], h), attn_spec(cfg),
                                   positions=positions, kv_cache=cache, cache_pos=cache_pos,
                                   cache_mode=cache_mode, q_chunk=q_chunk)
-    h = h + a
+    h = h + _placed_like(a, h)
     m_in = _norm(cfg, p["ln2"], h)
     if cfg.moe is not None:
         mo, aux = moe_apply(p["moe"], m_in, cfg.moe, constrain=_moe_constrain(ctx))
     else:
         mo, aux = L.mlp_apply(p["mlp"], m_in, cfg.mlp), torch.zeros((), device=h.device)
-    return h + mo, new_cache, aux
+    return h + _placed_like(mo, h), new_cache, aux
+
+
+def _placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements where both are
+    ``DTensor`` objects that differ (a sequence-parallel residual: the
+    branch's sums are reduce-scattered over the sequence, and in the
+    backward the stream's gradient is gathered before the branch's last
+    matmul, which takes no split sequence); else ``x``."""
+    if is_dtensor(x) and is_dtensor(ref) and tuple(x.placements) != tuple(ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
 
 
 def shared_block(cfg: ArchConfig, p: Params, h, emb0, positions, *, cache=None,
@@ -331,6 +468,11 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
     while building a cache, except whisper's encoder layers, always; for
     zamba2 each group of mamba layers with its shared block, and within it
     each mamba layer."""
+    with _scope(ctx):
+        return _forward_seq(cfg, params, batch, ctx, want_cache, remat)
+
+
+def _forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx, want_cache, remat):
     build = want_cache is not None
     cap = _cache_capacity(cfg, want_cache) if build else 0
     if cfg.family == "encdec":
@@ -352,7 +494,7 @@ def forward_seq(cfg: ArchConfig, params: Params, batch: dict, ctx=None, *,
             h = _sp_constrain(ctx, h, cfg) if remat else h
             return h, aux_l
 
-        blk = _checkpointed(body) if remat and not build else body
+        blk = _checkpointed(body, ctx) if remat and not build else body
         ks, vs = [], []
         for lp in params["layers"]:
             if build:
@@ -403,7 +545,7 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
         h = h + a
         return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
 
-    eb = _checkpointed(enc_body) if remat else enc_body
+    eb = _checkpointed(enc_body, ctx) if remat else enc_body
     for lp in params["enc_layers"]:
         enc_h = eb(enc_h, lp)
     enc_h = _norm(cfg, params["enc_final_norm"], enc_h)
@@ -425,7 +567,7 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
         h = h + xa
         return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
 
-    db = _checkpointed(dec_body) if remat and not build_cache else dec_body
+    db = _checkpointed(dec_body, ctx) if remat and not build_cache else dec_body
     caches = {"k": [], "v": [], "ck": [], "cv": []}
     for lp in params["layers"]:
         if build_cache:
@@ -479,7 +621,7 @@ def _mamba_forward(cfg: ArchConfig, params: Params, h, positions, build_cache: b
         return _mamba_layer(cfg, lp, h, build_cache)
 
     ckpt = remat and not build_cache
-    mb = _checkpointed(mamba_body) if ckpt else mamba_body
+    mb = _checkpointed(mamba_body, ctx) if ckpt else mamba_body
 
     def group_body(h, lps):
         states = []
@@ -493,7 +635,7 @@ def _mamba_forward(cfg: ArchConfig, params: Params, h, positions, build_cache: b
         h, _ = shared_block(cfg, shared, h, emb0, positions, q_chunk=q_chunk)
         return h, states, kv
 
-    gb = _checkpointed(group_body) if ckpt else group_body
+    gb = _checkpointed(group_body, ctx) if ckpt else group_body
     layers = params["layers"]
     every = cfg.shared_attn_every if cfg.family == "hybrid" else 0
     n_groups = len(layers) // every if every else 0
@@ -528,8 +670,8 @@ def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
     spec = attn_spec(cfg)
     bsz, seq, dt = x.shape[0], x.shape[1], x.dtype
     kvh, dh = spec.n_kv_heads, spec.head_dim
-    k = (x @ attn_p["wk"].to(dt)).reshape(bsz, seq, kvh, dh)
-    v = (x @ attn_p["wv"].to(dt)).reshape(bsz, seq, kvh, dh)
+    k = L.whole_heads(L.rows(x) @ attn_p["wk"].to(dt), kvh).reshape(bsz, seq, kvh, dh)
+    v = L.whole_heads(L.rows(x) @ attn_p["wv"].to(dt), kvh).reshape(bsz, seq, kvh, dh)
     if spec.qk_norm:
         k = L.rms_norm(k, attn_p["k_norm"])
     if spec.rope is not None:
@@ -541,14 +683,17 @@ def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
 def _pack_cache(cfg: ArchConfig, kv: torch.Tensor, cap: int) -> torch.Tensor:
     """(B, S, KV, dh) -> (B, cap, KV, dh): zero slots after the sequence, or
     for a sliding window longer than ``cap`` the rolling layout, where slot
-    ``j`` holds the last position ``p < S`` with ``p % cap == j``."""
+    ``j`` holds the last position ``p < S`` with ``p % cap == j`` (on each
+    rank's shard, where one holds whole sequences)."""
+    return L.per_shard(lambda t: _pack_slots(cfg, t, cap), kv, dims=(1,))
+
+
+def _pack_slots(cfg: ArchConfig, kv: torch.Tensor, cap: int) -> torch.Tensor:
     seq = kv.shape[1]
     if cfg.window is None or seq <= cap:
         if seq == cap:
             return kv
-        out = torch.zeros((kv.shape[0], cap, *kv.shape[2:]), dtype=kv.dtype, device=kv.device)
-        out[:, :seq] = kv
-        return out
+        return torch.nn.functional.pad(kv, (0, 0, 0, 0, 0, cap - seq))
     j = torch.arange(cap, device=kv.device)
     return kv[:, seq - 1 - ((seq - 1 - j) % cap)]
 
@@ -596,7 +741,14 @@ def decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx=N
     (B, 1, d) and M-RoPE ``positions`` (3, B, 1).  Whisper's decoder adds
     ``pos_emb`` at ``pos`` (clamped to the table, as the JAX package's
     ``dynamic_slice``) and attends across to the cache's ``ck``/``cv``,
-    which it carries over as they are."""
+    which it carries over as they are.  On a ``DeviceMesh`` the cache is
+    placed by ``cache_pspecs`` (its slots split over the model axis) and
+    the new one comes back so placed."""
+    with _scope(ctx):
+        return _decode_step(cfg, params, cache, batch, ctx)
+
+
+def _decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx):
     pos = cache["pos"]
     h = _embed_input(cfg, params, batch, ctx)  # (B, 1, d)
     positions = batch.get("positions")
@@ -685,7 +837,7 @@ def _dp_size(ctx) -> int:
         return 1
     n = 1
     for a in ctx.data_axes:
-        n *= ctx.mesh.shape[a]
+        n *= axis_size(ctx.mesh, a)
     return n
 
 
@@ -707,19 +859,22 @@ def make_train_step(cfg: ArchConfig, ctx, optimizer, shape: ShapeCfg):
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
 
     def train_step(params, opt_state, batch):
+        with _scope(ctx):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         if accum == 1:
             (_, (loss, aux)), grads = value_and_grad(loss_fn, params, batch, has_aux=True)
         else:
             mbs = _split_microbatches(batch, accum)
             acc_dt = cdt if cfg.low_precision_opt else None
-            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=acc_dt or p.dtype,
-                                                  device=p.device), params)
-            lsum = asum = torch.zeros((), device=params["embed"].device)
+            gsum = tree_map(lambda p: torch.zeros_like(p, dtype=acc_dt or p.dtype), params)
+            lsum = asum = 0.0
             for i in range(accum):
                 (_, (l, a)), g = value_and_grad(
                     loss_fn, params, {k: v[i] for k, v in mbs.items()}, has_aux=True)
                 gsum = tree_map(lambda a_, g_: a_ + g_.to(a_.dtype), gsum, g)
-                lsum, asum = lsum + l, asum + a
+                lsum, asum = l + lsum, a + asum
             grads = tree_map(lambda g: g / accum, gsum)
             loss, aux = lsum / accum, asum / accum
         new_params, new_opt = optimizer.update(grads, opt_state, params)
@@ -734,39 +889,63 @@ def make_prefill_step(cfg: ArchConfig, ctx, shape: ShapeCfg):
     > 1`` the batch is prefilled as ``mb`` strided sub-batches (``v[i::mb]``,
     ``positions`` on its axis 1), and the logits and every cache leaf are
     interleaved back into the batch's order, as in the JAX package.  ``mb``
-    is clamped to the batch over the data axes."""
+    is clamped to the batch over the data axes.  On a ``DeviceMesh`` the
+    caches come out placed by ``cache_pspecs``, and a batch split over the
+    data axes is split on each rank's own rows (:func:`_strided`)."""
     mb = max(min(cfg.serve_microbatch.get(shape.name, 1), shape.batch // max(_dp_size(ctx), 1)),
              1)
+    specs = None
+    if _on_cards(ctx):
+        n_dp = math.prod(axis_size(ctx.mesh, a) for a in ctx.data_axes)
+        specs = cache_pspecs(cfg, shape, "pod" in ctx.data_axes, n_dp)
 
     def one(params, batch):
         h, _, caches = forward_seq(cfg, params, batch, ctx, want_cache=shape)
         return lm_logits(cfg, params, h[:, -1:, :]), caches
 
-    if mb == 1:
-        return one
-
-    def prefill_step(params, batch):
-        outs = []
-        for i in range(mb):
-            sub = {}
-            for k, v in batch.items():
-                sl = [slice(None)] * v.ndim
-                sl[_BATCH_AXIS.get(k, 0)] = slice(i, None, mb)
-                sub[k] = v[tuple(sl)]
-            outs.append(one(params, sub))
-        # merged[j * mb + i] = outs[i][j]
-        logits = torch.stack([o[0] for o in outs], dim=1)
-        logits = logits.reshape(-1, *logits.shape[2:])
-        caches = {}
-        for k, v in outs[0][1].items():
-            if k == "pos":
-                caches[k] = v
-            else:
-                st = torch.stack([o[1][k] for o in outs], dim=2)  # the batch is axis 1
-                caches[k] = st.reshape(st.shape[0], -1, *st.shape[3:])
+    def place(logits, caches):
+        if specs is not None:
+            caches = {k: v if k == "pos" else _constrain(ctx, v, specs[k])
+                      for k, v in caches.items()}
         return logits, caches
 
+    def prefill_step(params, batch):
+        with _scope(ctx):
+            if mb == 1:
+                return place(*one(params, batch))
+            outs = [one(params, {k: _strided(v, _BATCH_AXIS.get(k, 0), i, mb)
+                                 for k, v in batch.items()}) for i in range(mb)]
+            # merged[j * mb + i] = outs[i][j]; a cache leaf's batch is axis 1
+            caches = {k: v if k == "pos" else _interleave([o[1][k] for o in outs], 1)
+                      for k, v in outs[0][1].items()}
+            return place(_interleave([o[0] for o in outs], 0), caches)
+
     return prefill_step
+
+
+def _strided(x, ax: int, i: int, mb: int):
+    """``x``'s rows ``i::mb`` along ``ax``.  A ``DTensor`` split along
+    ``ax`` into shards whose rows divide by ``mb`` takes them from its local
+    rows: they are the global sub-batch's own shard (and ``torch.stack``
+    then ``reshape`` interleave such shards back where they came from)."""
+    sl = [slice(None)] * x.ndim
+    sl[ax] = slice(i, None, mb)
+    if is_dtensor(x):
+        n = 1
+        for p, size in zip(x.placements, x.device_mesh.shape):
+            n *= size if p.is_shard(ax) else 1
+        if n > 1 and x.shape[ax] % (n * mb) == 0:
+            from torch.distributed.tensor import DTensor
+
+            return DTensor.from_local(x.to_local()[tuple(sl)], x.device_mesh, x.placements,
+                                      run_check=False)
+    return x[tuple(sl)]
+
+
+def _interleave(parts: list, ax: int):
+    """``merged[j * mb + i] = parts[i][j]`` along ``ax``, ``mb = len(parts)``."""
+    st = torch.stack(parts, dim=ax + 1)
+    return st.reshape(*st.shape[:ax], -1, *st.shape[ax + 2:])
 
 
 def make_serve_step(cfg: ArchConfig, ctx):

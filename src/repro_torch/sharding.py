@@ -12,9 +12,15 @@ Scheme (MaxText-style TP + ZeRO-3):
 * batch dims shard over (pod, data); KV caches and SSM states shard their
   sequence or head dims over ``model``.
 
-One card holds the whole model, so these specs place nothing: they are the
-record of where each leaf would live on the mesh (:func:`with_sharding`),
-and the dry-run divides each leaf's bytes by them.  The port keeps each
+On a ``torch.distributed`` ``DeviceMesh``
+(:func:`repro_torch.launch.mesh.init_card_mesh`) :func:`with_sharding`
+places each leaf by its spec as a ``DTensor`` (:func:`placements`: an
+entry naming a mesh axis shards that tensor dim over it, every other axis
+replicates), and each rank holds :func:`per_device_bytes` of the tree
+(:func:`local_bytes`).  On a :class:`~repro_torch.launch.mesh.Mesh`
+shape, one card holds the whole model and the specs place nothing: they
+are the record of where each leaf would live, and the dry-run divides each
+leaf's bytes by them.  The port keeps each
 layer as its own entry of ``params["layers"]`` (no leading layer axis), so
 a layer leaf's spec is the JAX package's without its leading ``None``; the
 rules go by leaf name and trailing rank, so this falls out.  The MoE expert
@@ -31,6 +37,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeCfg
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import axis_sizes, is_device_mesh
+from repro_torch.tree import is_dtensor
 
 __all__ = [
     "P",
@@ -39,11 +47,14 @@ __all__ = [
     "batch_pspecs",
     "cache_pspecs",
     "dp_size",
+    "is_dtensor",
+    "local_bytes",
     "map_with_path",
     "opt_pspecs",
     "param_pspecs",
     "param_spec",
     "per_device_bytes",
+    "placements",
     "spec_shards",
     "with_sharding",
 ]
@@ -168,7 +179,7 @@ def opt_pspecs(opt_struct: Any, params_specs: Any) -> Any:
 
 
 def dp_size(mesh) -> int:
-    return math.prod(size for name, size in mesh.shape.items() if name != "model")
+    return math.prod(size for name, size in axis_sizes(mesh).items() if name != "model")
 
 
 def batch_pspecs(cfg: ArchConfig, shape: ShapeCfg, multi_pod: bool, n_dp: int = 16) -> dict:
@@ -220,7 +231,7 @@ def cache_pspecs(cfg: ArchConfig, shape: ShapeCfg, multi_pod: bool, n_dp: int = 
 def spec_shards(spec: P, mesh) -> int:
     """How many pieces a leaf with ``spec`` is cut into on ``mesh``: the
     product of the sizes of every axis its entries name."""
-    sizes = mesh.shape
+    sizes = axis_sizes(mesh)
     n = 1
     for entry in spec:
         for a in (entry if isinstance(entry, tuple) else (entry,)):
@@ -243,6 +254,40 @@ def per_device_bytes(tree: Any, specs: Any, mesh) -> float:
     return total
 
 
+def local_bytes(tree: Any) -> int:
+    """The bytes this rank holds of ``tree``: a ``DTensor`` leaf's local
+    shard, any other tensor whole."""
+    total = 0
+
+    def add(path, leaf):
+        nonlocal total
+        if is_dtensor(leaf):
+            leaf = leaf.to_local()
+        if isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+
+    map_with_path(add, tree)
+    return total
+
+
+def placements(spec: P, mesh) -> list:
+    """``spec`` as ``DTensor`` placements on the ``DeviceMesh`` ``mesh``,
+    one per mesh dim: ``Shard(d)`` on each mesh dim that entry ``d`` names
+    (alone or in a tuple), ``Replicate()`` on every other."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            if a is None:
+                continue
+            if a not in names:
+                raise ValueError(f"{spec} names axis {a!r}, the mesh has {names}")
+            out[names.index(a)] = Shard(d)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Where a leaf lives: on one card, ``device``; ``spec`` and ``mesh``
@@ -254,8 +299,26 @@ class Placement:
 
 
 def with_sharding(mesh, tree: Any, specs: Any, device=None) -> Any:
-    """A :class:`Placement` for each leaf of ``tree`` (``specs`` has its
-    structure, a :class:`P` per leaf): the device (``None`` = the card),
-    plus its spec for the record."""
-    dev = resolve_device(device)
-    return map_with_path(lambda path, leaf: Placement(dev, _at(specs, path), mesh), tree)
+    """``tree`` placed by ``specs`` (its structure, a :class:`P` per leaf).
+
+    On a ``DeviceMesh``: each tensor leaf as a ``DTensor`` on this rank's
+    device (``distribute_tensor``: every rank passes the same values, rank
+    0's are scattered), sharded by :func:`placements`; a ``meta`` leaf
+    stays on ``meta`` with its placements (the elastic restore's
+    target).  On a :class:`~repro_torch.launch.mesh.Mesh` shape: a
+    :class:`Placement` for each leaf, the device (``None`` = the card) plus
+    its spec for the record."""
+    if not is_device_mesh(mesh):
+        dev = resolve_device(device)
+        return map_with_path(lambda path, leaf: Placement(dev, _at(specs, path), mesh), tree)
+    from torch.distributed.tensor import distribute_tensor
+
+    dev = resolve_device(mesh.device_type)
+
+    def place(path, leaf):
+        if not isinstance(leaf, torch.Tensor):
+            return leaf
+        x = leaf.detach() if leaf.is_meta else leaf.detach().to(dev)
+        return distribute_tensor(x, mesh, placements(_at(specs, path), mesh))
+
+    return map_with_path(place, tree)

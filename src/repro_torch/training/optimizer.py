@@ -5,15 +5,24 @@ DLRM standard) and AdamW, as the JAX package writes them.
 alone; it runs under ``torch.no_grad()``.  State mirrors the parameter tree,
 and every walk over leaves follows :mod:`repro_torch.tree`'s order (the JAX
 package's), so AdamW's global norm sums the leaves in the same order.
+
+Parameters placed on a device mesh (``DTensor`` leaves,
+:func:`repro_torch.sharding.with_sharding`) get moments placed as they
+are (``opt_pspecs``: the moments mirror the parameters), the step counter
+and the scalars of the update count as replicated, and AdamW's global norm
+sums each leaf's square over its own placement into one replicated
+scalar.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import torch
 
-from repro_torch.tree import leaves, tree_map
+from repro_torch.tree import is_dtensor, leaves, plain_as_replicated, tree_map
 
 __all__ = ["Optimizer", "adagrad", "adamw", "sgd"]
 
@@ -23,6 +32,19 @@ class Optimizer:
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], tuple[Any, Any]]  # (grads, state, params)
     name: str = "opt"
+
+
+def _no_grad_on_mesh(update):
+    """``update`` under ``torch.no_grad()`` and, where the parameters are
+    ``DTensor`` objects, ``implicit_replication()`` (the counter and the
+    bias corrections are plain tensors)."""
+    @functools.wraps(update)
+    def run(grads, state, params):
+        on_mesh = any(is_dtensor(p) for p in leaves(params))
+        with torch.no_grad(), plain_as_replicated() if on_mesh else contextlib.nullcontext():
+            return update(grads, state, params)
+
+    return run
 
 
 def _step0(params) -> torch.Tensor:
@@ -38,7 +60,7 @@ def sgd(lr: float = 1e-2, momentum: float = 0.0) -> Optimizer:
             return {"mu": tree_map(torch.zeros_like, params), "step": _step0(params)}
         return {"step": _step0(params)}
 
-    @torch.no_grad()
+    @_no_grad_on_mesh
     def update(grads, state, params):
         if momentum:
             mu = tree_map(lambda m, g: momentum * m + g, state["mu"], grads)
@@ -56,7 +78,7 @@ def adagrad(lr: float = 1e-2, eps: float = 1e-10) -> Optimizer:
     def init(params):
         return {"acc": tree_map(torch.zeros_like, params), "step": _step0(params)}
 
-    @torch.no_grad()
+    @_no_grad_on_mesh
     def update(grads, state, params):
         acc = tree_map(lambda a, g: a + g * g, state["acc"], grads)
         new = tree_map(lambda p, g, a: p - lr * g / (torch.sqrt(a) + eps), params, grads, acc)
@@ -80,11 +102,11 @@ def adamw(
 
     def init(params):
         def z(p):
-            return torch.zeros(p.shape, dtype=moments_dtype or p.dtype, device=p.device)
+            return torch.zeros_like(p, dtype=moments_dtype or p.dtype)
 
         return {"m": tree_map(z, params), "v": tree_map(z, params), "step": _step0(params)}
 
-    @torch.no_grad()
+    @_no_grad_on_mesh
     def update(grads, state, params):
         step = state["step"] + 1
         if grad_clip is not None:

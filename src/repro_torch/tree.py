@@ -8,11 +8,51 @@ JAX package's ``jax.tree_util.tree_flatten`` gives the same tree.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable
 
 import torch
 
-__all__ = ["flatten", "leaves", "tree_map", "unflatten", "value_and_grad"]
+__all__ = ["flatten", "is_dtensor", "leaves", "plain_as_replicated", "tree_map", "unflatten",
+           "value_and_grad"]
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a ``torch.distributed`` ``DTensor`` (a leaf placed
+    on a device mesh)."""
+    if not isinstance(x, torch.Tensor) or not torch.distributed.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+# how deep plain_as_replicated() is nested: it mirrors DTensor's own flag,
+# which is global to the process, not to a caller
+_REPLICATED_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def plain_as_replicated():
+    """``DTensor``'s ``implicit_replication()`` (a plain tensor met by a
+    ``DTensor`` op counts as replicated), re-entrant: that context clears
+    its global flag on every exit, so here only the outermost exit does
+    (the model nests it: a step, its forward, a rematerialised layer)."""
+    if _REPLICATED_DEPTH[0]:
+        _REPLICATED_DEPTH[0] += 1
+        try:
+            yield
+        finally:
+            _REPLICATED_DEPTH[0] -= 1
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        _REPLICATED_DEPTH[0] = 1
+        try:
+            yield
+        finally:
+            _REPLICATED_DEPTH[0] = 0
 
 
 class _Leaf:
@@ -83,13 +123,23 @@ def value_and_grad(fn: Callable, tree: Any, *args, has_aux: bool = False):
     leaves are detached copies that require grad, so ``tree`` itself is not
     touched.  ``fn`` returns a scalar loss, or ``(loss, aux)`` with
     ``has_aux``; the returned values are detached.  A leaf the loss does
-    not read gets a zero gradient, as under ``jax.grad``."""
+    not read gets a zero gradient, as under ``jax.grad``.  A ``DTensor``
+    leaf's gradient comes back with the leaf's placements: where autograd
+    left it partial (a sum over the ranks of an axis that splits the batch
+    still owed), that sum is made here, the data-parallel reduction."""
     flat, treedef = flatten(tree)
     with torch.enable_grad():
         live = [x.detach().requires_grad_() for x in flat]
         out = fn(unflatten(treedef, live), *args)
         loss = out[0] if has_aux else out
         grads = torch.autograd.grad(loss, live, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for x, g in zip(live, grads)]
+    grads = [torch.zeros_like(x) if g is None else _placed_as(g, x) for x, g in zip(live, grads)]
     out = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor) else t, out)
     return out, unflatten(treedef, grads)
+
+
+def _placed_as(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``g`` with ``x``'s placements where both are ``DTensor`` objects."""
+    if is_dtensor(x) and is_dtensor(g) and tuple(g.placements) != tuple(x.placements):
+        return g.redistribute(x.device_mesh, x.placements)
+    return g

@@ -532,6 +532,49 @@ def test_partitioned_lookup_across_cards(cuda, tmp_path):
         torch.testing.assert_close(got[name], one.lookup(idx).cpu(), **TOL, msg=name)
 
 
+def _sharded_lm_one_card(rank, tmp):
+    """qwen3-smoke on a (1, 1) card mesh (NCCL, this process's card)."""
+    from test_torch_sharded_lm import QWEN, _case
+    from repro_torch.launch.mesh import init_card_mesh
+
+    _case("qwen3_1x1", rank, init_card_mesh(device_type="cuda"), tmp,
+          spec=(1, (1, 1), QWEN, "accum"))
+
+
+def test_sharded_lm_one_card_mesh(cuda, tmp_path):
+    """The DeviceMesh path on one card: qwen3-smoke (two accumulated
+    microbatches, two strided prefill sub-batches) with every leaf a
+    ``DTensor`` of a (1, 1) NCCL mesh, against the unsharded train step,
+    prefill and decode on the card: the loss and every gradient, the
+    prefill's logits and caches and each decode step's logits within
+    ``1e-5 * max(|ref|, 1)``; the local bytes equal ``per_device_bytes``."""
+    from test_torch_multicard import spawn
+    from test_torch_sharded_lm import QWEN, _cfg, _inputs, _run
+    from repro_torch.tree import leaves, tree_map
+
+    codes, errors = spawn(_sharded_lm_one_card, tmp_path, world=1, device="cuda",
+                          timeout_s=300)
+    assert codes == [0], errors
+    got = torch.load(tmp_path / "qwen3_1x1_0.pt", weights_only=False)
+    cfg = _cfg(QWEN, "accum")
+    want = _run(cfg, *tree_map(lambda x: x.to(cuda), _inputs(cfg)))
+
+    def close(a, b, what):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+        assert err <= 1e-5, (what, err)
+
+    close(got["loss"], want["loss"], "loss")
+    for a, b in zip(leaves(got["grads"]), leaves(want["grads"])):
+        close(a, b, "grad")
+    close(got["prefill"], want["prefill"], "prefill")
+    for key in want["cache"]:
+        close(got["cache"][key], want["cache"][key], key)
+    for t, (a, b) in enumerate(zip(got["decode"], want["decode"])):
+        close(a, b, f"decode {t}")
+    for what, (local, per_device) in got["bytes"].items():
+        assert local == per_device, (what, local, per_device)
+
+
 def _access_case(cuda, dtype, *, unique_cap, cache_rows, seed=4):
     """Two cores, every strategy code, padding steps, -1 and out-of-window
     ids, a spill-prone slot, hot lookups split off through ``hidx``."""
