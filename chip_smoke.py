@@ -244,19 +244,25 @@ X] <message>`` before it raises):
 
 9. the sharded LMs across cards, MC-LM: one NCCL rank per card, a
    ``ShardCtx`` over the card mesh and every leaf a ``DTensor`` placed by
-   the sharding rules; olmo-1b and granite-moe-3b-a800m at 4 layers and
-   their published widths in f32 on (1, 1) on one card, on (1, W), (W, 1)
-   and, on four, (2, 2) on W cards.  Each run: a train step's loss and
-   gradients, one AdamW step at 4 x 512 (remat on), a 4 x 256 prefill and
-   16 decode steps.  Gated against the same parameters and batches
-   unsharded on rank 0's card: the loss within 1e-5 relative, every
-   gradient leaf and the prefill's and each decode step's logits within
-   ``1e-5 * max(|ref|, 1)``; every rank's local bytes of the parameters,
-   AdamW's moments and the caches equal to ``per_device_bytes`` of their
-   specs (fewer parameter bytes than one card's on more than one card).
+   the sharding rules; every LM family at its published width in f32:
+   olmo-1b, granite-moe-3b-a800m, mamba2-780m and qwen2-vl-2b at 4 layers,
+   zamba2-1.2b at 7 (its shared block runs once) and whisper-small at 4
+   encoder and 4 decoder layers, on (1, 1) on one card, on (1, W), (W, 1)
+   and, on four, (2, 2) on W cards.  Each run, on its family's inputs
+   (``Bundle.make_batch``: token ids; frames beside token ids; embeds
+   with M-RoPE positions): a train step's loss and gradients, one AdamW
+   step at 4 x 512 (remat on), a 4 x 256 prefill and 16 decode steps.
+   Gated against the same parameters and batches unsharded on rank 0's
+   card: the loss within 1e-5 relative, every gradient leaf and the
+   prefill's and each decode step's logits within ``1e-5 * max(|ref|,
+   1)``; every rank's local bytes of the parameters, AdamW's moments and
+   the caches equal to ``per_device_bytes`` of their specs (fewer
+   parameter bytes than one card's on more than one card); on a mesh with
+   no data split, at most two all-gathers a layer in a mamba2 decode step.
    Recorded per rank: step, prefill and decode-per-token times (host
-   clock around synchronized work), peak allocated memory beside one
-   card's, and whether each gate held bitwise.
+   clock around synchronized work), the all-gathers of one train step
+   and one decode step (``CommDebugMode``), peak allocated memory beside
+   one card's, and whether each gate held bitwise.
 
 ``--phases`` runs a subset after the build (``main`` is paths A-E and the
 kernel phase; e.g. ``--phases MC`` or ``--phases MC-LM`` on four cards).  The last line is
@@ -2869,14 +2875,18 @@ def moe_drops():
         T.moe_apply = orig
 
 
-def _lm_cut(arch: str, layers: int):
-    """``arch``'s published config at ``layers`` layers in f32, and the
-    ``reduced`` record of the cut."""
+def _lm_cut(arch: str, layers: int, enc_layers: int | None = None):
+    """``arch``'s published config at ``layers`` layers (and an encoder's
+    at ``enc_layers``) in f32, and the ``reduced`` record of the cut."""
     from repro_torch.models import registry
 
     full = registry.build(arch).cfg
-    return (dataclasses.replace(full, n_layers=layers, compute_dtype="float32"),
-            {"n_layers": [full.n_layers, layers]})
+    cfg = dataclasses.replace(full, n_layers=layers, compute_dtype="float32")
+    reduced = {"n_layers": [full.n_layers, layers]}
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, enc_layers=enc_layers)
+        reduced["enc_layers"] = [full.enc_layers, enc_layers]
+    return cfg, reduced
 
 
 def _rel(got, want) -> float:
@@ -3461,8 +3471,12 @@ def multicard_path() -> dict:
 # sharded LMs across cards (MC-LM)
 # --------------------------------------------------------------------------
 
-# label -> (arch, layers kept): each at its published width in f32
-MC_LM = {"olmo": ("olmo-1b", 4), "granite": ("granite-moe-3b-a800m", 4)}
+# label -> (arch, layers kept[, encoder layers kept]): each at its published
+# width in f32; zamba2's 7 run its shared block (every 6th) once
+MC_LM = {"olmo": ("olmo-1b", 4), "granite": ("granite-moe-3b-a800m", 4),
+         "mamba2": ("mamba2-780m", 4), "zamba2": ("zamba2-1.2b", 7),
+         "whisper": ("whisper-small", 4, 4), "qwen2vl": ("qwen2-vl-2b", 4)}
+MC_LM_GATHERS_A_LAYER = 2  # a mamba decode step: the projection's output and the conv's
 MC_LM_TRAIN, MC_LM_PREFILL, MC_LM_DECODE = (4, 512), (4, 256), 16
 MC_LM_TOL = 1e-5
 
@@ -3476,18 +3490,24 @@ def mc_lm_meshes(world: int) -> list:
 
 
 def _mc_lm_inputs(cfg, device) -> tuple:
-    """The train batch, the prefill prompt and the decode tokens, drawn on
-    ``device`` from seed 1 (the same on every rank)."""
+    """The train batch, the prefill prompt and the decode steps' batches of
+    ``cfg``'s input kind (``Bundle.make_batch`` at the train, prompt and
+    decode shapes), drawn on ``device`` from seed 1 (the same on every
+    rank)."""
     import torch
 
-    g = torch.Generator(device).manual_seed(1)
-    (b, s), (pb, ps) = MC_LM_TRAIN, MC_LM_PREFILL
+    from repro_torch.configs.base import ShapeCfg
+    from repro_torch.models import registry
 
-    def ids(*shape):
-        return torch.randint(0, cfg.vocab, shape, generator=g, dtype=torch.int32, device=device)
+    bundle, g = registry.Bundle(cfg), torch.Generator(device).manual_seed(1)
+    shape_t, _, shape_d = _mc_lm_shapes()
+    pb, ps = MC_LM_PREFILL
 
-    return {"tokens": ids(b, s), "labels": ids(b, s)}, {"tokens": ids(pb, ps)}, ids(pb,
-                                                                                    MC_LM_DECODE)
+    def draw(shape):
+        return bundle.make_batch(shape, g, act_dtype=torch.float32)
+
+    return (draw(shape_t), draw(ShapeCfg("mc-lm", "prefill", ps, pb)),
+            [draw(shape_d) for _ in range(MC_LM_DECODE)])
 
 
 def _mc_lm_shapes():
@@ -3507,13 +3527,21 @@ def _grads_only():
     return Optimizer(lambda p: {}, lambda g, state, p: (g, state), "grads")
 
 
+def _all_gathers(counts: dict) -> int:
+    """The all-gathers among ``CommDebugMode``'s collective counts (the
+    functional ``all_gather_into_tensor`` and c10d's ``allgather_``)."""
+    return sum(n for op, n in counts.items() if "allgather" in str(op).replace("_", ""))
+
+
 def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) -> dict:
     """Loss and gradients of one train step, one AdamW step, the prefill's
     logits and caches and each decode step's logits, every input placed by
     ``place`` first.  Timed by the host clock around synchronized work:
     the AdamW step (the second step of the run), a second prefill and the
-    decode steps after the first."""
+    decode steps after the first.  The all-gathers of the first train
+    step and the first decode step are counted (``CommDebugMode``)."""
     import torch
+    from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch import sharding as sh
     from repro_torch.models import transformer as T
@@ -3521,13 +3549,15 @@ def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) ->
 
     shape_t, shape_p, shape_d = _mc_lm_shapes()
     n_dp = sh.dp_size(ctx.mesh) if ctx is not None else 1
-    train, prompt, nxt = inputs
+    train, prompt, steps = inputs
     params = place(params, sh.param_pspecs(params, False))
     train = place(train, sh.batch_pspecs(cfg, shape_t, False, n_dp))
     prompt = place(prompt, sh.batch_pspecs(cfg, shape_p, False, n_dp))
-    tok_spec = sh.batch_pspecs(cfg, shape_d, False, n_dp)
-    out = {"params": params}
-    grads, _, m = T.make_train_step(cfg, ctx, _grads_only(), shape_t)(params, {}, train)
+    steps = [place(b, sh.batch_pspecs(cfg, shape_d, False, n_dp)) for b in steps]
+    out = {"params": params, "gathers": {}}
+    with CommDebugMode() as comm:
+        grads, _, m = T.make_train_step(cfg, ctx, _grads_only(), shape_t)(params, {}, train)
+    out["gathers"]["train"] = _all_gathers(comm.get_comm_counts())
     out.update(loss=m["loss"], grads=grads)
     opt = adamw(3e-4)
     state = opt.init(params)
@@ -3545,11 +3575,14 @@ def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) ->
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     serve, c, out["decode"] = T.make_serve_step(cfg, ctx), out["cache"], []
-    for t in range(MC_LM_DECODE):
+    for t, batch in enumerate(steps):
         if t == 1:  # the steps after the first, warm
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-        lg, c = serve(params, c, place({"tokens": nxt[:, t:t + 1]}, tok_spec))
+        with CommDebugMode() if t == 0 else contextlib.nullcontext() as comm:
+            lg, c = serve(params, c, batch)
+        if t == 0:
+            out["gathers"]["decode"] = _all_gathers(comm.get_comm_counts())
         out["decode"].append(lg)
     torch.cuda.synchronize()
     out["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / (MC_LM_DECODE - 1)
@@ -3573,8 +3606,8 @@ def _mc_lm_case(label: str, meshes: list) -> list:
     from repro_torch.tree import leaves
 
     rank = dist.get_rank()
-    arch, layers = MC_LM[label]
-    cfg, reduced = _lm_cut(arch, layers)
+    arch, *layers = MC_LM[label]
+    cfg, reduced = _lm_cut(arch, *layers)
     dev = resolve_device(DEVICE)
     params = registry.Bundle(cfg).init(torch.Generator(dev).manual_seed(0))
     inputs = _mc_lm_inputs(cfg, dev)
@@ -3585,21 +3618,24 @@ def _mc_lm_case(label: str, meshes: list) -> list:
         ref = _mc_lm_run(cfg, params, inputs)
         one_card = {k: ref.pop(k) for k in ("step_ms", "prefill_ms", "decode_ms_per_token")}
         one_card["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        for k in ("params", "new_params", "state", "cache", "cache_out"):
+        for k in ("params", "new_params", "state", "cache", "cache_out", "gathers"):
             ref.pop(k)
         torch.cuda.empty_cache()
     recs = []
     for data, model in meshes:
         dist.barrier()
+        t_case = time.perf_counter()
         mesh = init_card_mesh(data, model, device_type=DEVICE)
         ctx = make_ctx(mesh, shape_t, False)
         torch.cuda.reset_peak_memory_stats()
         got = _mc_lm_run(cfg, params, inputs, ctx,
                          lambda tree, specs: sh.with_sharding(mesh, tree, specs))
-        rec = {"mc_lm": label, "arch": arch, "mesh": [data, model], "rank": rank,
-               "reduced": reduced, "one_card": one_card, "shard_batch": ctx.shard_batch,
+        rec = {"mc_lm": label, "arch": arch, "family": cfg.family, "mesh": [data, model],
+               "rank": rank, "n_layers": cfg.n_layers, "reduced": reduced,
+               "one_card": one_card, "shard_batch": ctx.shard_batch,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               **{k: got[k] for k in ("step_ms", "prefill_ms", "decode_ms_per_token")}}
+               **{k: got[k] for k in ("step_ms", "prefill_ms", "decode_ms_per_token",
+                                      "gathers")}}
         pspecs = sh.param_pspecs(got["params"], False)
         moments = {"m": got["state"]["m"], "v": got["state"]["v"]}
         cspecs = sh.cache_pspecs(cfg, shape_d, False, sh.dp_size(mesh))
@@ -3638,6 +3674,7 @@ def _mc_lm_case(label: str, meshes: list) -> list:
             rec.update(loss=loss, loss_ref=want, loss_rel_err=abs(loss - want) / abs(want),
                        loss_bitwise=loss == want, max_rel_err=errs, bitwise=bitwise,
                        finite=finite)
+        rec["case_s"] = time.perf_counter() - t_case
         recs.append(rec)
         del got
         torch.cuda.empty_cache()
@@ -3689,24 +3726,27 @@ def _spawn_ranks(label: str, fn, world: int, *args) -> list:
 
 
 def multicard_lm_path() -> dict:
-    """MC-LM: the dense and MoE LM families sharded across the job's cards,
-    one NCCL rank per card (``torch.cuda.device_count()``), a ``ShardCtx``
-    over the card mesh and every leaf placed by the sharding rules
-    (``DTensor``): olmo-1b and granite-moe-3b-a800m at 4 layers and their
-    published widths in f32, on each mesh of ``mc_lm_meshes``.  Each run:
-    one train step's loss and gradients (``value_and_grad``), one AdamW
-    step at 4 x 512 (remat on), a 4 x 256 prefill and 16 decode steps.
-    Gated against the same parameters and batches unsharded on rank 0's
-    card: the loss within 1e-5 relative, every gradient leaf, the
-    prefill's and every decode step's logits within ``1e-5 * max(|ref|,
-    1)``; on every rank the local bytes of the parameters (before and
-    after the step), AdamW's moments and the caches (after prefill and
-    after decode) equal to ``per_device_bytes`` of their specs, and on
-    more than one card fewer parameter bytes than one card holds.
-    Recorded per rank: the step's, prefill's and decode's times per token
-    (host clock around synchronized work, each after a first call of the
-    same shapes), the peak allocated memory beside one card's, and whether
-    each gate held bitwise."""
+    """MC-LM: every LM family sharded across the job's cards, one NCCL rank
+    per card (``torch.cuda.device_count()``), a ``ShardCtx`` over the card
+    mesh and every leaf placed by the sharding rules (``DTensor``): each
+    model of ``MC_LM`` at its published width in f32, on each mesh of
+    ``mc_lm_meshes``.  Each run: one train step's loss and gradients
+    (``value_and_grad``), one AdamW step at 4 x 512 (remat on), a 4 x 256
+    prefill and 16 decode steps.  Gated against the same parameters and
+    batches unsharded on rank 0's card: the loss within 1e-5 relative,
+    every gradient leaf, the prefill's and every decode step's logits
+    within ``1e-5 * max(|ref|, 1)``; on every rank the local bytes of the
+    parameters (before and after the step), AdamW's moments and the caches
+    (after prefill and after decode) equal to ``per_device_bytes`` of
+    their specs, and on more than one card fewer parameter bytes than one
+    card holds; a mamba2 decode step on a mesh with no data split at most
+    ``MC_LM_GATHERS_A_LAYER`` all-gathers a layer (with a data split the
+    ZeRO-3 gathers of ``in_proj`` and ``out_proj`` add two).  Recorded per
+    rank: the step's, prefill's and decode's times per token (host clock
+    around synchronized work, each after a first call of the same shapes),
+    the all-gathers of one train step and one decode step, the peak
+    allocated memory beside one card's, and whether each gate held
+    bitwise; per model and mesh, rank 0's seconds."""
     import torch
 
     world = torch.cuda.device_count()
@@ -3727,14 +3767,21 @@ def multicard_lm_path() -> dict:
                       f"{name}, its specs {per_device}")
             check(world == 1 or r["bytes"]["params"][0] < r["whole_param_bytes"],
                   f"{tag} rank {r['rank']} holds every parameter")
+            if r["family"] == "ssm" and lead["mesh"][0] == 1:
+                check(r["gathers"]["decode"] <= MC_LM_GATHERS_A_LAYER * r["n_layers"],
+                      f"{tag} rank {r['rank']}: {r['gathers']['decode']} all-gathers in a "
+                      f"decode step of {r['n_layers']} mamba layers")
         print(json.dumps({
-            "mc_lm": lead["mc_lm"], "arch": lead["arch"], "mesh": lead["mesh"],
+            "mc_lm": lead["mc_lm"], "arch": lead["arch"], "family": lead["family"],
+            "mesh": lead["mesh"],
             "world": world, "reduced": lead["reduced"], "loss": lead["loss"],
             "loss_rel_err": lead["loss_rel_err"], "loss_bitwise": lead["loss_bitwise"],
             "max_rel_err": lead["max_rel_err"], "bitwise": lead["bitwise"],
             "one_card": lead["one_card"], "whole_param_bytes": lead["whole_param_bytes"],
+            "case_s": lead["case_s"],
             "per_rank": [{k: r[k] for k in ("rank", "step_ms", "prefill_ms",
-                                            "decode_ms_per_token", "peak_gb", "bytes")}
+                                            "decode_ms_per_token", "gathers", "peak_gb",
+                                            "bytes")}
                          for r in recs]}), flush=True)
     return {}
 

@@ -14,11 +14,13 @@ fused attention kernel is used.  :func:`attention` is the scenario towers' entry
 non-causal, rope-free, uncached case); :func:`lm_attention` is the LM's.
 
 The LM layers also take ``DTensor`` activations and caches (a sharded LM
-on a ``DeviceMesh``): matmuls take :func:`rows`, heads stay whole
+on a ``DeviceMesh``): matmuls take :func:`rows` and :func:`tp_weight`
+(each weight whole over the data axes), heads stay whole
 (:func:`whole_heads`), row-wise work and the attention core run on each
 rank's local shard (:func:`per_shard`, :func:`_per_shard_heads`), and a
 cache whose slots lie split over a mesh axis is written and read
-rank-locally (:func:`_cache_attend_split`).
+rank-locally (:func:`_cache_attend_split`; a given cross-attention cache
+is only read).
 """
 from __future__ import annotations
 
@@ -49,6 +51,7 @@ __all__ = [
     "rms_norm",
     "rope_inv_freq",
     "sinusoidal_positions",
+    "tp_weight",
     "whole_heads",
 ]
 
@@ -158,6 +161,22 @@ def rows(x: torch.Tensor) -> torch.Tensor:
     pl = [Replicate() if p.is_partial() or any(p.is_shard(d) for d in range(1, x.ndim - 1))
           else p for p in x.placements]
     return x if pl == list(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+def tp_weight(w: torch.Tensor) -> torch.Tensor:
+    """A weight as a matmul takes it: a ``DTensor`` whole over every mesh
+    dim but ``"model"``, the tensor-parallel split it keeps (ZeRO-3's
+    gather of a weight split over the data axes, made here: left to
+    ``DTensor``, a wide weight's product can come out owing a sum over
+    the data axes, whose backward some torch versions cannot place).  Any
+    other tensor as it is."""
+    if not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate
+
+    names = w.device_mesh.mesh_dim_names
+    pl = [p if names[i] == "model" else Replicate() for i, p in enumerate(w.placements)]
+    return w if pl == list(w.placements) else w.redistribute(w.device_mesh, pl)
 
 
 def make_norm(kind: str, d: int):
@@ -391,11 +410,11 @@ def lm_attention(
     h, kvh, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
     dt = x.dtype
     cross = kv_x is not None or precomputed_kv is not None
-    q = whole_heads(rows(x) @ params["wq"].to(dt), kvh).reshape(b, sq, h, dh)
+    q = whole_heads(rows(x) @ tp_weight(params["wq"]).to(dt), kvh).reshape(b, sq, h, dh)
     if precomputed_kv is None:
         src = x if kv_x is None else kv_x
-        k = whole_heads(rows(src) @ params["wk"].to(dt), kvh).reshape(b, src.shape[1], kvh, dh)
-        v = whole_heads(rows(src) @ params["wv"].to(dt), kvh).reshape(b, src.shape[1], kvh, dh)
+        k, v = (whole_heads(rows(src) @ tp_weight(params[w]).to(dt), kvh)
+                .reshape(b, src.shape[1], kvh, dh) for w in ("wk", "wv"))
     if spec.qk_norm:
         q = rms_norm(q, params["q_norm"])
         if precomputed_kv is None:
@@ -411,6 +430,10 @@ def lm_attention(
     causal, window = spec.causal and not cross, spec.window
     if precomputed_kv is not None:
         k, v = precomputed_kv
+        if _slot_split(k) is not None:  # given K/V split over a mesh axis (a cross cache)
+            out, _ = _cache_attend_split(q, None, None, k, v, 0, kvh=kvh, causal=False,
+                                         window=None, kv_valid=None, base=0)
+            return rows(out.to(dt)) @ tp_weight(params["wo"]).to(dt), None
     elif kv_cache is not None:
         if cache_pos is None:
             raise ValueError("kv_cache needs cache_pos")
@@ -428,7 +451,7 @@ def lm_attention(
             out, new_cache = _cache_attend_split(
                 q, k, v, ck, cv, slot, kvh=kvh, causal=causal, window=window,
                 kv_valid=kv_valid, base=cache_pos)
-            return rows(out.to(dt)) @ params["wo"].to(dt), new_cache
+            return rows(out.to(dt)) @ tp_weight(params["wo"]).to(dt), new_cache
         ck, cv = ck.clone(), cv.clone()
         ck[:, slot:slot + sq] = k.to(ck.dtype)
         cv[:, slot:slot + sq] = v.to(cv.dtype)
@@ -459,7 +482,7 @@ def lm_attention(
         return out.reshape(bl, sq, hl * dh)
 
     out = _per_shard_heads(attend_all, q, k, v).to(dt)
-    return rows(out) @ params["wo"].to(dt), new_cache
+    return rows(out) @ tp_weight(params["wo"]).to(dt), new_cache
 
 
 def whole_heads(t: torch.Tensor, n_kv: int) -> torch.Tensor:
@@ -517,30 +540,34 @@ def _slot_split(cache: torch.Tensor) -> int | None:
 
 
 def _cache_attend_split(q, k, v, ck, cv, slot: int, *, kvh: int, causal: bool, window,
-                        kv_valid: int, base: int):
+                        kv_valid: int | None, base: int):
     """Attention against a cache whose slots a mesh axis splits
     (``cache_pspecs``' ``P(None, b, model, None, None)``), flash-decoding
     style: q, k and v are replicated over that axis; each rank writes the
-    new K/V into the slots it holds (the others write nothing), scores its
-    own slots, and the ranks' partial softmaxes meet by their log-sum-exp:
-    the axis's max, then one sum of each rank's ``exp(s - max)`` and its
-    products with V.  Each term equals one card's; only the sums' order
-    differs.  -> (out (B, Sq, H * dh) placed as the cache's batch, (ck, cv)
-    new, placed as the old)."""
+    new K/V into the slots it holds (the others write nothing; with ``k``
+    and ``v`` ``None``, a cross cache given as it is, nothing is written),
+    scores its own slots, and the ranks' partial softmaxes meet by their
+    log-sum-exp: the axis's max, then one sum of each rank's ``exp(s -
+    max)`` and its products with V.  Each term equals one card's; only the
+    sums' order differs.  -> (out (B, Sq, H * dh) placed as the cache's
+    batch, (ck, cv) new, placed as the old)."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor, Replicate
 
     mesh, ax = ck.device_mesh, _slot_split(ck)
     group = mesh.get_group(ax)
     pl = [Replicate() if i == ax else p for i, p in enumerate(ck.placements)]
-    q_l, k_l, v_l = (_local_as(t, mesh, pl) for t in (q, k, v))
-    ck_l, cv_l = ck.to_local().clone(), cv.to_local().clone()
+    q_l = _local_as(q, mesh, pl)
+    ck_l, cv_l = ck.to_local(), cv.to_local()
     b, sq, h, dh = q_l.shape
     smax = ck.shape[1]
     off = mesh.get_local_rank(ax) * -(-smax // mesh.size(ax))  # torch.chunk's split
     n = ck_l.shape[1]
     lo, hi = max(slot, off), min(slot + sq, off + n)
-    if lo < hi:
+    if k is not None:
+        k_l, v_l = _local_as(k, mesh, pl), _local_as(v, mesh, pl)  # collectives: every rank
+        ck_l, cv_l = ck_l.clone(), cv_l.clone()
+    if k is not None and lo < hi:
         ck_l[:, lo - off:hi - off] = k_l[:, lo - slot:hi - slot].to(ck_l.dtype)
         cv_l[:, lo - off:hi - off] = v_l[:, lo - slot:hi - slot].to(cv_l.dtype)
 
@@ -594,9 +621,10 @@ def mlp_apply(params: Params, x: torch.Tensor, kind: str = "swiglu") -> torch.Te
     dt = x.dtype
     if kind == "swiglu":
         x = rows(x)
-        h = F.silu(x @ params["wg"].to(dt)) * (x @ params["wi"].to(dt))
-        return rows(h) @ params["wo"].to(dt)
+        h = F.silu(x @ tp_weight(params["wg"]).to(dt)) * (x @ tp_weight(params["wi"]).to(dt))
+        return rows(h) @ tp_weight(params["wo"]).to(dt)
     if kind == "gelu":
-        h = F.gelu(x @ params["wi"].to(dt) + params["bi"].to(dt), approximate="tanh")
-        return h @ params["wo"].to(dt) + params["bo"].to(dt)
+        h = F.gelu(rows(x) @ tp_weight(params["wi"]).to(dt) + params["bi"].to(dt),
+                   approximate="tanh")
+        return rows(h) @ tp_weight(params["wo"]).to(dt) + params["bo"].to(dt)
     raise ValueError(f"unknown mlp {kind!r}")

@@ -8,6 +8,16 @@ Python loop over the chunks computes the same recurrence with the same
 segment sums.  ``mamba_apply(..., state=...)`` also returns the final
 state (the raw last ``d_conv - 1`` conv inputs and the SSD state), and
 :func:`mamba_decode_step` advances it one token at a time.
+
+Both also take a ``DTensor`` input (a sharded LM on a ``DeviceMesh``, the
+parameters placed by the sharding rules: ``in_proj`` and the conv's
+channels split over ``"model"``): the projection's output is gathered
+once over the model axis, each rank runs the conv on its own channels
+(those of its cache's ``conv`` state), the conv's output is gathered
+once, and each rank runs the SSD, the gated norm and ``out_proj``'s rows
+on its own heads (those of its cache's ``ssm`` state), the norm's mean
+square summed over the axis (:class:`_Split`).  Every other op runs on
+each rank's local tensors.
 """
 from __future__ import annotations
 
@@ -16,7 +26,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, _device_of, dense_init
+from repro_torch.models.layers import Params, _device_of, _local_as, dense_init, rows, tp_weight
+from repro_torch.tree import is_dtensor
 
 __all__ = ["MambaSpec", "mamba_apply", "mamba_decode_step", "mamba_init", "mamba_init_state"]
 
@@ -67,10 +78,187 @@ def _split_proj(zxbcdt: torch.Tensor, spec: MambaSpec):
     return z, x, b, c, dt
 
 
-def _gated_rmsnorm(x, z, scale, eps=1e-6):
+class _Whole:
+    """The whole mixer in this process (a plain input): every hook is the
+    identity, so the ops are the one-card ones."""
+
+    size = 1
+
+    def enter(self, t):
+        return t
+
+    def gather(self, t, dim):
+        return t
+
+    def sum(self, t):
+        return t
+
+    def param(self, p, heads=False):
+        return p
+
+    def take(self, t, dim, what):
+        return t
+
+    def out(self, t, dim):
+        return t
+
+    def local(self, t, dim):
+        return t
+
+
+class _Split:
+    """One rank's part of the mixer on a ``DeviceMesh`` (``u`` a
+    ``DTensor``): the batch stays split as ``u``'s is over the data axes;
+    over ``"model"`` (``size`` ranks) this rank holds the conv channels
+    and the heads of its index, contiguous and equal as ``Shard`` cuts
+    them.  The hooks move tensors between ``DTensor`` placements and this
+    rank's local tensors, and run the mixer's own collectives on those
+    (:class:`_Gather`, :class:`_Sum`): a local tensor's gradient is whole
+    on every rank that holds it, as a ``DTensor``'s placements promise."""
+
+    def __init__(self, u, spec: MambaSpec):
+        from torch.distributed.tensor import Replicate
+
+        self.mesh = u.device_mesh
+        self.m = self.mesh.mesh_dim_names.index("model")
+        self.size = self.mesh.size(self.m)
+        self.group = self.mesh.get_group(self.m)
+        r = self.mesh.get_local_rank(self.m)
+        conv_dim = spec.d_inner + 2 * spec.n_groups * spec.d_state
+        for what, n in (("heads", spec.n_heads), ("conv channels", conv_dim)):
+            if n % self.size:
+                raise ValueError(f"{n} {what} do not split over a model axis of {self.size}")
+        self.slices = {"heads": _chunk(spec.n_heads, self.size, r),
+                       "di": _chunk(spec.d_inner, self.size, r),
+                       "chans": _chunk(conv_dim, self.size, r)}
+        self.batch = [Replicate() if i == self.m or not p.is_shard(0) else p
+                      for i, p in enumerate(u.placements)]
+        # a parameter's gradient sums over every axis that splits the batch
+        self.batch_groups = [self.mesh.get_group(i) for i, p in enumerate(self.batch)
+                             if p.is_shard()]
+
+    def _pl(self, model):
+        pl = list(self.batch)
+        pl[self.m] = model
+        return pl
+
+    def enter(self, t):
+        """A ``DTensor`` split over the model axis on its last dim -> this
+        rank's rows of it, whole (one all-gather)."""
+        return self.gather(self.local(t, -1), -1)
+
+    def gather(self, t, dim):
+        """This rank's shard along ``dim`` -> the whole (one all-gather)."""
+        return _Gather.apply(t, self.group, dim % t.ndim)
+
+    def sum(self, t):
+        """Each rank's partial sum -> the sum over the model axis."""
+        return _Sum.apply(t, [self.group], False)
+
+    def param(self, p, heads=False):
+        """A parameter's local shard (whole over the data axes), or with
+        ``heads`` this rank's heads of a replicated (H,) one."""
+        from torch.distributed.tensor import Replicate
+
+        pl = [Replicate()] * self.mesh.ndim
+        if not heads and is_dtensor(p):
+            pl[self.m] = p.placements[self.m]
+        groups = self.batch_groups + ([self.group] if heads else [])
+        local = _Sum.apply(_local_as(p, self.mesh, pl), groups, True)
+        return local[self.slices["heads"]] if heads else local
+
+    def take(self, t, dim, what):
+        """This rank's ``what`` (heads, di, chans) of a local tensor whole
+        along ``dim``."""
+        idx = [slice(None)] * t.ndim
+        idx[dim] = self.slices[what]
+        return t[tuple(idx)]
+
+    def out(self, t, dim):
+        """This rank's shard along ``dim`` as a ``DTensor`` split there over
+        the model axis."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        return DTensor.from_local(t, self.mesh, self._pl(Shard(dim % t.ndim)), run_check=False)
+
+    def local(self, t, dim):
+        """A ``DTensor`` (a state leaf, the projection) -> this rank's shard
+        along ``dim``."""
+        from torch.distributed.tensor import Shard
+
+        return _local_as(t, self.mesh, self._pl(Shard(dim % t.ndim)))
+
+
+class _Gather(torch.autograd.Function):
+    """The ranks' tensors of ``group`` concatenated along ``dim`` in rank
+    order; backward, each rank's own chunk of the gradient summed over the
+    group (every rank used the whole in its own way)."""
+
+    @staticmethod
+    def forward(ctx, t, group, dim: int):
+        import torch.distributed as dist
+
+        ctx.group, ctx.dim = group, dim
+        parts = [torch.empty_like(t, memory_format=torch.contiguous_format)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, t.contiguous(), group=group)
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        own = grad.chunk(dist.get_world_size(ctx.group), dim=ctx.dim)[dist.get_rank(ctx.group)]
+        return own.contiguous(), None, None
+
+
+class _Sum(torch.autograd.Function):
+    """The sum over each group of ``groups`` (with ``grad_only``, the
+    identity); backward, the gradient's sum over the same groups."""
+
+    @staticmethod
+    def forward(ctx, t, groups, grad_only: bool):
+        import torch.distributed as dist
+
+        ctx.groups = groups
+        if grad_only or not groups:
+            return t.view_as(t)
+        out = t.clone(memory_format=torch.contiguous_format)
+        for g in groups:
+            dist.all_reduce(out, group=g)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        import torch.distributed as dist
+
+        if not ctx.groups:
+            return grad, None, None
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        for g in ctx.groups:
+            dist.all_reduce(grad, group=g)
+        return grad, None, None
+
+
+def _chunk(n: int, parts: int, i: int) -> slice:
+    return slice(i * n // parts, (i + 1) * n // parts)
+
+
+_WHOLE = _Whole()
+
+
+def _hooks(u, spec: MambaSpec):
+    return _Split(u, spec) if is_dtensor(u) else _WHOLE
+
+
+def _gated_rmsnorm(x, z, scale, eps=1e-6, sp=_WHOLE):
+    """``x * silu(z)`` over its RMS, scaled by ``1 + scale``; on a split
+    mixer the mean square sums every rank's ``d_inner`` shard."""
     dt = x.dtype
     g = x * F.silu(z)
-    msq = torch.einsum("...d,...d->...", g.float(), g.float()) / g.shape[-1]
+    msq = sp.sum(torch.einsum("...d,...d->...", g.float(), g.float())) / (g.shape[-1] * sp.size)
     r = torch.rsqrt(msq + eps)[..., None].to(dt)
     return g * r * (1.0 + scale).to(dt)
 
@@ -86,43 +274,47 @@ def mamba_apply(params: Params, u: torch.Tensor, spec: MambaSpec, *, state=None)
     ``state`` only asks for the final one: ``(conv (B, conv_dim,
     d_conv - 1), ssm (B, H, P, N))``, the conv state the raw last
     ``d_conv - 1`` inputs (pad zeros where the sequence is shorter), both
-    in ``u``'s dtype."""
+    in ``u``'s dtype; a ``DTensor`` ``u`` gives them split over the model
+    axis by channel and by head, and ``out`` owed a sum over it."""
     dt_ = u.dtype
-    bsz, seq, _ = u.shape
-    di, n, g, h, p = spec.d_inner, spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
-    zxbcdt = u @ params["in_proj"].to(dt_)
+    n, g, h, p = spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
+    di = spec.d_inner
+    sp = _hooks(u, spec)
+    zxbcdt = sp.enter(rows(u) @ tp_weight(params["in_proj"]).to(dt_))
+    bsz, seq, _ = zxbcdt.shape
     z, x, b, c, dt = _split_proj(zxbcdt, spec)
 
-    # causal depthwise conv over (x, B, C)
+    # causal depthwise conv over (x, B, C), on this rank's channels
     xbc = torch.cat([x, b, c], dim=-1)  # (B, S, conv_dim)
     k = spec.d_conv
-    xbc_pad = F.pad(xbc, (0, 0, k - 1, 0))
-    conv_w = params["conv_w"].to(dt_)
+    xbc_pad = sp.take(F.pad(xbc, (0, 0, k - 1, 0)), 2, "chans")
+    conv_w = sp.param(params["conv_w"]).to(dt_)
     conv = xbc_pad[:, 0:seq, :] * conv_w[0][None, None, :]
     for i in range(1, k):
         conv = conv + xbc_pad[:, i: i + seq, :] * conv_w[i][None, None, :]
-    conv = F.silu(conv + params["conv_b"].to(dt_))
+    conv = sp.gather(F.silu(conv + sp.param(params["conv_b"]).to(dt_)), 2)
     x, b, c = conv[..., :di], conv[..., di: di + g * n], conv[..., di + g * n:]
     conv_state = None
     if state is not None:  # the raw last k-1 inputs, for decode
-        conv_state = xbc_pad[:, xbc_pad.shape[1] - (k - 1):, :].transpose(1, 2)
+        conv_state = sp.out(xbc_pad[:, xbc_pad.shape[1] - (k - 1):, :].transpose(1, 2), 1)
 
-    xh = x.reshape(bsz, seq, h, p)
+    xh = sp.take(x.reshape(bsz, seq, h, p), 2, "heads")
     rep = h // g
-    bh = b.reshape(bsz, seq, g, n).repeat_interleave(rep, dim=2)  # (B, S, H, N)
-    ch = c.reshape(bsz, seq, g, n).repeat_interleave(rep, dim=2)
+    bh = sp.take(b.reshape(bsz, seq, g, n).repeat_interleave(rep, dim=2), 2, "heads")
+    ch = sp.take(c.reshape(bsz, seq, g, n).repeat_interleave(rep, dim=2), 2, "heads")
 
-    dt = _softplus(dt.float() + params["dt_bias"][None, None, :])
-    a = -torch.exp(params["A_log"])  # (H,)
+    dt = _softplus(sp.take(dt, 2, "heads").float()
+                   + sp.param(params["dt_bias"], heads=True)[None, None, :])
+    a = -torch.exp(sp.param(params["A_log"], heads=True))  # (H,)
     da = dt * a[None, None, :]  # (B, S, H) log-decay per step
 
     y, final_ssm = _ssd_chunked(xh.float(), dt, da, bh.float(), ch.float(), chunk=spec.chunk)
-    y = y + params["D"][None, None, :, None] * xh.float()
-    y = y.reshape(bsz, seq, di).to(dt_)
-    y = _gated_rmsnorm(y, z, params["norm_scale"])
-    out = y @ params["out_proj"].to(dt_)
+    y = y + sp.param(params["D"], heads=True)[None, None, :, None] * xh.float()
+    y = y.reshape(bsz, seq, -1).to(dt_)
+    y = _gated_rmsnorm(y, sp.take(z, 2, "di"), sp.param(params["norm_scale"]), sp=sp)
+    out = sp.out(y, 2) @ tp_weight(params["out_proj"]).to(dt_)
     if state is not None:
-        return out, (conv_state, final_ssm.to(dt_))
+        return out, (conv_state, sp.out(final_ssm.to(dt_), 1))
     return out, None
 
 
@@ -183,32 +375,42 @@ def mamba_decode_step(params: Params, u: torch.Tensor, spec: MambaSpec, state):
     """One token through the recurrence, O(1) in the sequence: u (B, 1,
     d_model), ``state = (conv (B, conv_dim, d_conv - 1), ssm (B, H, P, N))``
     -> (out (B, 1, d_model), the new state in ``u``'s dtype); the state
-    passed in is not written."""
+    passed in is not written.  A ``DTensor`` ``u`` takes the state split
+    over the model axis by channel and by head, as ``mamba_apply`` leaves
+    it, and gives it back so."""
     dt_ = u.dtype
-    bsz = u.shape[0]
-    di, n, g, h, p = spec.d_inner, spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
-    conv_state, ssm_state = state
-    z, x, b, c, dt = _split_proj(u[:, 0, :] @ params["in_proj"].to(dt_), spec)
-    xbc = torch.cat([x, b, c], dim=-1)  # (B, conv_dim)
+    n, g, h, p = spec.d_state, spec.n_groups, spec.n_heads, spec.head_dim
+    di = spec.d_inner
+    sp = _hooks(u, spec)
+    conv_state, ssm_state = sp.local(state[0], 1), sp.local(state[1], 1)
+    zxbcdt = sp.enter(rows(u[:, 0, :]) @ tp_weight(params["in_proj"]).to(dt_))
+    bsz = zxbcdt.shape[0]
+    z, x, b, c, dt = _split_proj(zxbcdt, spec)
+    xbc = sp.take(torch.cat([x, b, c], dim=-1), 1, "chans")  # (B, conv_dim)
     # the conv over the window [state, new input], in the promoted dtype as
     # jnp's concatenate and einsum take it
     wdt = torch.promote_types(conv_state.dtype, dt_)
     window = torch.cat([conv_state.to(wdt), xbc[:, :, None].to(wdt)], dim=2)  # (B, cd, k)
-    conv = F.silu(torch.einsum("bck,kc->bc", window, params["conv_w"].to(dt_).to(wdt))
-                  + params["conv_b"].to(dt_).to(wdt))
+    conv = F.silu(torch.einsum("bck,kc->bc", window, sp.param(params["conv_w"]).to(dt_).to(wdt))
+                  + sp.param(params["conv_b"]).to(dt_).to(wdt))
+    conv = sp.gather(conv, 1)
     x, b, c = conv[..., :di], conv[..., di: di + g * n], conv[..., di + g * n:]
-    xh = x.reshape(bsz, h, p).float()
+    xh = sp.take(x.reshape(bsz, h, p), 1, "heads").float()
     rep = h // g
-    bh = b.reshape(bsz, g, n).repeat_interleave(rep, dim=1).float()  # (B, H, N)
-    ch = c.reshape(bsz, g, n).repeat_interleave(rep, dim=1).float()
-    dt = _softplus(dt.float() + params["dt_bias"][None, :])  # (B, H)
-    dec = torch.exp(dt * -torch.exp(params["A_log"])[None, :])
+    # (B, H, N)
+    bh = sp.take(b.reshape(bsz, g, n).repeat_interleave(rep, dim=1), 1, "heads").float()
+    ch = sp.take(c.reshape(bsz, g, n).repeat_interleave(rep, dim=1), 1, "heads").float()
+    dt = _softplus(sp.take(dt, 1, "heads").float()
+                   + sp.param(params["dt_bias"], heads=True)[None, :])  # (B, H)
+    dec = torch.exp(dt * -torch.exp(sp.param(params["A_log"], heads=True))[None, :])
     ssm = (ssm_state.float() * dec[:, :, None, None]
            + torch.einsum("bh,bhp,bhn->bhpn", dt, xh, bh))
-    y = torch.einsum("bhpn,bhn->bhp", ssm, ch) + params["D"][None, :, None] * xh
-    y = _gated_rmsnorm(y.reshape(bsz, di).to(dt_), z, params["norm_scale"])
-    out = (y @ params["out_proj"].to(dt_))[:, None, :]
-    return out, (window[:, :, 1:].to(dt_), ssm.to(dt_))
+    y = (torch.einsum("bhpn,bhn->bhp", ssm, ch)
+         + sp.param(params["D"], heads=True)[None, :, None] * xh)
+    y = _gated_rmsnorm(y.reshape(bsz, -1).to(dt_), sp.take(z, 1, "di"),
+                       sp.param(params["norm_scale"]), sp=sp)
+    out = (sp.out(y, 1) @ tp_weight(params["out_proj"]).to(dt_))[:, None, :]
+    return out, (sp.out(window[:, :, 1:].to(dt_), 1), sp.out(ssm.to(dt_), 1))
 
 
 def mamba_init_state(spec: MambaSpec, batch: int, dtype=torch.float32, device=None):

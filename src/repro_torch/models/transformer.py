@@ -46,10 +46,14 @@ either kind of mesh (:mod:`repro_torch.launch.mesh`):
   the plain tensors the model makes (positions, masks, zeros) read as
   replicated (``implicit_replication``).  The embedding is the JAX
   package's ``shard_map`` form (each rank's row shard, summed over the
-  model axis), the sequence-parallel and expert-parallel constraints are
-  ``redistribute`` calls, attention keeps heads whole
-  (:func:`repro_torch.models.layers.lm_attention`), and decode writes and
-  reads the sequence-sharded cache rank-locally.
+  model axis), and so are whisper's decoder position rows; the
+  sequence-parallel and expert-parallel constraints are ``redistribute``
+  calls, a residual branch owing a sum takes the stream's placements
+  before it is added (:func:`_placed_like`), attention keeps heads whole
+  (:func:`repro_torch.models.layers.lm_attention`), a mamba layer runs on
+  each rank's conv channels and heads (:mod:`repro_torch.models.mamba2`),
+  and decode writes and reads the sequence-sharded caches rank-locally
+  (whisper's frame-split ``ck``/``cv`` too).
 """
 from __future__ import annotations
 
@@ -321,8 +325,23 @@ def _embed_on_cards(ctx, table, tokens):
     return DTensor.from_local(out, mesh, tok_pl, run_check=False)
 
 
+def _position_rows(ctx, table, tokens, start: int):
+    """Whisper's learned decoder positions ``start, start + 1, ...`` for
+    ``tokens`` (B, S): the slice (1, S, d) of ``table``; on a ``DeviceMesh``
+    the rows at those ids through the token embedding's gather form
+    (:func:`_embed_on_cards`), placed as the tokens: each rank looks up its
+    own row shard and the model axis sums, so no rank holds the whole
+    table.  Each row has one non-zero term: bitwise the slice."""
+    seq = tokens.shape[1]
+    if not _on_cards(ctx):
+        return table[None, start:start + seq]
+    ids = torch.zeros_like(tokens) + (torch.arange(seq, dtype=tokens.dtype,
+                                                   device=tokens.device) + start)
+    return _embed_on_cards(ctx, table, ids)
+
+
 def lm_logits(cfg: ArchConfig, params: Params, h: torch.Tensor) -> torch.Tensor:
-    return L.rows(h) @ params["lm_head"].to(h.dtype)
+    return L.rows(h) @ L.tp_weight(params["lm_head"]).to(h.dtype)
 
 
 def ce_loss(cfg: ArchConfig, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -451,9 +470,9 @@ def shared_block(cfg: ArchConfig, p: Params, h, emb0, positions, *, cache=None,
     a, new_cache = L.lm_attention(p["attn"], _norm(cfg, p["ln1"], g), attn_spec(cfg),
                                   positions=positions, kv_cache=cache, cache_pos=cache_pos,
                                   q_chunk=q_chunk)
-    g = g + a
-    g = g + L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], g), cfg.mlp)
-    return h + g @ p["proj_out"].to(h.dtype), new_cache
+    g = g + _placed_like(a, g)
+    g = g + _placed_like(L.mlp_apply(p["mlp"], _norm(cfg, p["ln2"], g), cfg.mlp), g)
+    return h + _placed_like(L.rows(g) @ L.tp_weight(p["proj_out"]).to(h.dtype), h), new_cache
 
 
 def _positions(bsz: int, seq: int, offset: int, device) -> torch.Tensor:
@@ -542,8 +561,8 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
         h = _sp_constrain(ctx, h, cfg) if remat else h
         a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), enc_spec,
                               positions=enc_pos, q_chunk=cfg.q_chunk)
-        h = h + a
-        return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+        h = h + _placed_like(a, h)
+        return h + _placed_like(L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp), h)
 
     eb = _checkpointed(enc_body, ctx) if remat else enc_body
     for lp in params["enc_layers"]:
@@ -552,7 +571,8 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
 
     tokens = batch["tokens"]
     s_dec = tokens.shape[1]
-    h = embed_tokens(cfg, params, tokens, ctx).to(cdt) + params["pos_emb"][None, :s_dec].to(cdt)
+    h = (embed_tokens(cfg, params, tokens, ctx).to(cdt)
+         + _position_rows(ctx, params["pos_emb"], tokens, 0).to(cdt))
     pos = _positions(bsz, s_dec, 0, h.device)
     spec = attn_spec(cfg)
     kvh, dh = spec.n_kv_heads, spec.head_dim
@@ -561,11 +581,11 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
         h = _sp_constrain(ctx, h, cfg) if remat else h
         a, _ = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec, positions=pos,
                               q_chunk=cfg.q_chunk)
-        h = h + a
+        h = h + _placed_like(a, h)
         xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec, positions=pos,
                                kv_x=enc_h, q_chunk=cfg.q_chunk)
-        h = h + xa
-        return h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+        h = h + _placed_like(xa, h)
+        return h + _placed_like(L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp), h)
 
     db = _checkpointed(dec_body, ctx) if remat and not build_cache else dec_body
     caches = {"k": [], "v": [], "ck": [], "cv": []}
@@ -574,8 +594,9 @@ def _encdec_forward(cfg: ArchConfig, params: Params, batch: dict, build_cache: b
             k, v = _extract_kv(cfg, lp["attn"], _norm(cfg, lp["ln1"], h), pos, cap)
             caches["k"].append(k)
             caches["v"].append(v)
-            caches["ck"].append((enc_h @ lp["xattn"]["wk"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
-            caches["cv"].append((enc_h @ lp["xattn"]["wv"].to(cdt)).reshape(bsz, s_enc, kvh, dh))
+            for key, w in (("ck", "wk"), ("cv", "wv")):
+                kv = L.rows(enc_h) @ L.tp_weight(lp["xattn"][w]).to(cdt)
+                caches[key].append(L.whole_heads(kv, kvh).reshape(bsz, s_enc, kvh, dh))
         h = db(h, lp)
     caches = ({k: torch.stack(v) for k, v in caches.items()} | {"pos": s_dec}
               if build_cache else None)
@@ -587,7 +608,7 @@ def _mamba_layer(cfg: ArchConfig, lp: Params, h, want_state: bool):
     """One pre-norm residual mamba layer -> (h, final state or None)."""
     state = mamba_init_state(cfg.ssm, h.shape[0], h.dtype, h.device) if want_state else None
     out, st = mamba_apply(lp["mamba"], _norm(cfg, lp["ln"], h), cfg.ssm, state=state)
-    return h + out, st
+    return h + _placed_like(out, h), st
 
 
 def _mamba_caches(states: list) -> dict:
@@ -670,8 +691,8 @@ def _extract_kv(cfg: ArchConfig, attn_p: Params, x, positions, cap: int):
     spec = attn_spec(cfg)
     bsz, seq, dt = x.shape[0], x.shape[1], x.dtype
     kvh, dh = spec.n_kv_heads, spec.head_dim
-    k = L.whole_heads(L.rows(x) @ attn_p["wk"].to(dt), kvh).reshape(bsz, seq, kvh, dh)
-    v = L.whole_heads(L.rows(x) @ attn_p["wv"].to(dt), kvh).reshape(bsz, seq, kvh, dh)
+    k, v = (L.whole_heads(L.rows(x) @ L.tp_weight(attn_p[w]).to(dt), kvh)
+            .reshape(bsz, seq, kvh, dh) for w in ("wk", "wv"))
     if spec.qk_norm:
         k = L.rms_norm(k, attn_p["k_norm"])
     if spec.rope is not None:
@@ -756,19 +777,19 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx)
         positions = _positions(h.shape[0], 1, pos, h.device)
     if cfg.family == "encdec":
         row = min(max(pos, 0), params["pos_emb"].shape[0] - 1)
-        h = h + params["pos_emb"][None, row:row + 1].to(h.dtype)
+        h = h + _position_rows(ctx, params["pos_emb"], batch["tokens"], row).to(h.dtype)
         spec, xspec = attn_spec(cfg), attn_spec(cfg, causal=False)
         ks, vs = [], []
         for i, lp in enumerate(params["layers"]):
             a, (k, v) = L.lm_attention(lp["attn"], _norm(cfg, lp["ln1"], h), spec,
                                        positions=positions, cache_pos=pos,
                                        kv_cache=(cache["k"][i], cache["v"][i]))
-            h = h + a
+            h = h + _placed_like(a, h)
             xa, _ = L.lm_attention(lp["xattn"], _norm(cfg, lp["ln_x"], h), xspec,
                                    positions=positions,
                                    precomputed_kv=(cache["ck"][i], cache["cv"][i]))
-            h = h + xa
-            h = h + L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp)
+            h = h + _placed_like(xa, h)
+            h = h + _placed_like(L.mlp_apply(lp["mlp"], _norm(cfg, lp["ln2"], h), cfg.mlp), h)
             ks.append(k)
             vs.append(v)
         new_cache = {"k": torch.stack(ks), "v": torch.stack(vs), "ck": cache["ck"],
@@ -789,7 +810,7 @@ def _decode_step(cfg: ArchConfig, params: Params, cache: dict, batch: dict, ctx)
         for i, lp in enumerate(params["layers"]):
             out, st = mamba_decode_step(lp["mamba"], _norm(cfg, lp["ln"], h), cfg.ssm,
                                         (cache["conv"][i], cache["ssm"][i]))
-            h = h + out
+            h = h + _placed_like(out, h)
             states.append(st)
             if _shared_after(cfg, i):
                 g = len(ks)

@@ -575,6 +575,56 @@ def test_sharded_lm_one_card_mesh(cuda, tmp_path):
         assert local == per_device, (what, local, per_device)
 
 
+def _sharded_families_one_card(rank, tmp):
+    """mamba2-smoke and whisper-smoke on a (1, 1) card mesh (NCCL, this
+    process's card): the whole results and the local bytes."""
+    from test_torch_sharded_families import FAMILIES, _cfg
+    from test_torch_sharded_lm import _bytes, _full, _inputs, _run, _shapes
+    from repro_torch.launch.dryrun import make_ctx
+    from repro_torch.launch.mesh import init_card_mesh
+
+    mesh = init_card_mesh(device_type="cuda")
+    for fam in ("mamba2", "whisper"):
+        cfg = _cfg(FAMILIES[fam])
+        out, placed = _run(cfg, *_inputs(cfg), make_ctx(mesh, _shapes()[0], False), mesh)
+        torch.save(_full(out) | {"bytes": _bytes(cfg, mesh, placed)}, f"{tmp}/{fam}.pt")
+
+
+def test_sharded_families_one_card_mesh(cuda, tmp_path):
+    """The split mamba mixer and whisper's position rows and split cross
+    cache on one card: mamba2-smoke and whisper-smoke with every leaf a
+    ``DTensor`` of a (1, 1) NCCL mesh, against the unsharded train step,
+    prefill and decode on the card, within ``1e-5 * max(|ref|, 1)``; the
+    local bytes equal ``per_device_bytes``."""
+    from test_torch_multicard import spawn
+    from test_torch_sharded_families import FAMILIES, _cfg
+    from test_torch_sharded_lm import _inputs, _run
+    from repro_torch.tree import leaves, tree_map
+
+    codes, errors = spawn(_sharded_families_one_card, tmp_path, world=1, device="cuda",
+                          timeout_s=300)
+    assert codes == [0], errors
+
+    def close(a, b, what):
+        err = float((a - b).abs().max()) / max(float(b.abs().max()), 1.0)
+        assert err <= 1e-5, (what, err)
+
+    for fam in ("mamba2", "whisper"):
+        got = torch.load(tmp_path / f"{fam}.pt", weights_only=False)
+        cfg = _cfg(FAMILIES[fam])
+        want = _run(cfg, *tree_map(lambda x: x.to(cuda), _inputs(cfg)))
+        close(got["loss"], want["loss"], (fam, "loss"))
+        for a, b in zip(leaves(got["grads"]), leaves(want["grads"]), strict=True):
+            close(a, b, (fam, "grad"))
+        close(got["prefill"], want["prefill"], (fam, "prefill"))
+        for key in want["cache"]:
+            close(got["cache"][key], want["cache"][key], (fam, key))
+        for t, (a, b) in enumerate(zip(got["decode"], want["decode"], strict=True)):
+            close(a, b, (fam, f"decode {t}"))
+        for what, (local, per_device) in got["bytes"].items():
+            assert local == per_device, (fam, what, local, per_device)
+
+
 def _access_case(cuda, dtype, *, unique_cap, cache_rows, seed=4):
     """Two cores, every strategy code, padding steps, -1 and out-of-window
     ids, a spill-prone slot, hot lookups split off through ``hidx``."""

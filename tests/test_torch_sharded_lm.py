@@ -84,8 +84,10 @@ def _shapes():
 
 
 def _inputs(cfg):
-    """The parameters (the port's init, seeded) and the batches: a train
-    batch, a prefill batch and ``DECODE`` next tokens, from numpy."""
+    """The parameters (the port's init, seeded) and the batches, from
+    numpy: a train batch, a prefill batch and ``DECODE`` decode steps, each
+    of the config's input kind (token ids; embeds with M-RoPE positions
+    ``(3, B, S)``; frames beside token ids)."""
     params = registry.Bundle(cfg).init(torch.Generator().manual_seed(SEEDS["params"]))
     rng = np.random.default_rng(SEEDS["batch"])
     (b, s), (pb, ps) = TRAIN, PREFILL
@@ -93,8 +95,28 @@ def _inputs(cfg):
     def ids(*shape):
         return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32))
 
-    train = {"tokens": ids(b, s), "labels": ids(b, s)}
-    return params, train, {"tokens": ids(pb, ps)}, ids(pb, DECODE)
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+
+    def batch(bsz, seq, labels):
+        if cfg.input_kind == "embeds":
+            out = {"embeds": normal(bsz, seq, cfg.d_model),
+                   "positions": torch.from_numpy(rng.integers(0, seq, (3, bsz, seq))
+                                                 .astype(np.int32))}
+        elif cfg.input_kind == "frames_tokens":
+            out = {"frames": normal(bsz, seq, cfg.d_model), "tokens": ids(bsz, seq)}
+        else:
+            out = {"tokens": ids(bsz, seq)}
+        return out | ({"labels": ids(bsz, seq)} if labels else {})
+
+    train, prefill = batch(b, s, True), batch(pb, ps, False)
+    if cfg.input_kind == "embeds":  # text positions after the prompt's
+        steps = [{"embeds": normal(pb, 1, cfg.d_model),
+                  "positions": torch.full((3, pb, 1), ps + t, dtype=torch.int32)}
+                 for t in range(DECODE)]
+    else:
+        steps = [{"tokens": tok} for tok in ids(pb, DECODE).split(1, dim=1)]
+    return params, train, prefill, steps
 
 
 def _grads_optimizer():
@@ -103,10 +125,10 @@ def _grads_optimizer():
     return Optimizer(lambda p: {}, lambda g, state, p: (g, state), "grads")
 
 
-def _run(cfg, params, train, prefill, next_tokens, ctx=None, mesh=None):
+def _run(cfg, params, train, prefill, steps, ctx=None, mesh=None):
     """Train (loss and gradients), prefill (logits and caches) and decode
-    (every step's logits) of ``cfg``; on ``mesh`` every input placed by its
-    specs first.  -> the results (``DTensor`` leaves on a mesh) and, on a
+    (every step's logits, one a batch of ``steps``) of ``cfg``; on ``mesh``
+    every input placed by its specs first.  -> the results (``DTensor`` leaves on a mesh) and, on a
     mesh, the placed parameters, AdamW state and caches."""
     shape_t, shape_p, shape_d = _shapes()
     n_dp = sh.dp_size(mesh) if mesh is not None else 1
@@ -123,8 +145,8 @@ def _run(cfg, params, train, prefill, next_tokens, ctx=None, mesh=None):
     logits, cache = T.make_prefill_step(cfg, ctx, shape_p)(params, prefill)
     serve = T.make_serve_step(cfg, ctx)
     dec, c = [], cache
-    for t in range(DECODE):
-        lg, c = serve(params, c, place({"tokens": next_tokens[:, t:t + 1]}, tok_spec))
+    for batch in steps:
+        lg, c = serve(params, c, place(batch, tok_spec))
         dec.append(lg)
     out = {"loss": metrics["loss"], "grads": grads, "prefill": logits,
            "cache": {k: v for k, v in cache.items() if k != "pos"}, "decode": dec,
@@ -169,12 +191,12 @@ def _case(name, rank, mesh, tmp, spec=None):
 
     _, _, arch, variant = spec or CASES[name]
     cfg = _cfg(arch, variant)
-    params, train, prefill, nxt = _inputs(cfg)
+    params, train, prefill, steps = _inputs(cfg)
     if name == "qwen3_2x4":  # the JAX package's parameters, from the test's file
         params = T.params_from_jax(cfg, dict(np.load(f"{tmp}/../params.npz",
                                                      allow_pickle=True))["tree"].item())
     ctx = make_ctx(mesh, _shapes()[0], False)
-    out, placed = _run(cfg, params, train, prefill, nxt, ctx, mesh)
+    out, placed = _run(cfg, params, train, prefill, steps, ctx, mesh)
     rec = {"bytes": _bytes(cfg, mesh, placed), "shard_batch": ctx.shard_batch}
     full = _full(out)
     if rank == 0:
@@ -285,15 +307,15 @@ _REFERENCE = textwrap.dedent("""
 
 def _jax_layout(params) -> dict:
     """The port's parameters as the JAX package's tree of numpy arrays:
-    each layer leaf stacked along a leading layer axis."""
+    each layer leaf (of ``layers`` and ``enc_layers``) stacked along a
+    leading layer axis."""
     def conv(*xs):
         if isinstance(xs[0], dict):
             return {k: conv(*(x[k] for x in xs)) for k in xs[0]}
         return np.stack([x.numpy() for x in xs]) if len(xs) > 1 else xs[0].numpy()
 
-    out = {k: conv(v) for k, v in params.items() if k != "layers"}
-    out["layers"] = conv(*params["layers"])
-    return out
+    return {k: conv(*v) if k in ("layers", "enc_layers") else conv(v)
+            for k, v in params.items()}
 
 
 @pytest.fixture(scope="module")
@@ -372,8 +394,7 @@ def one_process():
     out = {}
     for name, (_, _, arch, variant) in CASES.items():
         cfg = _cfg(arch, variant)
-        params, train, prefill, nxt = _inputs(cfg)
-        out[name] = _run(cfg, params, train, prefill, nxt)
+        out[name] = _run(cfg, *_inputs(cfg))
     return out
 
 
