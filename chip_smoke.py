@@ -5,6 +5,7 @@ against their plain versions.
     python3 chip_smoke.py                 # needs one CUDA card
     python3 chip_smoke.py --phases MC     # the lookup across every card
     python3 chip_smoke.py --phases MC-LM  # the sharded LMs across every card
+    python3 chip_smoke.py --phases EX     # the example scripts' twins on the card
 
 Phases (any failure raises and exits non-zero; each prints ``[phase X]
 start`` and ``[phase X] ok <seconds>``, and a failed check prints ``[FAIL
@@ -209,6 +210,15 @@ X] <message>`` before it raises):
       steps), qwen3-0.6b, granite-moe-3b-a800m, whisper-small and
       qwen2-vl-2b (10 steps each): exit code 0 and ``[train] done``.
 
+   EX. the twins of the five example scripts (``python -m
+      repro_torch.examples.<name>``: quickstart, autoplan, serve_dlrm,
+      train_dlrm with ``--crash``, lm_smoke) on the card at small
+      arguments, each a subprocess under its own time limit: exit code 0,
+      "OK" (autoplan prints plans only), quickstart's lookups within 1e-5
+      of the dense oracle, and quickstart's and serve_dlrm's plans
+      launching K1 and one of K2-K4.  Recorded: each twin's seconds, its
+      last line and its kernels' launches.
+
 8. the partitioned lookup across cards, MC: one NCCL rank per card
    (``torch.cuda.device_count()`` of them, spawned), each holding one
    plan core, through the serve CLI's multi-rank code on taobao (C:
@@ -245,27 +255,33 @@ X] <message>`` before it raises):
 9. the sharded LMs across cards, MC-LM: one NCCL rank per card, a
    ``ShardCtx`` over the card mesh and every leaf a ``DTensor`` placed by
    the sharding rules; every LM family at its published width in f32:
-   olmo-1b, granite-moe-3b-a800m, mamba2-780m and qwen2-vl-2b at 4 layers,
-   zamba2-1.2b at 7 (its shared block runs once) and whisper-small at 4
-   encoder and 4 decoder layers, on (1, 1) on one card, on (1, W), (W, 1)
-   and, on four, (2, 2) on W cards.  Each run, on its family's inputs
-   (``Bundle.make_batch``: token ids; frames beside token ids; embeds
-   with M-RoPE positions): a train step's loss and gradients, one AdamW
-   step at 4 x 512 (remat on), a 4 x 256 prefill and 16 decode steps.
-   Gated against the same parameters and batches unsharded on rank 0's
-   card: the loss within 1e-5 relative, every gradient leaf and the
-   prefill's and each decode step's logits within ``1e-5 * max(|ref|,
-   1)``; every rank's local bytes of the parameters, AdamW's moments and
-   the caches equal to ``per_device_bytes`` of their specs (fewer
-   parameter bytes than one card's on more than one card); on a mesh with
-   no data split, at most two all-gathers a layer in a mamba2 decode step.
+   olmo-1b, granite-moe-3b-a800m, mamba2-780m, qwen2-vl-2b and
+   chatglm3-6b (2 KV heads, partial RoPE) at 4 layers, zamba2-1.2b at 7
+   (its shared block runs once), whisper-small at 4 encoder and 4 decoder
+   layers and mixtral-8x22b at 1 (window 4096, rolling cache), on (1, 1)
+   on one card, on (1, W), (W, 1) and, on four, (2, 2) on W cards.  Each
+   run, on its family's inputs (``Bundle.make_batch``: token ids; frames
+   beside token ids; embeds with M-RoPE positions): a train step's loss
+   and gradients, one AdamW step at 4 x 512 (remat on; mixtral's gradients
+   alone on one card, where its AdamW step does not fit), a 4 x 256
+   prefill (mixtral: 4 x 5112 under ``prefill_32k``, past the window) and
+   16 decode steps (mixtral's through rolling slots 1016-1031).  Gated
+   against the same parameters and batches unsharded on rank 0's card:
+   the loss within 1e-5 relative, every gradient leaf, the prefill's and
+   each decode step's logits and the cache after decode within ``1e-5 *
+   max(|ref|, 1)``; an MoE prefill's capacity drops equal to one card's;
+   every rank's local bytes of the parameters, AdamW's moments and the
+   caches equal to ``per_device_bytes`` of their specs (fewer parameter
+   bytes than one card's on more than one card); on a mesh with no data
+   split, at most two all-gathers a layer in a mamba2 decode step.
    Recorded per rank: step, prefill and decode-per-token times (host
    clock around synchronized work), the all-gathers of one train step
    and one decode step (``CommDebugMode``), peak allocated memory beside
    one card's, and whether each gate held bitwise.
 
 ``--phases`` runs a subset after the build (``main`` is paths A-E and the
-kernel phase; e.g. ``--phases MC`` or ``--phases MC-LM`` on four cards).  The last line is
+kernel phase; e.g. ``--phases EX``, or ``--phases MC`` or ``--phases MC-LM``
+on four cards).  The last line is
 ``{"ok": true, "device": {...}}``; with the kernel phase, the line before
 it is the JSON record of every kernel.
 """
@@ -2852,17 +2868,20 @@ def moe_drops():
     import torch.nn.functional as F
 
     from repro_torch.models import transformer as T
+    from repro_torch.sharding import is_dtensor
 
     orig, counts = T.moe_apply, []
 
     def counting(p, x, spec, constrain=None):
         t, d = x.shape[-2:]
-        xf = x.reshape(-1, t, d)
+        with torch.no_grad():  # a DTensor whole first (a collective: every rank calls it)
+            xw, router = (v.full_tensor() if is_dtensor(v) else v for v in (x, p["router"]))
+        xf = xw.reshape(-1, t, d)
         if t > spec.group_size and t % spec.group_size == 0:
             xf, t = xf.reshape(-1, spec.group_size, d), spec.group_size
         cap = max(int(math.ceil(t * spec.top_k / spec.n_experts * spec.capacity_factor)), 1)
         with torch.no_grad():
-            probs = torch.softmax((xf @ p["router"].to(x.dtype)).float(), dim=-1)
+            probs = torch.softmax((xf @ router.to(x.dtype)).float(), dim=-1)
             load = F.one_hot(torch.topk(probs, spec.top_k, dim=-1).indices,
                              spec.n_experts).sum(dim=(1, 2))
             counts.append(int((load - cap).clamp(min=0).sum()))
@@ -3472,12 +3491,27 @@ def multicard_path() -> dict:
 # --------------------------------------------------------------------------
 
 # label -> (arch, layers kept[, encoder layers kept]): each at its published
-# width in f32; zamba2's 7 run its shared block (every 6th) once
+# width in f32; zamba2's 7 run its shared block (every 6th) once; mixtral's
+# 1 of 56 as in T-swa
 MC_LM = {"olmo": ("olmo-1b", 4), "granite": ("granite-moe-3b-a800m", 4),
          "mamba2": ("mamba2-780m", 4), "zamba2": ("zamba2-1.2b", 7),
-         "whisper": ("whisper-small", 4, 4), "qwen2vl": ("qwen2-vl-2b", 4)}
+         "whisper": ("whisper-small", 4, 4), "qwen2vl": ("qwen2-vl-2b", 4),
+         "mixtral": ("mixtral-8x22b", 1), "chatglm3": ("chatglm3-6b", 4)}
 MC_LM_GATHERS_A_LAYER = 2  # a mamba decode step: the projection's output and the conv's
 MC_LM_TRAIN, MC_LM_PREFILL, MC_LM_DECODE = (4, 512), (4, 256), 16
+# label -> its own prefill (shape name, (batch, seq)): mixtral's 4 x 5112
+# under prefill_32k (the published serve_microbatch of 2) runs past the
+# window of 4096, so its cache is min(4096, 5128) = 4096 slots in the rolling
+# layout and decode writes slots 1016-1031, which cross from one rank's
+# 1024 slots to the next on (1, 4)
+MC_LM_SERVE = {"mixtral": ("prefill_32k", (4, 5112))}
+# labels whose unsharded AdamW step does not fit on one card (parameters,
+# gradients, two moments and the new ones: about 58 GB of mixtral's 1 of 56
+# layers, plus the MoE dispatch): their one-card reference and (1, 1) run
+# take the gradients alone; AdamW runs on meshes of more than one card
+MC_LM_NO_ADAMW_ON_ONE_CARD = {"mixtral"}
+# label -> (cache slots, the first and last decode step's rolling slot)
+MC_LM_ROLLING = {"mixtral": (4096, [1016, 1031])}
 MC_LM_TOL = 1e-5
 
 
@@ -3489,19 +3523,19 @@ def mc_lm_meshes(world: int) -> list:
     return [(1, world), (world, 1)] + ([(2, 2)] if world == 4 else [])
 
 
-def _mc_lm_inputs(cfg, device) -> tuple:
+def _mc_lm_inputs(cfg, device, label) -> tuple:
     """The train batch, the prefill prompt and the decode steps' batches of
-    ``cfg``'s input kind (``Bundle.make_batch`` at the train, prompt and
-    decode shapes), drawn on ``device`` from seed 1 (the same on every
-    rank)."""
+    ``cfg``'s input kind (``Bundle.make_batch`` at ``label``'s train,
+    prompt and decode shapes), drawn on ``device`` from seed 1 (the same on
+    every rank)."""
     import torch
 
     from repro_torch.configs.base import ShapeCfg
     from repro_torch.models import registry
 
     bundle, g = registry.Bundle(cfg), torch.Generator(device).manual_seed(1)
-    shape_t, _, shape_d = _mc_lm_shapes()
-    pb, ps = MC_LM_PREFILL
+    shape_t, _, shape_d = _mc_lm_shapes(label)
+    _, (pb, ps) = MC_LM_SERVE.get(label, ("mc-lm", MC_LM_PREFILL))
 
     def draw(shape):
         return bundle.make_batch(shape, g, act_dtype=torch.float32)
@@ -3510,12 +3544,16 @@ def _mc_lm_inputs(cfg, device) -> tuple:
             [draw(shape_d) for _ in range(MC_LM_DECODE)])
 
 
-def _mc_lm_shapes():
+def _mc_lm_shapes(label):
+    """``label``'s train, prefill and decode shapes: the prefill under its
+    ``MC_LM_SERVE`` shape name, the caches room for the prompt and the
+    decode steps."""
     from repro_torch.configs.base import ShapeCfg
 
-    (b, s), (pb, ps) = MC_LM_TRAIN, MC_LM_PREFILL
+    (b, s) = MC_LM_TRAIN
+    name, (pb, ps) = MC_LM_SERVE.get(label, ("mc-lm", MC_LM_PREFILL))
     cap = ps + MC_LM_DECODE
-    return (ShapeCfg("mc-lm", "train", s, b), ShapeCfg("mc-lm", "prefill", cap, pb),
+    return (ShapeCfg("mc-lm", "train", s, b), ShapeCfg(name, "prefill", cap, pb),
             ShapeCfg("mc-lm", "decode", cap, pb))
 
 
@@ -3533,13 +3571,16 @@ def _all_gathers(counts: dict) -> int:
     return sum(n for op, n in counts.items() if "allgather" in str(op).replace("_", ""))
 
 
-def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) -> dict:
-    """Loss and gradients of one train step, one AdamW step, the prefill's
-    logits and caches and each decode step's logits, every input placed by
+def _mc_lm_run(label, cfg, params, inputs, ctx=None, place=lambda tree, specs: tree,
+               adamw_step=True) -> dict:
+    """Loss and gradients of one train step, one AdamW step (with
+    ``adamw_step``; else a second step of the gradients alone), the
+    prefill's logits and caches (an MoE's capacity drops counted) and each
+    decode step's logits at ``label``'s shapes, every input placed by
     ``place`` first.  Timed by the host clock around synchronized work:
-    the AdamW step (the second step of the run), a second prefill and the
-    decode steps after the first.  The all-gathers of the first train
-    step and the first decode step are counted (``CommDebugMode``)."""
+    the second step of the run, a second prefill and the decode steps after
+    the first.  The all-gathers of the first train step and the first
+    decode step are counted (``CommDebugMode``)."""
     import torch
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -3547,34 +3588,44 @@ def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) ->
     from repro_torch.models import transformer as T
     from repro_torch.training.optimizer import adamw
 
-    shape_t, shape_p, shape_d = _mc_lm_shapes()
+    shape_t, shape_p, shape_d = _mc_lm_shapes(label)
     n_dp = sh.dp_size(ctx.mesh) if ctx is not None else 1
     train, prompt, steps = inputs
     params = place(params, sh.param_pspecs(params, False))
     train = place(train, sh.batch_pspecs(cfg, shape_t, False, n_dp))
     prompt = place(prompt, sh.batch_pspecs(cfg, shape_p, False, n_dp))
     steps = [place(b, sh.batch_pspecs(cfg, shape_d, False, n_dp)) for b in steps]
-    out = {"params": params, "gathers": {}}
+    out = {"params": params, "gathers": {}, "step_opt": "adamw" if adamw_step else "grads"}
     with CommDebugMode() as comm:
         grads, _, m = T.make_train_step(cfg, ctx, _grads_only(), shape_t)(params, {}, train)
     out["gathers"]["train"] = _all_gathers(comm.get_comm_counts())
     out.update(loss=m["loss"], grads=grads)
-    opt = adamw(3e-4)
+    opt = adamw(3e-4) if adamw_step else _grads_only()
     state = opt.init(params)
     step = T.make_train_step(cfg, ctx, opt, shape_t)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out["new_params"], out["state"], _ = step(params, state, train)
+    new, new_state, _ = step(params, state, train)
     torch.cuda.synchronize()
     out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    if adamw_step:
+        out["new_params"], out["state"] = new, new_state
+    del new, new_state, state
     prefill = T.make_prefill_step(cfg, ctx, shape_p)
-    out["prefill"], out["cache"] = prefill(params, prompt)
+    with moe_drops() as drops:
+        out["prefill"], out["cache"] = prefill(params, prompt)
+    out["prefill_moe_drops"] = sum(drops) if cfg.moe is not None else None
     torch.cuda.synchronize()
     t0 = time.perf_counter()  # a second prefill, warm
     prefill(params, prompt)
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     serve, c, out["decode"] = T.make_serve_step(cfg, ctx), out["cache"], []
+    # the attention cache's slots and the first and last decode step's slot
+    cap = c["k"].shape[2] if "k" in c else None
+    out["cache_slots"] = cap
+    out["decode_slots"] = cap and [(c["pos"] + t) % cap if cfg.window is not None
+                                   else c["pos"] + t for t in (0, len(steps) - 1)]
     for t, batch in enumerate(steps):
         if t == 1:  # the steps after the first, warm
             torch.cuda.synchronize()
@@ -3590,6 +3641,12 @@ def _mc_lm_run(cfg, params, inputs, ctx=None, place=lambda tree, specs: tree) ->
     return out
 
 
+def _on_host(x):
+    import torch
+
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
 def _mc_lm_case(label: str, meshes: list) -> list:
     """``label``'s MC-LM runs on this rank, one a ``(data, model)`` card mesh
     of ``meshes``, every leaf placed by the sharding rules; rank 0 first
@@ -3603,24 +3660,31 @@ def _mc_lm_case(label: str, meshes: list) -> list:
     from repro_torch.launch.dryrun import make_ctx
     from repro_torch.launch.mesh import init_card_mesh
     from repro_torch.models import registry
-    from repro_torch.tree import leaves
+    from repro_torch.tree import leaves, tree_map
 
     rank = dist.get_rank()
     arch, *layers = MC_LM[label]
     cfg, reduced = _lm_cut(arch, *layers)
     dev = resolve_device(DEVICE)
     params = registry.Bundle(cfg).init(torch.Generator(dev).manual_seed(0))
-    inputs = _mc_lm_inputs(cfg, dev)
-    shape_t, _, shape_d = _mc_lm_shapes()
+    inputs = _mc_lm_inputs(cfg, dev, label)
+    shape_t, _, shape_d = _mc_lm_shapes(label)
+    one_card_adamw = label not in MC_LM_NO_ADAMW_ON_ONE_CARD
     ref, one_card = None, None
     if rank == 0:
         torch.cuda.reset_peak_memory_stats()
-        ref = _mc_lm_run(cfg, params, inputs)
-        one_card = {k: ref.pop(k) for k in ("step_ms", "prefill_ms", "decode_ms_per_token")}
+        ref = _mc_lm_run(label, cfg, params, inputs, adamw_step=one_card_adamw)
+        one_card = {k: ref.pop(k) for k in ("step_ms", "step_opt", "prefill_ms",
+                                            "decode_ms_per_token", "prefill_moe_drops")}
         one_card["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        for k in ("params", "new_params", "state", "cache", "cache_out", "gathers"):
-            ref.pop(k)
-        torch.cuda.empty_cache()
+        for k in ("params", "new_params", "state", "cache", "gathers"):
+            ref.pop(k, None)
+        # held on the host while the sharded runs need the card's memory
+        ref = {k: tree_map(_on_host, v) if k in ("grads", "cache_out") else v
+               for k, v in ref.items()}
+    # every rank places its leaves from the host, one at a time
+    params = tree_map(_on_host, params)
+    torch.cuda.empty_cache()
     recs = []
     for data, model in meshes:
         dist.barrier()
@@ -3628,24 +3692,29 @@ def _mc_lm_case(label: str, meshes: list) -> list:
         mesh = init_card_mesh(data, model, device_type=DEVICE)
         ctx = make_ctx(mesh, shape_t, False)
         torch.cuda.reset_peak_memory_stats()
-        got = _mc_lm_run(cfg, params, inputs, ctx,
-                         lambda tree, specs: sh.with_sharding(mesh, tree, specs))
+        got = _mc_lm_run(label, cfg, params, inputs, ctx,
+                         lambda tree, specs: sh.with_sharding(mesh, tree, specs),
+                         adamw_step=one_card_adamw or data * model > 1)
         rec = {"mc_lm": label, "arch": arch, "family": cfg.family, "mesh": [data, model],
                "rank": rank, "n_layers": cfg.n_layers, "reduced": reduced,
                "one_card": one_card, "shard_batch": ctx.shard_batch,
                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-               **{k: got[k] for k in ("step_ms", "prefill_ms", "decode_ms_per_token",
-                                      "gathers")}}
+               **{k: got[k] for k in ("step_ms", "step_opt", "prefill_ms",
+                                      "decode_ms_per_token", "gathers", "prefill_moe_drops",
+                                      "cache_slots", "decode_slots")}}
         pspecs = sh.param_pspecs(got["params"], False)
-        moments = {"m": got["state"]["m"], "v": got["state"]["v"]}
         cspecs = sh.cache_pspecs(cfg, shape_d, False, sh.dp_size(mesh))
+        held = [("params", got["params"], pspecs)]
+        if "state" in got:
+            moments = {"m": got["state"]["m"], "v": got["state"]["v"]}
+            held += [("new_params", got["new_params"], pspecs),
+                     ("moments", moments, sh.opt_pspecs(moments, pspecs))]
+        held += [("cache", got["cache"], cspecs), ("cache_out", got["cache_out"], cspecs)]
         rec["bytes"] = {name: [sh.local_bytes(t), sh.per_device_bytes(t, specs, mesh)]
-                        for name, t, specs in (
-                            ("params", got["params"], pspecs),
-                            ("new_params", got["new_params"], pspecs),
-                            ("moments", moments, sh.opt_pspecs(moments, pspecs)),
-                            ("cache", got["cache"], cspecs),
-                            ("cache_out", got["cache_out"], cspecs))}
+                        for name, t, specs in held}
+        cap, n_model = got["cache_slots"], mesh.size(mesh.mesh_dim_names.index("model"))
+        rec["decode_slot_ranks"] = cap and sorted({s // -(-cap // n_model)  # torch.chunk's
+                                                   for s in got["decode_slots"]})
         rec["whole_param_bytes"] = sum(x.numel() * x.element_size()
                                        for x in leaves(got["params"]))
 
@@ -3657,6 +3726,7 @@ def _mc_lm_case(label: str, meshes: list) -> list:
         def gate(name, g, want):
             g = whole(g)
             if ref is not None:
+                want = want.to(g.device)
                 errs[name] = max(errs.get(name, 0.0), _rel(g, want))
                 bitwise[name] = bitwise.get(name, True) and bool(torch.equal(g, want))
 
@@ -3669,6 +3739,9 @@ def _mc_lm_case(label: str, meshes: list) -> list:
         for t, g in enumerate(got["decode"]):
             gate("decode", g, ref["decode"][t] if ref else None)
             finite = finite and bool(torch.isfinite(whole(g)).all())
+        for key in sorted(k for k in got["cache_out"] if k != "pos"):
+            gate("cache_after_decode", got["cache_out"][key],
+                 ref["cache_out"][key] if ref else None)
         if ref is not None:
             want = float(ref["loss"])
             rec.update(loss=loss, loss_ref=want, loss_rel_err=abs(loss - want) / abs(want),
@@ -3731,26 +3804,37 @@ def multicard_lm_path() -> dict:
     mesh and every leaf placed by the sharding rules (``DTensor``): each
     model of ``MC_LM`` at its published width in f32, on each mesh of
     ``mc_lm_meshes``.  Each run: one train step's loss and gradients
-    (``value_and_grad``), one AdamW step at 4 x 512 (remat on), a 4 x 256
-    prefill and 16 decode steps.  Gated against the same parameters and
-    batches unsharded on rank 0's card: the loss within 1e-5 relative,
-    every gradient leaf, the prefill's and every decode step's logits
-    within ``1e-5 * max(|ref|, 1)``; on every rank the local bytes of the
-    parameters (before and after the step), AdamW's moments and the caches
-    (after prefill and after decode) equal to ``per_device_bytes`` of
-    their specs, and on more than one card fewer parameter bytes than one
-    card holds; a mamba2 decode step on a mesh with no data split at most
-    ``MC_LM_GATHERS_A_LAYER`` all-gathers a layer (with a data split the
-    ZeRO-3 gathers of ``in_proj`` and ``out_proj`` add two).  Recorded per
-    rank: the step's, prefill's and decode's times per token (host clock
-    around synchronized work, each after a first call of the same shapes),
-    the all-gathers of one train step and one decode step, the peak
-    allocated memory beside one card's, and whether each gate held
-    bitwise; per model and mesh, rank 0's seconds."""
+    (``value_and_grad``), one AdamW step at 4 x 512 (remat on; the
+    gradients alone for ``MC_LM_NO_ADAMW_ON_ONE_CARD`` on one card), a 4 x
+    256 prefill (``MC_LM_SERVE``'s for mixtral) and 16 decode steps.  Gated
+    against the same parameters and batches unsharded on rank 0's card:
+    the loss within 1e-5 relative, every gradient leaf, the prefill's and
+    every decode step's logits and every cache leaf after the last decode
+    step within ``1e-5 * max(|ref|, 1)``; an MoE prefill's capacity drops
+    equal to one card's; mixtral's cache slots and rolling decode slots
+    (``MC_LM_ROLLING``; the ranks that hold them recorded); on every rank the
+    local bytes of the parameters (before and after the step), AdamW's
+    moments and the caches (after prefill and after decode) equal to
+    ``per_device_bytes`` of their specs, and on more than one card fewer
+    parameter bytes than one card holds; a mamba2 decode step on a mesh
+    with no data split at most ``MC_LM_GATHERS_A_LAYER`` all-gathers a
+    layer (with a data split the ZeRO-3 gathers of ``in_proj`` and
+    ``out_proj`` add two).  Recorded per rank: the step's, prefill's and
+    decode's times per token (host clock around synchronized work, each
+    after a first call of the same shapes), the all-gathers of one train
+    step and one decode step, the peak allocated memory beside one card's,
+    and whether each gate held bitwise; per model and mesh, rank 0's
+    seconds."""
+    import gc
+
     import torch
 
     world = torch.cuda.device_count()
+    gc.collect()  # what earlier phases left in reference cycles
     torch.cuda.empty_cache()
+    print(json.dumps({"mc_lm_parent_gb": {  # this process's share of card 0
+        "allocated": torch.cuda.memory_allocated() / 1e9,
+        "reserved": torch.cuda.memory_reserved() / 1e9}}), flush=True)
     every = _spawn_ranks("MC-LM", _mc_lm_rank, world)
     for i in range(len(every[0])):
         recs = [every[r][i] for r in range(world)]
@@ -3771,6 +3855,14 @@ def multicard_lm_path() -> dict:
                 check(r["gathers"]["decode"] <= MC_LM_GATHERS_A_LAYER * r["n_layers"],
                       f"{tag} rank {r['rank']}: {r['gathers']['decode']} all-gathers in a "
                       f"decode step of {r['n_layers']} mamba layers")
+        check(lead["prefill_moe_drops"] == lead["one_card"]["prefill_moe_drops"],
+              f"{tag} the prefill dropped {lead['prefill_moe_drops']} expert assignments, "
+              f"one card {lead['one_card']['prefill_moe_drops']}")
+        if lead["mc_lm"] in MC_LM_ROLLING:
+            cap, slots = MC_LM_ROLLING[lead["mc_lm"]]
+            check([lead["cache_slots"], lead["decode_slots"]] == [cap, slots],
+                  f"{tag} {lead['cache_slots']} cache slots, decode slots "
+                  f"{lead['decode_slots']}, not {cap} and {slots}")
         print(json.dumps({
             "mc_lm": lead["mc_lm"], "arch": lead["arch"], "family": lead["family"],
             "mesh": lead["mesh"],
@@ -3778,7 +3870,10 @@ def multicard_lm_path() -> dict:
             "loss_rel_err": lead["loss_rel_err"], "loss_bitwise": lead["loss_bitwise"],
             "max_rel_err": lead["max_rel_err"], "bitwise": lead["bitwise"],
             "one_card": lead["one_card"], "whole_param_bytes": lead["whole_param_bytes"],
-            "case_s": lead["case_s"],
+            "case_s": lead["case_s"], "step_opt": lead["step_opt"],
+            "prefill_moe_drops": lead["prefill_moe_drops"], "cache_slots": lead["cache_slots"],
+            "decode_slots": lead["decode_slots"],
+            "decode_slot_ranks": lead["decode_slot_ranks"],
             "per_rank": [{k: r[k] for k in ("rank", "step_ms", "prefill_ms",
                                             "decode_ms_per_token", "gathers", "peak_gb",
                                             "bytes")}
@@ -3786,14 +3881,87 @@ def multicard_lm_path() -> dict:
     return {}
 
 
-PHASES = ("main", "F", "G", "H", "R", "X", "M", "S", "T", "MC", "MC-LM")
+# --------------------------------------------------------------------------
+# the example twins on the card (EX)
+# --------------------------------------------------------------------------
+
+# name -> (arguments, seconds allowed); each twin runs on its default
+# device, the card, in a process of its own
+EX = {
+    "quickstart": ([], 180),
+    "autoplan": ([], 120),
+    "serve_dlrm": (["--queries", "256", "--batch", "64"], 180),
+    "train_dlrm": (["--steps", "40", "--scale", "0.1", "--crash"], 180),
+    "lm_smoke": (["--arch", "olmo-1b", "--steps", "10"], 180),
+}
+EX_PLAN_KERNELS = ("quickstart", "serve_dlrm")  # whose plans reach K1-K4
+# a twin's main in a process of its own, the kernels' counts set to 0
+# before it and printed after it
+EX_RUNNER = """
+import importlib, json, sys
+root, name, *argv = sys.argv[1:]
+sys.path[:0] = [root, root + "/src"]
+import chip_smoke
+chip_smoke.reset_counts()
+importlib.import_module("repro_torch.examples." + name).main(argv)
+print("[EX launches] " + json.dumps(chip_smoke.read_counts()), flush=True)
+"""
+
+
+def examples_path() -> dict:
+    """EX: each twin of ``examples/*.py`` (``repro_torch.examples``) on the
+    card at ``EX``'s small arguments, as a subprocess under its own time
+    limit; any non-zero exit, and a quickstart lookup off the dense oracle
+    by more than 1e-5, fails the phase.  Recorded: each twin's seconds, its
+    last line and its kernels' launches; quickstart's and serve_dlrm's
+    plans must have launched K1 and one of K2-K4."""
+    import subprocess
+
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ex_") as tmp:
+        for name, (args, limit) in EX.items():
+            if name == "train_dlrm":
+                args = args + ["--ckpt-dir", str(Path(tmp, "ckpt"))]
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run([sys.executable, "-c", EX_RUNNER, str(ROOT), name, *args],
+                                      capture_output=True, text=True, timeout=limit, cwd=tmp)
+            except subprocess.TimeoutExpired:
+                check(False, f"[EX {name}] still running after {limit}s")
+            seconds = time.perf_counter() - t0
+            check(proc.returncode == 0, f"[EX {name}] exit {proc.returncode}: "
+                  f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+            lines = proc.stdout.splitlines()
+            launches = json.loads(lines[-1].removeprefix("[EX launches] "))
+            rec = {"ex": name, "args": args, "seconds": seconds, "last_line": lines[-2],
+                   "launches": {k: v for k, v in launches.items() if v}}
+            if name == "quickstart":
+                errs = [float(line.rsplit(" ", 1)[1]) for line in lines
+                        if "max err vs dense oracle" in line]
+                check(len(errs) == 3 and max(errs) <= 1e-5,
+                      f"[EX quickstart] lookups off the dense oracle: {errs}")
+                rec["max_err"] = max(errs)
+            if name in EX_PLAN_KERNELS:
+                k24 = sum(launches[k] for k in ("embedding_bag_ub", "embedding_bag_gm",
+                                                "embedding_bag_l1"))
+                check(launches["multi_embedding_bag_ragged"] > 0 and k24 > 0,
+                      f"[EX {name}] launches {launches}: K1 and one of K2-K4 expected")
+            if name != "autoplan":
+                check(lines[-2].startswith("OK"), f"[EX {name}] ends {lines[-2]!r}, not OK")
+            print(json.dumps(rec), flush=True)
+            out[name] = rec
+    return out
+
+
+PHASES = ("main", "F", "G", "H", "R", "X", "M", "S", "T", "EX", "MC", "MC-LM")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run after the build (default: all): "
-                         "main (paths A-E and the kernels), F, G, H, R, X, M, S, T, MC, MC-LM")
+                         "main (paths A-E and the kernels), F, G, H, R, X, M, S, T, EX, MC, "
+                         "MC-LM")
     phases = set(ap.parse_args(argv).phases.split(","))
     if phases - set(PHASES):
         ap.error(f"unknown phases {sorted(phases - set(PHASES))}; known: {PHASES}")
@@ -3859,6 +4027,9 @@ def main(argv=None) -> int:
                 remat_path()
             with phase("T-cli"):
                 train_cli_path(Path(tmp))
+    if "EX" in phases:
+        with phase("EX"):
+            examples_path()
     if "MC" in phases:
         with phase("MC"):
             runs["MC"] = multicard_path()

@@ -77,20 +77,23 @@ CASES = {  # name -> (ranks, (data, model), arch, variant)
 }
 
 
-def _shapes():
-    (b, s), (pb, ps) = TRAIN, PREFILL
-    return (ShapeCfg("t", "train", s, b), ShapeCfg("p", "prefill", ps + DECODE, pb),
-            ShapeCfg("d", "decode", ps + DECODE, pb))
+def _shapes(prefill=PREFILL, cap=None):
+    """The train, prefill and decode shapes; the caches hold ``cap`` slots
+    (default: the prompt and the ``DECODE`` steps)."""
+    (b, s), (pb, ps) = TRAIN, prefill
+    cap = ps + DECODE if cap is None else cap
+    return (ShapeCfg("t", "train", s, b), ShapeCfg("p", "prefill", cap, pb),
+            ShapeCfg("d", "decode", cap, pb))
 
 
-def _inputs(cfg):
+def _inputs(cfg, prefill=PREFILL):
     """The parameters (the port's init, seeded) and the batches, from
-    numpy: a train batch, a prefill batch and ``DECODE`` decode steps, each
-    of the config's input kind (token ids; embeds with M-RoPE positions
-    ``(3, B, S)``; frames beside token ids)."""
+    numpy: a train batch, a ``prefill`` (batch, seq) batch and ``DECODE``
+    decode steps, each of the config's input kind (token ids; embeds with
+    M-RoPE positions ``(3, B, S)``; frames beside token ids)."""
     params = registry.Bundle(cfg).init(torch.Generator().manual_seed(SEEDS["params"]))
     rng = np.random.default_rng(SEEDS["batch"])
-    (b, s), (pb, ps) = TRAIN, PREFILL
+    (b, s), (pb, ps) = TRAIN, prefill
 
     def ids(*shape):
         return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32))
@@ -125,12 +128,13 @@ def _grads_optimizer():
     return Optimizer(lambda p: {}, lambda g, state, p: (g, state), "grads")
 
 
-def _run(cfg, params, train, prefill, steps, ctx=None, mesh=None):
+def _run(cfg, params, train, prefill, steps, ctx=None, mesh=None, shapes=None):
     """Train (loss and gradients), prefill (logits and caches) and decode
-    (every step's logits, one a batch of ``steps``) of ``cfg``; on ``mesh``
-    every input placed by its specs first.  -> the results (``DTensor`` leaves on a mesh) and, on a
+    (every step's logits, one a batch of ``steps``) of ``cfg`` at
+    ``shapes`` (default ``_shapes()``); on ``mesh`` every input placed by
+    its specs first.  -> the results (``DTensor`` leaves on a mesh) and, on a
     mesh, the placed parameters, AdamW state and caches."""
-    shape_t, shape_p, shape_d = _shapes()
+    shape_t, shape_p, shape_d = shapes or _shapes()
     n_dp = sh.dp_size(mesh) if mesh is not None else 1
 
     def place(tree, specs):
@@ -165,10 +169,10 @@ def _full(tree):
     return unflatten(treedef, [x.full_tensor() if sh.is_dtensor(x) else x for x in flat])
 
 
-def _bytes(cfg, mesh, placed) -> dict:
+def _bytes(cfg, mesh, placed, shapes=None) -> dict:
     """This rank's local bytes of each placed tree beside ``per_device_bytes``
     of its specs."""
-    _, _, shape_d = _shapes()
+    _, _, shape_d = shapes or _shapes()
     pspecs = sh.param_pspecs(placed["params"], False)
     cspecs = sh.cache_pspecs(cfg, shape_d, False, sh.dp_size(mesh))
     out = {}

@@ -152,7 +152,7 @@ def test_param_specs_divisible(arch, multi_pod):
     sh.map_with_path(check, struct)
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x22b", "mamba2-780m",
+@pytest.mark.parametrize("arch", ["olmo-1b", "mixtral-8x22b", "chatglm3-6b", "mamba2-780m",
                                   "zamba2-1.2b", "whisper-small"])
 def test_cache_specs_divisible(arch):
     b = registry.build(arch)
