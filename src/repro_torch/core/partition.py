@@ -79,6 +79,7 @@ from repro_torch.kernels.embedding_multi import (
     ragged_stage_rows,
 )
 from repro_torch.kernels.ops import strategy_bag
+from repro_torch.tracing import count, span
 
 __all__ = [
     "COLLECTIVE_BYTES",
@@ -802,13 +803,14 @@ def _scatter_slots(packed: PackedPlan, pooled: torch.Tensor, n_tables: int) -> t
     One add per slot index, each onto distinct (core, table) rows, so the
     sum order is fixed."""
     k, s_slots, b, e = pooled.shape
-    out = pooled.new_zeros((k * n_tables + 1, b, e))
-    ti = packed.slot_table.long()
-    cores = torch.arange(k, device=pooled.device)
-    target = torch.where(ti >= 0, cores[:, None] * n_tables + ti, k * n_tables)
-    for s_i in range(s_slots):
-        out.index_add_(0, target[:, s_i], pooled[:, s_i])
-    return out[:-1].view(k, n_tables, b, e)
+    with span("lookup.scatter"):
+        out = pooled.new_zeros((k * n_tables + 1, b, e))
+        ti = packed.slot_table.long()
+        cores = torch.arange(k, device=pooled.device)
+        target = torch.where(ti >= 0, cores[:, None] * n_tables + ti, k * n_tables)
+        for s_i in range(s_slots):
+            out.index_add_(0, target[:, s_i], pooled[:, s_i])
+        return out[:-1].view(k, n_tables, b, e)
 
 
 def _local_asym_lookup(
@@ -823,29 +825,34 @@ def _local_asym_lookup(
         return _fused_asym_lookup(packed, indices, n_tables=n_tables)
     if packed.layout == "dense":
         return _dense_asym_lookup(packed, indices, n_tables=n_tables)
-    local, valid = _slot_indices(packed, indices)
     buffer = packed.chunk_data  # (K, T+1, E)
-    zrow = buffer.shape[1] - 1  # shared trailing zero row
-    start = packed.slot_row_start.long()[..., None, None]
-    gidx = torch.where(valid, start + local, zrow)  # (K, S, B, s)
-    cores = torch.arange(packed.n_cores, device=buffer.device)[:, None, None, None]
-    pooled = buffer[cores, gidx].float().sum(dim=3)  # (K, S, B, E)
+    with span("lookup.slot_ids"):
+        local, valid = _slot_indices(packed, indices)
+        zrow = buffer.shape[1] - 1  # shared trailing zero row
+        start = packed.slot_row_start.long()[..., None, None]
+        gidx = torch.where(valid, start + local, zrow)  # (K, S, B, s)
+    with span("lookup.access"):
+        cores = torch.arange(packed.n_cores, device=buffer.device)[:, None, None, None]
+        pooled = buffer[cores, gidx].float().sum(dim=3)  # (K, S, B, E)
     return _scatter_slots(packed, pooled, n_tables)
 
 
 def _dense_ids(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
     """Dense-layout slot ids (K, S, B, s): chunk-local ids, invalid lookups
     redirected to each slot's trailing zero row ``R``."""
-    local, valid = _slot_indices(packed, indices)
-    rpad = packed.chunk_data.shape[-2] - 1
-    return torch.where(valid, local, rpad)
+    with span("lookup.slot_ids"):
+        local, valid = _slot_indices(packed, indices)
+        rpad = packed.chunk_data.shape[-2] - 1
+        return torch.where(valid, local, rpad)
 
 
 def _dense_asym_lookup(
     packed: PackedPlan, indices: torch.Tensor, *, n_tables: int
 ) -> torch.Tensor:
     """The plain stacked-slot gather over (K, S, R+1, E) -> (K, N, B, E)."""
-    pooled = multi_embedding_bag_dense_plain(packed.chunk_data, _dense_ids(packed, indices))
+    ids = _dense_ids(packed, indices)
+    with span("lookup.access"):
+        pooled = multi_embedding_bag_dense_plain(packed.chunk_data, ids)
     return _scatter_slots(packed, pooled, n_tables)
 
 
@@ -854,18 +861,22 @@ def _fused_ids(packed: PackedPlan, indices: torch.Tensor):
     int32.  ``lidx`` holds chunk-local ids with ``-1`` for invalid lookups;
     with the residency cache, lookups of cache-resident rows leave it
     (``-1``) and arrive in ``hidx`` as cache positions (else ``hidx`` is
-    ``None``).  The split comes before any dedup, as in the reference."""
-    local, valid = _slot_indices(packed, indices)
-    # -1 sentinel: matches no row-block window in the kernel
-    lidx = torch.where(valid, local, -1).to(torch.int32)
-    if not packed.cache_rows:
-        return lidx, None
-    # the remap's trailing entry (the shared zero row) is -1
-    trash = packed.cache_remap.shape[-1] - 1
-    g = torch.where(valid, packed.slot_row_start.long()[..., None, None] + local, trash)
-    cores = torch.arange(packed.n_cores, device=packed.device)[:, None, None, None]
-    hidx = packed.cache_remap[cores, g]
-    return torch.where(hidx >= 0, -1, lidx), hidx
+    ``None``).  The split comes before any dedup, as in the reference.
+    Counts ``lookups`` and ``cache_hits``."""
+    with span("lookup.slot_ids"):
+        local, valid = _slot_indices(packed, indices)
+        count("lookups", valid)
+        # -1 sentinel: matches no row-block window in the kernel
+        lidx = torch.where(valid, local, -1).to(torch.int32)
+        if not packed.cache_rows:
+            return lidx, None
+        # the remap's trailing entry (the shared zero row) is -1
+        trash = packed.cache_remap.shape[-1] - 1
+        g = torch.where(valid, packed.slot_row_start.long()[..., None, None] + local, trash)
+        cores = torch.arange(packed.n_cores, device=packed.device)[:, None, None, None]
+        hidx = packed.cache_remap[cores, g]
+        count("cache_hits", hidx)
+        return torch.where(hidx >= 0, -1, lidx), hidx
 
 
 def _fused_asym_lookup(
@@ -877,26 +888,28 @@ def _fused_asym_lookup(
     e = packed.chunk_data.shape[-1]
     if packed.layout == "dense":
         lidx = _dense_ids(packed, indices).to(torch.int32)
-        pooled = multi_embedding_bag_dense(packed.chunk_data, lidx)
+        with span("lookup.access"):
+            pooled = multi_embedding_bag_dense(packed.chunk_data, lidx)
     elif packed.step_slot.shape[-1] == 0:
         pooled = torch.zeros((k, s_slots, b, e), dtype=torch.float32, device=packed.device)
     else:
         lidx, hidx = _fused_ids(packed, indices)
-        pooled = multi_embedding_bag_ragged(
-            packed.chunk_data[:, :-1],  # drop the shared zero row: block_r-tiled
-            lidx,
-            packed.step_block,
-            packed.step_runs,
-            block_r=packed.block_r,
-            stage_rows=packed.stage_rows,
-            unique_cap=packed.unique_cap,
-            cache=packed.cache_data if hidx is not None else None,
-            hidx=hidx,
-            # an all-onehot pack passes no selector at all
-            step_kpath=packed.step_kpath if packed.kernel_path != "onehot" else None,
-            step_slot=packed.step_slot,
-            step_base=packed.step_base,
-        )
+        with span("lookup.access"):
+            pooled = multi_embedding_bag_ragged(
+                packed.chunk_data[:, :-1],  # drop the shared zero row: block_r-tiled
+                lidx,
+                packed.step_block,
+                packed.step_runs,
+                block_r=packed.block_r,
+                stage_rows=packed.stage_rows,
+                unique_cap=packed.unique_cap,
+                cache=packed.cache_data if hidx is not None else None,
+                hidx=hidx,
+                # an all-onehot pack passes no selector at all
+                step_kpath=packed.step_kpath if packed.kernel_path != "onehot" else None,
+                step_slot=packed.step_slot,
+                step_base=packed.step_base,
+            )
     return _scatter_slots(packed, pooled, n_tables)
 
 
@@ -1180,41 +1193,44 @@ def partitioned_lookup(
         raise ValueError(f"use_kernels must be 'fused' or False, got {use_kernels!r}")
     if reduce_mode not in ("sparse", "psum", "ring"):
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}")
-    indices = torch.as_tensor(indices, device=packed.device)
-    if mesh is not None:
-        return _mesh_lookup(packed, indices, mesh=mesh, axis=axis, batch_axes=tuple(batch_axes),
-                            n_tables=n_tables, use_kernels=use_kernels,
-                            reduce_mode=reduce_mode)
-    if packed.rejoin_send.shape[0] != packed.n_cores:
-        from repro_torch.core.mesh import MeshShapeError
+    with span("lookup"):
+        with span("lookup.index_copy"):
+            indices = torch.as_tensor(indices, device=packed.device)
+        if mesh is not None:
+            return _mesh_lookup(packed, indices, mesh=mesh, axis=axis,
+                                batch_axes=tuple(batch_axes), n_tables=n_tables,
+                                use_kernels=use_kernels, reduce_mode=reduce_mode)
+        if packed.rejoin_send.shape[0] != packed.n_cores:
+            from repro_torch.core.mesh import MeshShapeError
 
-        raise MeshShapeError(
-            f"this pack is one core's slice of a {packed.rejoin_send.shape[0]}-core "
-            "plan: look it up across the device mesh (mesh=)"
-        )
-    local = _local_asym_lookup(
-        packed, indices, n_tables=n_tables, use_kernels=use_kernels
-    )
-    if reduce_mode == "sparse":
-        out = _sparse_rejoin(local, packed)
-    elif reduce_mode == "ring":
-        out = _ring_psum(local)
-    else:
-        out = local.sum(dim=0)
-    if packed.sym_data.shape[0]:
-        # the reference splits this group's batch over the K cores; one
-        # launch per table here serves the whole batch, and the check only
-        # keeps the port to the batches the reference accepts
-        k, b = packed.n_cores, indices.shape[1]
-        if b % k:
-            raise ValueError(
-                f"the symmetric group splits the batch over the {k} cores: "
-                f"batch {b} must be a multiple of {k}"
+            raise MeshShapeError(
+                f"this pack is one core's slice of a {packed.rejoin_send.shape[0]}-core "
+                "plan: look it up across the device mesh (mesh=)"
             )
-        out = out + _local_sym_lookup(
+        local = _local_asym_lookup(
             packed, indices, n_tables=n_tables, use_kernels=use_kernels
         )
-    return out
+        with span("lookup.rejoin"):
+            if reduce_mode == "sparse":
+                out = _sparse_rejoin(local, packed)
+            elif reduce_mode == "ring":
+                out = _ring_psum(local)
+            else:
+                out = local.sum(dim=0)
+        if packed.sym_data.shape[0]:
+            # the reference splits this group's batch over the K cores; one
+            # launch per table here serves the whole batch, and the check only
+            # keeps the port to the batches the reference accepts
+            k, b = packed.n_cores, indices.shape[1]
+            if b % k:
+                raise ValueError(
+                    f"the symmetric group splits the batch over the {k} cores: "
+                    f"batch {b} must be a multiple of {k}"
+                )
+            out = out + _local_sym_lookup(
+                packed, indices, n_tables=n_tables, use_kernels=use_kernels
+            )
+        return out
 
 
 # --------------------------------------------------------------------------

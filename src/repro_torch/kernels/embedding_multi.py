@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.tracing import count
 
 __all__ = [
     "DEDUP_WINDOW_BITS",
@@ -478,6 +479,8 @@ def multi_embedding_bag_ragged_plain(
     rows_u = rank = None
     if unique_cap:
         uniq, rank, lidx = dedup_indices(lidx, unique_cap)
+        count("unique_rows", uniq)
+        count("spilled", lidx)  # the spill replaces the ids
         rows_u = gather_unique_rows_plain(buffer, uniq, step_block, runs, block_r=block_r)
     for core, slot, first, n, _code in runs.tolist():
         valid, rows = _window_rows(lidx[core, slot].long(), blocks[core], first, n, block_r)
@@ -652,6 +655,8 @@ def _launch_access(buffer, lidx, step_block, runs, block_r, unique_cap, cache, h
         rank = rows_u = None
         if unique_cap:
             uniq, rank, lidx = _launch_dedup(lidx, unique_cap, stream)
+            count("unique_rows", uniq)
+            count("spilled", lidx)  # the spill replaces the ids
             rows_u, gather_path = _launch_gather(buffer, uniq, step_block, runs, block_r, stream)
             paths[f"gather_{gather_path}"] += 1
         stage_cache = int(cache_rows * e * item <= CACHE_STAGE_BYTES)

@@ -35,6 +35,7 @@ from torch import nn
 from repro_torch.core.embedding import PartitionedEmbeddingBag
 from repro_torch.core.tables import Workload
 from repro_torch.models.layers import dense_init
+from repro_torch.tracing import span
 from repro_torch.tree import value_and_grad
 
 __all__ = [
@@ -271,5 +272,9 @@ def forward_packed(
         from repro_torch.core.partition import batch_share
 
         dense = batch_share(dense, mesh, batch_axes, dim=0)
-    bot = mlp_params["bottom"](dense)
-    return mlp_params["top"](interact(bot, emb.to(bot.dtype)))[..., 0]
+    with span("step.bottom_mlp"):
+        bot = mlp_params["bottom"](dense)
+    with span("step.interact"):
+        z = interact(bot, emb.to(bot.dtype))
+    with span("step.top_mlp"):
+        return mlp_params["top"](z)[..., 0]
