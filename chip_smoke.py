@@ -37,8 +37,10 @@ X] <message>`` before it raises):
       (``layout=dense``): 15 whole-table chunks in (8, 2) slots, every slot
       padded to 1,141,737 rows (a 1.17 GB f32 buffer), through the dense
       kernel.
-   Each checks the request accounting, finite logits, the launch counters,
-   that its server has no plain fallback step, and the pooled output of its
+   Each checks the request accounting, finite logits, the launch counters
+   (the join kernel, ``slot_rejoin``, launched once for each sparse lookup
+   of the fused kernels the run made on the card, on every path), that its
+   server has no plain fallback step, and the pooled output of its
    last served batch against the same engine built on the CPU (the kernels'
    plain versions; path D's twin packs the block sizes the card's sweep
    chose);
@@ -81,7 +83,14 @@ X] <message>`` before it raises):
    size the sweep tries, the served call's device time by kernel and its
    launches beside ``F.embedding_bag``'s, each output bitwise equal to its
    plain version.  Path D's record carries the sweep's ``device_us`` for
-   every candidate, and its pick must be the least;
+   every candidate, and its pick must be the least.  The join
+   (``slot_rejoin``, a kernel of the port's own) on path D's slot partials
+   of its last served batch repeated 32 times along the batch (B =
+   262,144, the benchmark's), and on paths D, C, A and E's own: bitwise
+   equal to its plain version on the same card tensors and to the plain
+   join it replaced (``_scatter_slots`` + ``_sparse_rejoin``), timed
+   beside both, with its vector or scalar path and its bound (each
+   schedule term's plane read once, each table's written once);
 5. the shipped presets through the serve entry point, each at the
    preset's own batch, with the counts set to 0 just before and read just
    after each (these run last, so no profiler session of this script's own
@@ -132,7 +141,10 @@ X] <message>`` before it raises):
       twin included), and: two hosts and those five tables in the plan's
       mesh record, an owner core on each host for a row-sharded table, no
       cross-host send and no symmetric group, the dedup kernels launched,
-      the report's host tree and mesh line;
+      the report's host tree and mesh line, and the join on the served
+      batch's slot partials bitwise equal to its plain version (the plain
+      join on the card sums a table's owners in no fixed order: within
+      1e-5);
    S. each registered scenario tower (dlrm, mamba2, moe, transformer) built
       by name from its registry config and served for 16 batches of 64:
       every request served, the last batch's scores bitwise equal to the
@@ -345,9 +357,13 @@ M_ROCKS = [0, 1, 3, 4, 5]
 # the scenario towers (S): 16 batches of 64 each, fixed arrivals
 S_BATCHES = 16
 ACCESS_SRC = "src/repro_torch/csrc/embedding_access.cu"
+# the join is timed on path D's slot partials repeated to the benchmark's
+# batch of 262,144 too
+REJOIN_TILE = 32
 KERNELS = {
     # name: (wrapper module, wrapper, launch mode counted (None = every
-    # launch), source, the Pallas kernel it replaces)
+    # launch), source, the Pallas kernel it replaces (None: a kernel of the
+    # port's own))
     "multi_embedding_bag_ragged": (
         "embedding_multi", "multi_embedding_bag_ragged", "base",
         "src/repro_torch/csrc/embedding_multi.cu", "src/repro/kernels/embedding_multi.py:139"),
@@ -375,6 +391,8 @@ KERNELS = {
     "batch_dedup": ("embedding_multi", "batch_dedup", None,
                     "src/repro_torch/csrc/embedding_dedup.cu",
                     "src/repro/kernels/embedding_multi.py:281"),
+    "slot_rejoin": ("embedding_rejoin", "slot_rejoin", None,
+                    "src/repro_torch/csrc/embedding_rejoin.cu", None),
 }
 
 
@@ -422,6 +440,32 @@ def reset_counts() -> None:
 def read_counts() -> dict:
     return {name: fn.modes[KERNELS[name][2]] if KERNELS[name][2] else fn.launches
             for name, fn in wrappers().items()}
+
+
+@contextlib.contextmanager
+def sparse_lookups():
+    """Count, while the block runs, the lookups that must launch the join
+    kernel once each: one-card lookups (no mesh) of the fused kernels with
+    the sparse rejoin, on a pack on the card.  Every lookup goes through
+    ``EmbeddingBag.apply`` and so through the embedding module's
+    ``partitioned_lookup``, wrapped here; yields ``[count]``."""
+    from repro_torch.core import embedding
+
+    inner = embedding.partitioned_lookup
+    seen = [0]
+
+    def counted(packed, indices, **kw):
+        out = inner(packed, indices, **kw)
+        if (kw.get("mesh") is None and kw.get("use_kernels", "fused") == "fused"
+                and kw.get("reduce_mode", "sparse") == "sparse" and packed.device.type == "cuda"):
+            seen[0] += 1
+        return out
+
+    embedding.partitioned_lookup = counted
+    try:
+        yield seen
+    finally:
+        embedding.partitioned_lookup = inner
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -564,10 +608,14 @@ def main_path(label: str, argv=None) -> dict:
     args = serve.build_parser().parse_args(argv)
     reset_counts()
     t0 = time.perf_counter()
-    res = serve.main(argv)
+    with sparse_lookups() as sparse:
+        res = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    check(sparse[0] > 0 and counts["slot_rejoin"] == sparse[0],
+          f"[main {label}] {counts['slot_rejoin']} join launches for {sparse[0]} sparse "
+          "lookups on the card")
     l1_modes = dict(wrappers()["embedding_bag_l1"].modes)
     access_paths = dict(wrappers()["multi_embedding_bag_ragged"].paths)
     dense_paths = dict(wrappers()["multi_embedding_bag_dense"].paths)
@@ -642,7 +690,7 @@ def main_path(label: str, argv=None) -> dict:
                  "symmetric": [[t, st.name] for t, st in zip(
                      engine.plan.symmetric_tables, engine.plan.symmetric_strategies)]},
         "launches": counts, "l1_modes": l1_modes, "access_paths": access_paths,
-        "dense_paths": dense_paths,
+        "dense_paths": dense_paths, "sparse_lookups": sparse[0],
         "pooled_max_err": pooled_err, "logit_max_err": logit_err,
     }
     if engine.packed.unique_cap or engine.packed.cache_rows:
@@ -1646,6 +1694,60 @@ def gm_pooled_case(table, ids) -> dict:
     return rec
 
 
+def _rejoin_record(engine, idx, case: str, *, tile: int = 1, two_level: bool = False) -> dict:
+    """The join kernel on a path's own slot partials: the fused kernel's
+    (K, S, B, E) partials of the last served batch, on the card (with
+    ``tile``, repeated that many times along the batch), joined by
+    ``slot_rejoin``, by ``slot_rejoin_plain`` on the same card tensors
+    (bitwise) and by the plain join it replaced (``_scatter_slots`` +
+    ``_sparse_rejoin``: bitwise, or within ``TOL`` on a ``two_level`` plan,
+    whose tables may have owners on both hosts that ``index_add_`` sums on
+    the card in no fixed order).  Timed with CUDA events and the profiler
+    beside both (not on a two-level plan, which only checks the order);
+    bound: each term's plane read once, each table's plane written once."""
+    import torch
+
+    from repro_torch.core import partition
+    from repro_torch.kernels.embedding_rejoin import slot_rejoin, slot_rejoin_plain
+
+    packed, n = engine.packed, engine.bag.n_tables
+    partials = partition._slot_partials(packed, torch.as_tensor(idx, device=packed.device),
+                                        use_kernels="fused").repeat(1, 1, tile, 1)
+    ptr, terms = packed.rejoin_ptr, packed.rejoin_terms
+    paths = dict(slot_rejoin.paths)
+    got = slot_rejoin(partials, ptr, terms)
+    path = [k for k, v in slot_rejoin.paths.items() if v > paths[k]]
+    plain = slot_rejoin_plain(partials, ptr, terms)
+
+    def replaced():
+        return partition._sparse_rejoin(partition._scatter_slots(packed, partials, n), packed)
+
+    chain = replaced()
+    bits = [torch.equal(got.view(torch.int32), x.view(torch.int32)) for x in (plain, chain)]
+    chain_err = float((got - chain).abs().max()) if got.numel() else 0.0
+    check(bits[0], f"[kernel slot_rejoin {case}] not bitwise equal to slot_rejoin_plain")
+    check(torch.allclose(got, chain, **TOL) if two_level else bits[1],
+          f"[kernel slot_rejoin {case}] off the plain join by {chain_err}")
+    k, s_slots, b, e = partials.shape
+    t = int(terms.numel())
+    rec = {"kernel": "slot_rejoin", "case": case, "dtype": "float32", "K": k, "S": s_slots,
+           "N": n, "B": b, "E": e, "terms": t, "path": path, "max_err": 0.0,
+           "bitwise_vs_plain": bits[0], "bitwise_vs_plain_join": bits[1],
+           "plain_join_max_err": chain_err}
+    if two_level:
+        return rec
+
+    def kernel():
+        slot_rejoin(partials, ptr, terms)
+
+    rec.update({"ms": time_ms(kernel), "plain_ms": time_ms(
+        lambda: slot_rejoin_plain(partials, ptr, terms)), "library_ms": None,
+        "plain_join_ms": time_ms(replaced), **device_times(kernel),
+        "plain_join_device_ms": profile_calls(replaced)["device_ms"]})
+    rec["bound_ms"], rec["bound_by"] = bound((t + n) * b * e * 4, t * b * e)
+    return rec
+
+
 def kernel_phase(paths: dict, counts: dict) -> list:
     import torch
 
@@ -1708,6 +1810,13 @@ def kernel_phase(paths: dict, counts: dict) -> list:
     recs["embedding_bag_l1"] += l1_mode_cases()
     recs["embedding_bag_gm"].append(gm_pooled_case(gm_table, gm_ids))
     recs["embedding_bag_ub"] += ub_cases(ub_table, ub_ids, recs["embedding_bag_ub"][0])
+    d = paths["D"]  # first: priced as the benchmark's taobao plan, at its batch
+    recs["slot_rejoin"].append(_rejoin_record(
+        d["engine"], d["indices"], f"path D repeated {REJOIN_TILE} times along the batch",
+        tile=REJOIN_TILE))
+    for label in ("D", "C", "A", "E"):
+        recs["slot_rejoin"].append(_rejoin_record(
+            paths[label]["engine"], paths[label]["indices"], f"path {label}"))
     out = []
     for name, rs in recs.items():
         for r in rs:
@@ -2231,6 +2340,7 @@ def mesh_path() -> dict:
     check(not engine.plan.symmetric_tables, "[M] the hierarchical plan has a symmetric group")
     check(counts["multi_embedding_bag_ragged[dedup]"] > 0 and counts["batch_dedup"] > 0,
           f"[M] the dedup kernels not launched: {counts}")
+    join = _rejoin_record(engine, idx, "path M (owners on both hosts)", two_level=True)
     report = engine.plan_report()
     check(all(k in report for k in ("host 0", "host 1", "mesh 2x4")),
           "[M] the plan report lacks its host tree or mesh line")
@@ -2243,7 +2353,7 @@ def mesh_path() -> dict:
         "lookup_launches": lookup["launches_per_call"], "lookup_kernels_ms": lookup["kernels_ms"],
         "chunks": len(engine.plan.assignments), "rocks": mesh["rocks"],
         "host_tables": mesh["host_tables"], "tables_on_both_hosts": split,
-        "unique_cap": engine.packed.unique_cap, "rejoin": rejoin,
+        "unique_cap": engine.packed.unique_cap, "rejoin": rejoin, "join": join,
         "modeled_under": engine.config.hardware, **xh}), flush=True)
     return {"counts": counts}
 

@@ -8,7 +8,9 @@ grid tiles the batch itself).
 
 :func:`autotune_block_sizes` packs the plan abstractly (zero tables) at
 each candidate on the serving device, runs the fused lookup of every core
-with synthetic indices drawn from the histograms, and records the sweep in
+with synthetic indices drawn from the histograms (the kernel's per-slot
+partials; the join after it moves the same bytes under every block size),
+and records the sweep in
 ``plan.meta["tuning"]`` with the reference's keys.  Every candidate carries
 ``wall_us``, the host clock around ``iters`` lookups ending in a
 synchronize, and ``device_us``.  On the card ``device_us`` is the card's own
@@ -47,7 +49,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cost_model import freq_of
-from repro_torch.core.partition import _fused_asym_lookup, pack_plan
+from repro_torch.core.partition import _fused_slot_partials, pack_plan
 from repro_torch.core.strategies import Plan
 from repro_torch.core.tables import TableSpec
 
@@ -288,7 +290,7 @@ def autotune_block_sizes(
                             )
 
                             def run():
-                                _fused_asym_lookup(packed, idx, n_tables=len(tables))
+                                _fused_slot_partials(packed, idx)
 
                             run()  # warm-up (builds the kernels on first use)
                             sync()

@@ -31,8 +31,12 @@ for field:
 The rejoins become device-local reductions of the per-core ``(N, B, E)``
 partials that reproduce the reference's collectives: ``"sparse"`` sums each
 table's partials at its owner bucket and gathers the buckets, ``"psum"``
-sums over cores, ``"ring"`` accumulates in core 0's ring order.  The
-reference splits the symmetric group's batch over the K cores (core ``c``
+sums over cores, ``"ring"`` accumulates in core 0's ring order.  On the
+card the ``"sparse"`` rejoin of the fused kernels' partials is one kernel
+(:func:`repro_torch.kernels.embedding_rejoin.slot_rejoin`) that joins the
+per-slot partials straight into the output, in the plain path's order of
+additions, from a schedule written at pack time.  The reference splits
+the symmetric group's batch over the K cores (core ``c``
 serves rows ``[c*B/K, (c+1)*B/K)``); side by side the K slices are the whole
 batch, so here one launch per table serves the whole batch.  The port still
 requires ``B % K == 0`` there, only so that it accepts the batches the
@@ -78,6 +82,7 @@ from repro_torch.kernels.embedding_multi import (
     ragged_runs,
     ragged_stage_rows,
 )
+from repro_torch.kernels.embedding_rejoin import rejoin_schedule, slot_rejoin
 from repro_torch.kernels.ops import strategy_bag
 from repro_torch.tracing import count, span
 
@@ -123,7 +128,11 @@ class PackedPlan:
     and ``rejoin_owned_pos[t]`` is table ``t``'s position in its owner's
     bucket.  Port-only: ``step_runs`` is the schedule collapsed into the
     fused kernel's per-slot runs, on the device, and ``stage_rows`` the
-    kernel's shared-memory staging capacity; ``host`` holds numpy copies of
+    kernel's shared-memory staging capacity; ``rejoin_ptr``/``rejoin_terms``
+    are the whole pack's sparse rejoin written down as one join of the slot
+    partials (:func:`repro_torch.kernels.embedding_rejoin.rejoin_schedule`,
+    on the device; one rank's slice keeps them, and its executor does not
+    read them); ``host`` holds numpy copies of
     the ``sym_*`` metadata, which the executor reads on the host, and, in
     one rank's slice, the ``fingerprint`` of the whole pack it came from.
     """
@@ -182,6 +191,8 @@ class PackedPlan:
     # port-only: the fused kernel's inputs made once at pack time
     step_runs: Any = None  # (n_runs, 5) int32 (core, slot, first, n_steps, code)
     stage_rows: int = 0  # shared-memory rows for staging L1-coded regions
+    rejoin_ptr: Any = None  # (N+1,) int32 first schedule term of each table
+    rejoin_terms: Any = None  # (T,) int32 slot plane * 4 + end-of-sum flags
     # port-only: host-side copies the executor reads without a device sync
     host: dict = dataclasses.field(default_factory=dict, repr=False)
 
@@ -729,6 +740,8 @@ def pack_plan(
     }
     tensors = {name: torch.as_tensor(arr) for name, arr in ints.items()}
     runs = ragged_runs(step_slot, step_base, step_strategy, br, max_slots)
+    rejoin_ptr, rejoin_terms = rejoin_schedule(
+        slot_table, rejoin_send, rejoin_owned_pos, rejoin_bucket, len(tables))
     host = {
         "sym_table": sym_table, "sym_rows": sym_rows, "sym_strategy": sym_strategy,
     }
@@ -745,6 +758,8 @@ def pack_plan(
         kernel_path=kernel_resolved,
         step_runs=torch.as_tensor(runs),
         stage_rows=ragged_stage_rows(runs, br, e * itemsize),
+        rejoin_ptr=torch.as_tensor(rejoin_ptr),
+        rejoin_terms=torch.as_tensor(rejoin_terms),
         host=host,
         **tensors,
     )
@@ -801,7 +816,11 @@ def _slot_indices(packed: PackedPlan, indices: torch.Tensor):
 def _scatter_slots(packed: PackedPlan, pooled: torch.Tensor, n_tables: int) -> torch.Tensor:
     """(K, S, B, E) per-slot partials -> (K, N, B, E) per-table partials.
     One add per slot index, each onto distinct (core, table) rows, so the
-    sum order is fixed."""
+    sum order is fixed.  The first stage of the plain join: the card's
+    sparse path does not come here (:func:`partitioned_lookup` joins its
+    slot partials with :func:`slot_rejoin`, held bitwise to this stage and
+    :func:`_sparse_rejoin` after it); the CPU, the ``psum`` and ``ring``
+    rejoins, the mesh path and partials that carry a gradient do."""
     k, s_slots, b, e = pooled.shape
     with span("lookup.scatter"):
         out = pooled.new_zeros((k * n_tables + 1, b, e))
@@ -816,15 +835,21 @@ def _scatter_slots(packed: PackedPlan, pooled: torch.Tensor, n_tables: int) -> t
 def _local_asym_lookup(
     packed: PackedPlan, indices: torch.Tensor, *, n_tables: int, use_kernels
 ) -> torch.Tensor:
-    """indices (N, B, s) -> per-core partials (K, N, B, E) f32 (pre-rejoin).
+    """indices (N, B, s) -> per-core partials (K, N, B, E) f32 (pre-rejoin)."""
+    return _scatter_slots(packed, _slot_partials(packed, indices, use_kernels=use_kernels),
+                          n_tables)
+
+
+def _slot_partials(packed: PackedPlan, indices: torch.Tensor, *, use_kernels) -> torch.Tensor:
+    """indices (N, B, s) -> per-slot partials (K, S, B, E) f32.
 
     ``use_kernels``: ``"fused"`` = the layout's fused kernel over all cores
     in one launch; ``False`` = the plain gather path.
     """
     if use_kernels == "fused":
-        return _fused_asym_lookup(packed, indices, n_tables=n_tables)
+        return _fused_slot_partials(packed, indices)
     if packed.layout == "dense":
-        return _dense_asym_lookup(packed, indices, n_tables=n_tables)
+        return _dense_slot_partials(packed, indices)
     buffer = packed.chunk_data  # (K, T+1, E)
     with span("lookup.slot_ids"):
         local, valid = _slot_indices(packed, indices)
@@ -833,8 +858,7 @@ def _local_asym_lookup(
         gidx = torch.where(valid, start + local, zrow)  # (K, S, B, s)
     with span("lookup.access"):
         cores = torch.arange(packed.n_cores, device=buffer.device)[:, None, None, None]
-        pooled = buffer[cores, gidx].float().sum(dim=3)  # (K, S, B, E)
-    return _scatter_slots(packed, pooled, n_tables)
+        return buffer[cores, gidx].float().sum(dim=3)  # (K, S, B, E)
 
 
 def _dense_ids(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
@@ -846,14 +870,11 @@ def _dense_ids(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
         return torch.where(valid, local, rpad)
 
 
-def _dense_asym_lookup(
-    packed: PackedPlan, indices: torch.Tensor, *, n_tables: int
-) -> torch.Tensor:
-    """The plain stacked-slot gather over (K, S, R+1, E) -> (K, N, B, E)."""
+def _dense_slot_partials(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
+    """The plain stacked-slot gather over (K, S, R+1, E) -> (K, S, B, E)."""
     ids = _dense_ids(packed, indices)
     with span("lookup.access"):
-        pooled = multi_embedding_bag_dense_plain(packed.chunk_data, ids)
-    return _scatter_slots(packed, pooled, n_tables)
+        return multi_embedding_bag_dense_plain(packed.chunk_data, ids)
 
 
 def _fused_ids(packed: PackedPlan, indices: torch.Tensor):
@@ -879,10 +900,8 @@ def _fused_ids(packed: PackedPlan, indices: torch.Tensor):
         return torch.where(hidx >= 0, -1, lidx), hidx
 
 
-def _fused_asym_lookup(
-    packed: PackedPlan, indices: torch.Tensor, *, n_tables: int
-) -> torch.Tensor:
-    """One fused-kernel launch for every slot of every core -> (K, N, B, E)."""
+def _fused_slot_partials(packed: PackedPlan, indices: torch.Tensor) -> torch.Tensor:
+    """One fused-kernel launch for every slot of every core -> (K, S, B, E)."""
     k, s_slots = packed.slot_table.shape
     b = indices.shape[1]
     e = packed.chunk_data.shape[-1]
@@ -910,7 +929,7 @@ def _fused_asym_lookup(
                 step_slot=packed.step_slot,
                 step_base=packed.step_base,
             )
-    return _scatter_slots(packed, pooled, n_tables)
+    return pooled
 
 
 def _local_sym_lookup(
@@ -952,7 +971,13 @@ def _sparse_rejoin(local: torch.Tensor, packed: PackedPlan) -> torch.Tensor:
     Reproduces the reference's ``all_to_all`` + ``all_gather``: each core's
     partial rows of the tables an owner holds land in that owner's bucket
     (summed in sender order), and the buckets are gathered back into the
-    (N, B, E) output.  Tables held by no core come out zero."""
+    (N, B, E) output, in bucket row order.  Tables held by no core come out
+    zero.  The plain path's rejoin, after :func:`_scatter_slots`, and the
+    reference that :func:`slot_rejoin` (the card's sparse path, which does
+    not come here) is held to bitwise.  On the card, where several owners
+    hold one table (two-level maps), the last ``index_add_`` sums them in
+    no fixed order; :func:`slot_rejoin` and the CPU sum them in bucket row
+    order."""
     k, n_tables, b, e = local.shape
     send = packed.rejoin_send.long()  # (K, K, n_send)
     o = packed.rejoin_bucket.shape[1]
@@ -1183,6 +1208,17 @@ def partitioned_lookup(
     CPU tensors); False = the plain gather path.  ``reduce_mode``: "sparse"
     (default, owner-sharded), "psum" or "ring" — equal results.
 
+    The per-slot partials (K, S, B, E) are joined into the output in one of
+    two ways, with bitwise equal results.  On the card, for the fused
+    kernels' ``"sparse"`` rejoin of a whole pack whose partials carry no
+    gradient, one launch of :func:`slot_rejoin` under the ``lookup.rejoin``
+    span, following the pack's ``rejoin_ptr``/``rejoin_terms``.  Everywhere
+    else (CPU tensors, ``use_kernels=False``, ``"psum"``, ``"ring"``,
+    partials that carry a gradient, the mesh path) the plain join:
+    :func:`_scatter_slots` into per-core partials (K, N, B, E) under
+    ``lookup.scatter``, then the rejoin (:func:`_sparse_rejoin`, the plain
+    path and the kernel's reference) under ``lookup.rejoin``.
+
     ``mesh`` (a ``DeviceMesh``; every rank of it calls this with the same
     indices) runs each plan core as its own rank: ``packed`` is this rank's
     slice (``pack_plan(..., core=<rank along axis>)``) and ``axis`` the dim
@@ -1207,16 +1243,20 @@ def partitioned_lookup(
                 f"this pack is one core's slice of a {packed.rejoin_send.shape[0]}-core "
                 "plan: look it up across the device mesh (mesh=)"
             )
-        local = _local_asym_lookup(
-            packed, indices, n_tables=n_tables, use_kernels=use_kernels
-        )
-        with span("lookup.rejoin"):
-            if reduce_mode == "sparse":
-                out = _sparse_rejoin(local, packed)
-            elif reduce_mode == "ring":
-                out = _ring_psum(local)
-            else:
-                out = local.sum(dim=0)
+        pooled = _slot_partials(packed, indices, use_kernels=use_kernels)
+        if (reduce_mode == "sparse" and use_kernels == "fused" and pooled.is_cuda
+                and not pooled.requires_grad):
+            with span("lookup.rejoin"):
+                out = slot_rejoin(pooled, packed.rejoin_ptr, packed.rejoin_terms)
+        else:
+            local = _scatter_slots(packed, pooled, n_tables)
+            with span("lookup.rejoin"):
+                if reduce_mode == "sparse":
+                    out = _sparse_rejoin(local, packed)
+                elif reduce_mode == "ring":
+                    out = _ring_psum(local)
+                else:
+                    out = local.sum(dim=0)
         if packed.sym_data.shape[0]:
             # the reference splits this group's batch over the K cores; one
             # launch per table here serves the whole batch, and the check only

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "build", "build_dir", "build_ranks", "c_function", "check_
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("embedding_multi", "embedding_access", "embedding_dedup", "embedding_dense",
-           "embedding_ub", "embedding_gm", "embedding_l1")
+           "embedding_ub", "embedding_gm", "embedding_l1", "embedding_rejoin")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -16,7 +16,8 @@ profiled stretch.
 
 Spans: ``lookup`` (:func:`repro_torch.core.partition.partitioned_lookup`)
 with ``lookup.index_copy``, ``lookup.slot_ids``, ``lookup.access``,
-``lookup.scatter`` and ``lookup.rejoin`` inside it; ``step.bottom_mlp``,
+``lookup.scatter`` (the plain join only: the card's sparse rejoin has
+none) and ``lookup.rejoin`` inside it; ``step.bottom_mlp``,
 ``step.interact`` and ``step.top_mlp``
 (:func:`repro_torch.models.dlrm.forward_packed`).  Counters: ``lookups``
 (valid lookups) and ``cache_hits`` (those the residency cache serves), from

@@ -14,15 +14,18 @@ and the dense kernel and their plain versions at every s (all sum in
 position order from 0.0) and the UB, GM and L1
 kernels and ``bag_f32`` for s = 1 (a row copy).  The dedup kernel is held
 array-equal to ``dedup_indices``, the unique-row gather to
-``gather_unique_rows_plain``.
+``gather_unique_rows_plain``, and the slot join bitwise to its plain
+version (both add in the plain join's order from 0.0).
 """
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.strategies import ALL_STRATEGIES
+from repro_torch.core.tables import make_workload
 from repro_torch.data.workloads import small_workload
 from repro_torch.engine import EngineConfig, InferenceEngine
 from repro_torch.kernels import build, ops, ref
@@ -48,7 +51,9 @@ from repro_torch.kernels.embedding_multi import (
     ragged_runs,
     ragged_stage_rows,
 )
+from repro_torch.kernels.embedding_rejoin import slot_rejoin, slot_rejoin_plain
 from repro_torch.kernels.embedding_ub import embedding_bag_ub
+from test_torch_rejoin import CASES as JOIN_CASES, _random_partials as join_random_partials
 
 pytestmark = pytest.mark.cuda
 
@@ -966,6 +971,123 @@ def test_access_scalar_path_matches_plain(cuda, dtype, e, unaligned, s):
     if s == 1:
         assert torch.equal(got, want)
     torch.testing.assert_close(got, want, **TOL)
+
+
+# --------------------------------------------------------------------------
+# the slot join: the card's sparse rejoin
+# --------------------------------------------------------------------------
+
+SERVED = Path(__file__).resolve().parent.parent / "portbench" / "configs"
+
+
+def _served_pack(name, b):
+    """The benchmark configuration ``name`` packed on the host as it is
+    served (zero tables: the join reads only the plan's maps)."""
+    cfg = json.loads((SERVED / f"dlrm-{name}.json").read_text())
+    wl = make_workload(cfg["name"], cfg["rows"], dim=cfg["embed_dim"], seqs=cfg["seqs"],
+                       batch=b, dtype_bytes=cfg["plan_dtype_bytes"])
+    config = EngineConfig.from_dict({**cfg["engine"], "dtype": cfg["dtype"]})
+    return InferenceEngine.build("abstract", wl, config, device="cpu").packed
+
+
+def _join_partials(k, s, b, e, seed):
+    """Normal partials with a tenth of the entries -0.0 and a tenth +0.0."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((k, s, b, e), generator=g)
+    pick = torch.rand((k, s, b, e), generator=g)
+    x[pick < 0.1] = -0.0
+    x[(pick >= 0.1) & (pick < 0.2)] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("name", ["taobao", "tenrec"])
+@pytest.mark.parametrize("b,e,path", [(262_144, 16, "vector"), (1000, 16, "vector"),
+                                      (1001, 6, "scalar")])
+def test_rejoin_kernel_bitwise_equal_to_plain(cuda, name, b, e, path):
+    """The join kernel at the served shapes (B = 262,144), at a batch whose
+    plane is no multiple of the CTA, and on single floats (a plane of an
+    odd number of pairs), bit for bit its plain version's, -0.0 included."""
+    packed = _served_pack(name, b)
+    k, s = packed.slot_table.shape
+    partials = _join_partials(k, s, b, e, seed=b)
+    ptr, terms = packed.rejoin_ptr, packed.rejoin_terms
+    want = slot_rejoin_plain(partials, ptr, terms)
+    before = slot_rejoin.launches, dict(slot_rejoin.paths)
+    got = slot_rejoin(partials.to(cuda), ptr.to(cuda), terms.to(cuda))
+    torch.cuda.synchronize()
+    assert slot_rejoin.launches == before[0] + 1
+    assert slot_rejoin.paths[path] == before[1][path] + 1
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("case", list(JOIN_CASES))
+def test_rejoin_kernel_on_every_kind_of_pack(cuda, case):
+    """The join kernel, bit for bit its plain version, on the CPU tests'
+    packs: several slots of one table on one core, replicas, the two-level
+    maps, empty slots beside a table no core holds, -0.0 partials."""
+    packed, _, partials = JOIN_CASES[case]()
+    for x in ([] if partials is None else [partials]) + [join_random_partials(packed)]:
+        want = slot_rejoin_plain(x, packed.rejoin_ptr, packed.rejoin_terms)
+        got = slot_rejoin(x.to(cuda), packed.rejoin_ptr.to(cuda), packed.rejoin_terms.to(cuda))
+        assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _join_engines(cuda):
+    wl = small_workload(batch=64)
+    config = EngineConfig(mesh_shape=(1, 4), distribution="uniform",
+                          planner_options={"shard_rocks": False})
+    tables = [torch.randn((t.rows, t.dim), generator=torch.Generator().manual_seed(i))
+              for i, t in enumerate(wl.tables)]
+    gpu = InferenceEngine.build(tables, wl, config)
+    cpu = InferenceEngine.build(tables, wl, config, device="cpu")
+    rng = np.random.default_rng(4)
+    idx = np.full((len(wl.tables), 64, 4), -1, np.int32)
+    for i, t in enumerate(wl.tables):
+        idx[i, :, : t.seq] = rng.integers(0, t.rows, size=(64, t.seq))
+    return gpu, cpu, idx
+
+
+def test_sparse_lookup_on_card_launches_the_join_once(cuda):
+    """A served sparse lookup on the card launches the fused access kernel
+    once and the join once; the result is the CPU engine's, and bit for bit
+    the plain join of the card's own slot partials.  ``psum`` and ``ring``
+    keep the plain join and launch no join."""
+    from repro_torch.core import partition
+
+    gpu, cpu, idx = _join_engines(cuda)
+    for _ in range(2):
+        before = slot_rejoin.launches, multi_embedding_bag_ragged.launches
+        got = gpu.lookup(idx)
+        torch.cuda.synchronize()
+        assert slot_rejoin.launches == before[0] + 1
+        assert multi_embedding_bag_ragged.launches == before[1] + 1
+    torch.testing.assert_close(got.cpu(), cpu.lookup(idx), **TOL)
+    packed, n_tables = gpu.packed, gpu.bag.n_tables
+    sidx = torch.as_tensor(idx, device=cuda)
+    pooled = partition._slot_partials(packed, sidx, use_kernels="fused")
+    plain = partition._sparse_rejoin(partition._scatter_slots(packed, pooled, n_tables), packed)
+    joined = slot_rejoin(pooled, packed.rejoin_ptr, packed.rejoin_terms)
+    assert torch.equal(joined.view(torch.int32), plain.view(torch.int32))
+    for reduce_mode in ("psum", "ring"):
+        gpu.config.reduce_mode = cpu.config.reduce_mode = reduce_mode
+        before = slot_rejoin.launches
+        torch.testing.assert_close(gpu.lookup(idx).cpu(), cpu.lookup(idx), **TOL)
+        assert slot_rejoin.launches == before
+
+
+def test_lookup_spans_on_card(cuda):
+    """Under a profiler the card's sparse lookup opens ``repro.lookup`` with
+    the child spans ``index_copy``, ``slot_ids``, ``access`` and
+    ``rejoin``: the join has no ``scatter`` stage."""
+    gpu, _, idx = _join_engines(cuda)
+    gpu.lookup(idx)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        gpu.lookup(idx)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events() if e.name.startswith("repro.lookup")}
+    assert names == {"repro.lookup", "repro.lookup.index_copy", "repro.lookup.slot_ids",
+                     "repro.lookup.access", "repro.lookup.rejoin"}
 
 
 def test_sweep_on_the_card_ranks_by_device_time(cuda):
