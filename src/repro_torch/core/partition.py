@@ -798,10 +798,12 @@ def _replica_bmask(packed: PackedPlan, b: int) -> torch.Tensor:
 
 
 def _slot_indices(packed: PackedPlan, indices: torch.Tensor):
-    """Chunk-local ids of every slot: ``(local, valid)``, both (K, S, B, s)."""
+    """Chunk-local ids of every slot: ``(local, valid)``, both (K, S, B, s).
+    Counts ``slot_id_entries``."""
     b = indices.shape[1]
     ti = packed.slot_table.long()
     idx = indices.long()[ti.clamp(min=0)]  # (K, S, B, s)
+    count("slot_id_entries", idx.numel())
     local = idx - packed.slot_offset.long()[..., None, None]
     valid = (
         (idx >= 0)
@@ -1231,7 +1233,10 @@ def partitioned_lookup(
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}")
     with span("lookup"):
         with span("lookup.index_copy"):
+            moved = not (isinstance(indices, torch.Tensor) and indices.device == packed.device)
             indices = torch.as_tensor(indices, device=packed.device)
+            count("index_entries", indices.numel())
+            count("index_copy_bytes", indices.numel() * indices.element_size() if moved else 0)
         if mesh is not None:
             return _mesh_lookup(packed, indices, mesh=mesh, axis=axis,
                                 batch_axes=tuple(batch_axes), n_tables=n_tables,

@@ -22,7 +22,12 @@ none) and ``lookup.rejoin`` inside it; ``step.bottom_mlp``,
 (:func:`repro_torch.models.dlrm.forward_packed`).  Counters: ``lookups``
 (valid lookups) and ``cache_hits`` (those the residency cache serves), from
 the hot/cold split; ``unique_rows`` and ``spilled`` (lookups past
-``unique_cap``, read row by row), from the batch dedup.
+``unique_cap``, read row by row), from the batch dedup; ``index_entries``
+(entries of the ``(N, B, s)`` indices, ``-1`` padding included) and
+``index_copy_bytes`` (their bytes where they arrive as anything but a
+tensor on the lookup's device, else 0), from the index copy;
+``slot_id_entries`` (entries of every slot's ``(K, S, B, s)`` ids), from
+the slot ids.
 """
 from __future__ import annotations
 

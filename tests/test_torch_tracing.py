@@ -9,14 +9,24 @@ small engine with batch dedup and the hot-row cache armed.
   it, on every layout, executor path and rejoin.
 * The counters equal a recount from ``_fused_ids`` and ``dedup_indices``:
   ``cache_hits + ranked + spilled == lookups``, and a batch past
-  ``unique_cap`` spills.
+  ``unique_cap`` spills; the index and slot-id counters equal the entries
+  and bytes of the multi-hot batch (``s`` up to 4), and the copy's bytes
+  are 0 for indices already on the device.
 * Counting leaves the pooled outputs and the logits bitwise as they were.
+* The benchmark's readers of the index and slot-id counters
+  (``portbench/metrics/index_pad_share.py``, ``slot_id_pad_share.py``,
+  ``index_copy_roofline.py``) give nothing where a counter or the span is
+  absent.
 """
+import types
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from portbench import spec
 from repro_torch import tracing
 from repro_torch.core.partition import _fused_ids
 from repro_torch.data.workloads import small_workload
@@ -28,6 +38,8 @@ ACCESS = dict(mesh_shape=(1, 4), distribution="zipf:1.2", hardware="a100", acces
 LOOKUP_CHILDREN = ["index_copy", "slot_ids", "access", "scatter", "rejoin"]
 STEP_SPANS = ["repro.step.bottom_mlp", "repro.step.interact", "repro.step.top_mlp"]
 B = 256
+COUNTERS = {"lookups", "cache_hits", "unique_rows", "spilled", "index_entries",
+            "index_copy_bytes", "slot_id_entries"}
 
 
 def _model(**config):
@@ -75,7 +87,7 @@ def test_without_a_profiler_spans_are_one_noop_and_only_counting_fills(model):
     with tracing.counting() as counts:
         assert counts == {}
         _forward(cfg, params, engine, idx)
-    assert set(counts) == {"lookups", "cache_hits", "unique_rows", "spilled"}
+    assert set(counts) == COUNTERS
     assert all(type(v) is int and v >= 0 for v in counts.values())
     with tracing.counting() as again:
         pass
@@ -113,7 +125,8 @@ def _recount(engine, idx) -> dict:
     uniq, rank, spill = dedup_indices(lidx, packed.unique_cap)
     return {"lookups": int((lidx >= 0).sum()) + hits, "cache_hits": hits,
             "ranked": int((rank >= 0).sum()), "unique_rows": int((uniq >= 0).sum()),
-            "spilled": int((spill >= 0).sum())}
+            "spilled": int((spill >= 0).sum()), "index_entries": idx.size,
+            "index_copy_bytes": idx.nbytes, "slot_id_entries": lidx.numel()}
 
 
 @pytest.mark.parametrize("kind", ["skewed", "uniform"])
@@ -123,7 +136,7 @@ def test_counters_equal_the_recount(model, kind):
     with tracing.counting() as counts:
         _forward(cfg, params, engine, idx)
     want = _recount(engine, idx)
-    assert counts == {k: want[k] for k in ("lookups", "cache_hits", "unique_rows", "spilled")}
+    assert counts == {k: want[k] for k in COUNTERS}
     assert counts["cache_hits"] + want["ranked"] + counts["spilled"] == counts["lookups"]
     assert counts["cache_hits"] > 0
     if kind == "skewed":  # a few ids a table: within the cap
@@ -152,3 +165,82 @@ def test_counting_leaves_outputs_bitwise(model):
         logits_counted = _forward(cfg, params, engine, idx)
     assert torch.equal(pooled, pooled_counted)
     assert torch.equal(logits, logits_counted)
+
+
+def test_index_and_slot_id_counters_are_the_batch_entries_and_bytes(model):
+    """On a multi-hot batch ((6, B, 4) int32, ``-1`` past each table's s)
+    handed over from the host, as the served step hands it: the index copy
+    counts every entry, padding included, and its bytes; the slot ids count
+    every entry of (K, S, B, s).  Indices already on the device (``lookup``
+    makes a tensor of them first) move no bytes."""
+    cfg, params, engine = model
+    packed = engine.packed
+    idx = _indices(engine, "uniform")
+    assert idx.shape == (6, B, 4) and (idx < 0).any()
+    k, s_slots = packed.slot_table.shape
+    with tracing.counting() as counts:
+        _forward(cfg, params, engine, idx)
+    assert counts["index_entries"] == idx.size == 6 * B * 4
+    assert counts["index_copy_bytes"] == idx.nbytes == 4 * idx.size
+    assert counts["slot_id_entries"] == k * s_slots * B * 4
+    assert counts["lookups"] == _recount(engine, idx)["lookups"] < counts["index_entries"]
+    with tracing.counting() as on_device:
+        engine.lookup(idx)
+    assert on_device["index_copy_bytes"] == 0
+    assert on_device["index_entries"] == counts["index_entries"]
+
+
+def test_index_and_slot_id_counters_record_nothing_outside_counting(model):
+    cfg, params, engine = model
+    idx = _indices(engine, "skewed")
+    with tracing.counting() as counts:
+        engine.lookup(idx)
+    before = dict(counts)
+    engine.lookup(idx)
+    _forward(cfg, params, engine, idx)
+    assert counts == before
+    assert tracing._COUNTS.get() is None
+
+
+READERS = ["index_pad_share", "slot_id_pad_share", "index_copy_roofline"]
+REPO = Path(__file__).resolve().parents[1]
+FULL = {"index_entries": 4000, "index_copy_bytes": 4 * 64_000_000, "slot_id_entries": 10_000,
+        "lookups": 1000}
+STRETCH = {"device_ms_per_batch": {"repro.lookup.index_copy": [2.0, 2.0, 2.0]}}
+
+
+def _ctx(counts, stretch):
+    """A reader's context whose program measurement is already taken:
+    ``counts`` over one pass of a pool of 4 batches, the ``stretch``."""
+    ctx = types.SimpleNamespace(state=types.SimpleNamespace(pool=[None] * 4))
+    ctx._program = {"stretch": stretch, "counts": counts, "counting_s": 0.0}
+    return ctx
+
+
+def test_index_readers_read_the_counters_and_the_span():
+    read = {n: spec.load_reader(REPO, n) for n in READERS}
+    ctx = _ctx(FULL, STRETCH)
+    assert read["index_pad_share"](ctx) == pytest.approx(75.0)
+    assert read["slot_id_pad_share"](ctx) == pytest.approx(90.0)
+    # 64 MB a batch at 64 GB/s is 1 ms, against 2 ms under the span
+    assert read["index_copy_roofline"](ctx) == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("absent", ["counts", "its_counter", "lookups", "span"])
+def test_index_readers_give_nothing_where_a_counter_or_span_is_absent(name, absent):
+    counts, stretch = dict(FULL), STRETCH
+    if absent == "counts":
+        counts = None
+    elif absent == "its_counter":
+        del counts[{"index_pad_share": "index_entries", "slot_id_pad_share": "slot_id_entries",
+                    "index_copy_roofline": "index_copy_bytes"}[name]]
+    elif absent == "lookups":
+        del counts["lookups"]
+        if name == "index_copy_roofline":  # reads no lookups: its span goes instead
+            stretch = None
+    else:
+        stretch = None
+        if name != "index_copy_roofline":  # reads no span: its counter goes instead
+            del counts["lookups"]
+    assert spec.load_reader(REPO, name)(_ctx(counts, stretch)) is None
