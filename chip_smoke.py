@@ -40,10 +40,13 @@ X] <message>`` before it raises):
    Each checks the request accounting, finite logits, the launch counters
    (the join kernel, ``slot_rejoin``, launched once for each sparse lookup
    of the fused kernels the run made on the card, on every path), that its
-   server has no plain fallback step, and the pooled output of its
+   server has no plain fallback step, the pooled output of its
    last served batch against the same engine built on the CPU (the kernels'
    plain versions; path D's twin packs the block sizes the card's sweep
-   chose);
+   chose), and that its served step moves the batch to the card through
+   page-locked buffers: every index byte counted in
+   ``index_copy_staged_bytes``, and no pageable copy to the card in the
+   step's profile;
 4. kernels: each kernel against its plain version on the card, in f32,
    bf16 and f16, at the shapes the main path gave it (plus every strategy
    code, padding steps, -1 and out-of-window ids for the fused kernel, and
@@ -599,6 +602,7 @@ def main_path(label: str, argv=None) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch import tracing
     from repro_torch.engine import InferenceEngine
     from repro_torch.launch import serve
     from repro_torch.models.dlrm import forward_packed
@@ -661,6 +665,19 @@ def main_path(label: str, argv=None) -> dict:
     logit_err = float(np.abs(cpu_logits.numpy() - logits).max())
     check(np.allclose(logits, cpu_logits.numpy(), **LOGIT_TOL),
           f"[main {label}] logits max err {logit_err}")
+    # the served step stages its batch in page-locked memory: every index
+    # byte through a staging buffer, and no pageable copy to the card
+    step = res["server"].step_fn
+    payloads = [{"dense": last["dense"][i], "indices": idx[:, i]} for i in range(args.batch)]
+    with tracing.counting() as moved:
+        step(payloads)
+    check(moved["index_copy_staged_bytes"] == idx.nbytes,
+          f"[main {label}] the served step staged {moved['index_copy_staged_bytes']} of "
+          f"{idx.nbytes} index bytes")
+    ops = profile_calls(lambda: step(payloads), calls=1)["kernels_ms"]
+    pageable = [k for k in ops if "Pageable -> Device" in k]
+    check(ops and not pageable,
+          f"[main {label}] the served step's profile: {list(ops)[:4]}, pageable copies {pageable}")
     # one served batch's step alone: host clock around work ending in a
     # synchronize, and the device time the profiler attributes to it
     dense = torch.from_numpy(last["dense"]).to(engine.device)

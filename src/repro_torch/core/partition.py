@@ -75,6 +75,7 @@ import torch.distributed as dist
 from repro_torch.core.cost_model import freq_of
 from repro_torch.core.strategies import Plan, Strategy
 from repro_torch.core.tables import TableSpec
+from repro_torch.device import to_device
 from repro_torch.kernels.embedding_multi import (
     multi_embedding_bag_dense,
     multi_embedding_bag_dense_plain,
@@ -1172,7 +1173,7 @@ def mesh_lookup_stages(
     partial, computed once here) and, where the plan has a symmetric
     group, ``"sym"`` (this rank's ``B/K`` slice and its ``all_gather``).
     Every rank of ``mesh`` calls this, and then each stage, together."""
-    indices = torch.as_tensor(indices, device=packed.device)
+    indices = to_device(indices, packed.device, counter="index_copy_staged_bytes")
     indices, group, me, k = _mesh_context(packed, indices, mesh, axis, ())
 
     def lookup():
@@ -1193,6 +1194,22 @@ def mesh_lookup_stages(
 # --------------------------------------------------------------------------
 
 
+def _index_copy(indices, device: torch.device) -> torch.Tensor:
+    """The indices as a tensor on ``device``, same dtype, shape and values:
+    :func:`repro_torch.device.to_device`, so host indices bound for a card
+    go through a page-locked buffer and an asynchronous copy on the current
+    stream.
+
+    Counts ``index_entries``, ``index_copy_bytes`` (0 for a tensor already
+    on ``device``) and ``index_copy_staged_bytes`` (the bytes that went
+    through the page-locked buffer)."""
+    moved = not (isinstance(indices, torch.Tensor) and indices.device == device)
+    out = to_device(indices, device, counter="index_copy_staged_bytes")
+    count("index_entries", out.numel())
+    count("index_copy_bytes", out.numel() * out.element_size() if moved else 0)
+    return out
+
+
 def partitioned_lookup(
     packed: PackedPlan,
     indices: torch.Tensor,
@@ -1209,6 +1226,10 @@ def partitioned_lookup(
     ``use_kernels``: "fused" (default) = the CUDA kernels (plain versions on
     CPU tensors); False = the plain gather path.  ``reduce_mode``: "sparse"
     (default, owner-sharded), "psum" or "ring" — equal results.
+
+    Host indices bound for a card reach it through a page-locked buffer
+    and an asynchronous copy on the current stream (:func:`_index_copy`):
+    the host goes on enqueueing while the card works on what came before.
 
     The per-slot partials (K, S, B, E) are joined into the output in one of
     two ways, with bitwise equal results.  On the card, for the fused
@@ -1233,10 +1254,7 @@ def partitioned_lookup(
         raise ValueError(f"unknown reduce_mode {reduce_mode!r}")
     with span("lookup"):
         with span("lookup.index_copy"):
-            moved = not (isinstance(indices, torch.Tensor) and indices.device == packed.device)
-            indices = torch.as_tensor(indices, device=packed.device)
-            count("index_entries", indices.numel())
-            count("index_copy_bytes", indices.numel() * indices.element_size() if moved else 0)
+            indices = _index_copy(indices, packed.device)
         if mesh is not None:
             return _mesh_lookup(packed, indices, mesh=mesh, axis=axis,
                                 batch_axes=tuple(batch_axes), n_tables=n_tables,

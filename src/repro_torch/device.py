@@ -3,7 +3,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+from repro_torch.tracing import count
+
+__all__ = ["resolve_device", "to_device"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,3 +39,35 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
     return dev
+
+
+def to_device(array, device: torch.device, *, counter: str | None = None) -> torch.Tensor:
+    """``array`` (a numpy array, a tensor, or what ``torch.as_tensor``
+    takes) as a tensor on ``device``, with its dtype, shape and values.
+
+    A host array bound for a card goes through a page-locked buffer of its
+    own shape: the host copies it in (``copy_``, over the intra-op
+    threads), and the card reads it by an asynchronous copy on the current
+    stream, so the host does not wait for the stream to drain as a copy
+    from pageable memory does.  PyTorch's caching host allocator hands the
+    buffer out again only once that copy has completed, and ``array`` is
+    not read after the return: the caller may overwrite it at once.  The
+    allocator keeps its blocks for the life of the process, one for each
+    size asked for (rounded up to a power of two) and in use at once.
+    Anything else goes through ``torch.as_tensor``: a tensor already on
+    ``device`` comes back as it is, and a CPU device takes a numpy array
+    without a copy where it can.
+
+    ``counter``: a :func:`repro_torch.tracing.count` counter that the bytes
+    staged are added to (0 where nothing was staged)."""
+    device = torch.device(device)
+    staged = device.type == "cuda" and (
+        not isinstance(array, torch.Tensor) or array.device.type == "cpu")
+    if staged:
+        host = torch.as_tensor(array)
+        out = torch.empty_like(host, pin_memory=True).copy_(host).to(device, non_blocking=True)
+    else:
+        out = torch.as_tensor(array, device=device)
+    if counter is not None:
+        count(counter, out.numel() * out.element_size() if staged else 0)
+    return out

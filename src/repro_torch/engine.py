@@ -61,6 +61,7 @@ from typing import Any, Callable, Mapping, Protocol, Sequence, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.device import to_device
 from repro_torch.models.registry import list_scenarios
 
 __all__ = [
@@ -1289,7 +1290,7 @@ class InferenceEngine:
         self._require_executable()
         if self.mesh is None:
             raise RuntimeError("lookup_stages() times the lookup across a device mesh")
-        idx = torch.as_tensor(indices, device=self.device)
+        idx = to_device(indices, self.device, counter="index_copy_staged_bytes")
         kw = dict(use_kernels=self._use_kernels, reduce_mode=self.config.reduce_mode)
         stages = mesh_lookup_stages(self.packed, idx, mesh=self.mesh,
                                     n_tables=self.bag.n_tables, **kw)
@@ -1302,8 +1303,11 @@ class InferenceEngine:
         header (this engine's generation and executor) and the indices to
         the other ranks, whose :meth:`follow` then runs the lookup with rank
         0.  A served step on rank 0 calls it and then the lookup with
-        ``mesh=engine.mesh``."""
-        idx = torch.as_tensor(indices, device=self.device)
+        ``mesh=engine.mesh``.  Host indices bound for a card go through a
+        page-locked buffer and an asynchronous copy on the current stream
+        (:func:`repro_torch.device.to_device`), as the lookup's own index
+        copy does."""
+        idx = to_device(indices, self.device, counter="index_copy_staged_bytes")
         if self.mesh is None:
             return idx
         import torch.distributed as dist

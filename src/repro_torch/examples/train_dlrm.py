@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core.tables import make_workload
 from repro_torch.data.synthetic import ctr_batch
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models.dlrm import (
     DLRMConfig,
     init_dlrm,
@@ -61,7 +61,7 @@ def main(argv=None):
     def batch_fn(step):
         b = ctr_batch(np.random.default_rng(step), cfg.workload,
                       distribution="real", batch=cfg.workload.batch)
-        return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+        return {k: to_device(v, device) for k, v in b.items()}
 
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="dlrm_ckpt_")
     loop_cfg = LoopConfig(

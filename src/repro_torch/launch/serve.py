@@ -298,7 +298,7 @@ def main(argv=None) -> dict:
 
     from repro_torch.data import distributions as dist_lib
     from repro_torch.data.workloads import get_workload, small_workload
-    from repro_torch.device import resolve_device
+    from repro_torch.device import resolve_device, to_device
     from repro_torch.engine import InferenceEngine
     from repro_torch.models.dlrm import DLRMConfig, forward_packed, init_dlrm
 
@@ -332,7 +332,7 @@ def main(argv=None) -> dict:
         and heal."""
 
         def step(payloads):
-            dense = torch.as_tensor(np.stack([q["dense"] for q in payloads]), device=device)
+            dense = to_device(np.stack([q["dense"] for q in payloads]), device)
             # on a device mesh: rank 0 sends the indices to the other ranks
             idx = engine.broadcast_batch(np.stack([q["indices"] for q in payloads], axis=1))
             logits = forward_packed(

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ShapeCfg
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_device
 from repro_torch.models import registry
 from repro_torch.training.loop import LoopConfig, train
 from repro_torch.training.optimizer import adagrad, adamw
@@ -73,7 +73,7 @@ def main(argv=None) -> dict:
 
         def batch_fn(step):
             b = ctr_batch(np.random.default_rng(step), wl, batch=args.batch)
-            return {k: torch.as_tensor(v, device=device) for k, v in b.items()}
+            return {k: to_device(v, device) for k, v in b.items()}
     else:
         bundle = registry.build(args.arch, smoke=args.smoke)
         shape = ShapeCfg("cli", "train", args.seq, args.batch)

@@ -26,7 +26,11 @@ the hot/cold split; ``unique_rows`` and ``spilled`` (lookups past
 (entries of the ``(N, B, s)`` indices, ``-1`` padding included) and
 ``index_copy_bytes`` (their bytes where they arrive as anything but a
 tensor on the lookup's device, else 0), from the index copy;
-``slot_id_entries`` (entries of every slot's ``(K, S, B, s)`` ids), from
+``index_copy_staged_bytes`` (bytes of host indices that went to a card
+through a page-locked staging buffer, else 0), from the index copy and
+from the engine's ``broadcast_batch`` and ``lookup_stages``, which move a
+served step's indices before its lookup (the lookup then counts 0 for
+them); ``slot_id_entries`` (entries of every slot's ``(K, S, B, s)`` ids), from
 the slot ids.
 """
 from __future__ import annotations

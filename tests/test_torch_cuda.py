@@ -1090,6 +1090,148 @@ def test_lookup_spans_on_card(cuda):
                      "repro.lookup.access", "repro.lookup.rejoin"}
 
 
+# a spin of about 0.1 s at the H100's clocks: long past a small lookup's enqueue
+HOLD_CYCLES = 200_000_000
+
+
+def _old_copy_lookup(gpu, idx):
+    """The lookup of a tensor made by ``torch.as_tensor(indices, device=)``,
+    the copy the index copy made before it staged host indices."""
+    return gpu.bag.apply(gpu.packed, torch.as_tensor(idx, device=gpu.device))
+
+
+def test_host_indices_do_not_wait_for_the_stream(cuda):
+    """Behind a spin on the current stream, a fused lookup of a numpy batch
+    returns while the stream is still busy: the host no longer drains it
+    before the index copy.  The result is bitwise the old copy's."""
+    gpu, _, idx = _join_engines(cuda)
+    want = _old_copy_lookup(gpu, idx)
+    gpu.bag.apply(gpu.packed, idx)  # builds the kernels, caches a staging block
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    got = gpu.bag.apply(gpu.packed, idx)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_the_callers_array_may_change_once_the_lookup_returns(cuda):
+    """The caller overwrites its array as soon as the lookup returns, while
+    the card has not yet copied the batch: the result is still bitwise the
+    old copy's of the original ids."""
+    gpu, _, idx = _join_engines(cuda)
+    want = _old_copy_lookup(gpu, idx)
+    gpu.bag.apply(gpu.packed, idx)
+    torch.cuda.synchronize()
+    mine = idx.copy()
+    torch.cuda._sleep(HOLD_CYCLES)
+    got = gpu.bag.apply(gpu.packed, mine)
+    mine[...] = np.random.default_rng(9).permutation(mine.reshape(-1)).reshape(mine.shape)
+    assert not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_batches_back_to_back_behind_a_held_stream(cuda):
+    """Four different batches, int32 and int64, one of them a strided view,
+    one a CPU tensor, enqueued behind one spin: each is bitwise the old
+    copy's lookup, and under counting every byte went through a staging
+    buffer (none for a tensor already on the card)."""
+    from repro_torch import tracing
+
+    gpu, _, idx = _join_engines(cuda)
+    rng = np.random.default_rng(11)
+    batches = [np.where(idx >= 0, rng.permutation(idx.reshape(-1)).reshape(idx.shape) % 7, -1)
+               .astype(np.int32) for _ in range(4)]
+    batches = [batches[0], batches[1].astype(np.int64),
+               np.repeat(batches[2], 2, axis=1)[:, ::2], torch.from_numpy(batches[3])]
+    assert not batches[2].flags.c_contiguous
+    wants = [_old_copy_lookup(gpu, b) for b in batches]
+    for b in batches:
+        gpu.bag.apply(gpu.packed, b)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    with tracing.counting() as counts:
+        gots = [gpu.bag.apply(gpu.packed, b) for b in batches]
+        assert not torch.cuda.current_stream().query()
+    nbytes = sum(b.nbytes if isinstance(b, np.ndarray) else b.numel() * b.element_size()
+                 for b in batches)
+    assert counts["index_copy_staged_bytes"] == counts["index_copy_bytes"] == nbytes
+    for got, want in zip(gots, wants):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    with tracing.counting() as on_card:
+        gpu.bag.apply(gpu.packed, torch.as_tensor(idx, device=cuda))
+    assert on_card["index_copy_staged_bytes"] == on_card["index_copy_bytes"] == 0
+
+
+def test_broadcast_batch_stages_the_served_indices(cuda):
+    """The served step's index move, ``engine.broadcast_batch`` (which the
+    serve CLI's step calls before its lookup), returns behind a held stream
+    and stages every byte; the lookup on its tensor copies nothing more,
+    and the result is bitwise the old copy's."""
+    from repro_torch import tracing
+
+    gpu, _, idx = _join_engines(cuda)
+    want = _old_copy_lookup(gpu, idx)
+    gpu.bag.apply(gpu.packed, gpu.broadcast_batch(idx))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
+    with tracing.counting() as counts:
+        got = gpu.bag.apply(gpu.packed, gpu.broadcast_batch(idx))
+        assert not torch.cuda.current_stream().query()
+    assert counts["index_copy_staged_bytes"] == idx.nbytes
+    assert counts["index_copy_bytes"] == 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.int32, np.int64])
+def test_to_device_does_not_wait_for_the_stream(cuda, dtype):
+    """A host array of the dense features, the labels or the indices, as
+    the serve CLI's step and the DLRM training loop move them: behind a
+    held stream the copy returns at once, the caller may overwrite its
+    array, and the card reads the values it had; nothing is counted
+    without a counter."""
+    from repro_torch import tracing
+    from repro_torch.device import to_device
+
+    want = np.random.default_rng(3).integers(-1, 1000, (64, 13)).astype(dtype)
+    to_device(want, cuda)
+    torch.cuda.synchronize()
+    mine = want.copy()
+    torch.cuda._sleep(HOLD_CYCLES)
+    with tracing.counting() as counts:
+        got = to_device(mine, cuda)
+        mine[...] = 0
+        assert not torch.cuda.current_stream().query()
+    assert counts == {}
+    assert got.device.type == "cuda" and got.dtype == torch.from_numpy(want).dtype
+    assert np.array_equal(got.cpu().numpy(), want)
+
+
+def test_the_served_step_makes_no_pageable_copy(cuda):
+    """The serve CLI's step on the card, run again on its last batch: under
+    counting every index byte goes through a staging buffer, and the
+    profiler records no copy from pageable memory to the card."""
+    from repro_torch import tracing
+    from repro_torch.launch import serve
+
+    res = serve.main(["--workload", "smoke", "--batch", "16", "--queries", "32",
+                      "--distribution", "uniform"])
+    last, step = res["last"], res["server"].step_fn
+    idx = last["indices"]
+    payloads = [{"dense": last["dense"][i], "indices": idx[:, i]} for i in range(16)]
+    with tracing.counting() as counts:
+        logits = step(payloads)
+    assert counts["index_copy_staged_bytes"] == idx.nbytes
+    assert np.allclose(logits, last["logits"], rtol=1e-6, atol=1e-6)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(payloads)
+        torch.cuda.synchronize()
+    copies = {e.name for e in prof.events() if e.name.startswith("Memcpy HtoD")}
+    assert copies and not any("Pageable" in name for name in copies)
+
+
 def test_sweep_on_the_card_ranks_by_device_time(cuda):
     """The CUDA sweep times every candidate by the card's own time and picks
     the least ``device_us``; ``wall_us`` stays recorded beside it."""

@@ -11,7 +11,8 @@ small engine with batch dedup and the hot-row cache armed.
   ``cache_hits + ranked + spilled == lookups``, and a batch past
   ``unique_cap`` spills; the index and slot-id counters equal the entries
   and bytes of the multi-hot batch (``s`` up to 4), and the copy's bytes
-  are 0 for indices already on the device.
+  are 0 for indices already on the device; a CPU pack stages nothing
+  (``index_copy_staged_bytes`` 0) whatever form the host indices take.
 * Counting leaves the pooled outputs and the logits bitwise as they were.
 * The benchmark's readers of the index and slot-id counters
   (``portbench/metrics/index_pad_share.py``, ``slot_id_pad_share.py``,
@@ -28,6 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from portbench import spec
 from repro_torch import tracing
+from repro_torch.core import partition
 from repro_torch.core.partition import _fused_ids
 from repro_torch.data.workloads import small_workload
 from repro_torch.engine import EngineConfig, InferenceEngine
@@ -39,7 +41,7 @@ LOOKUP_CHILDREN = ["index_copy", "slot_ids", "access", "scatter", "rejoin"]
 STEP_SPANS = ["repro.step.bottom_mlp", "repro.step.interact", "repro.step.top_mlp"]
 B = 256
 COUNTERS = {"lookups", "cache_hits", "unique_rows", "spilled", "index_entries",
-            "index_copy_bytes", "slot_id_entries"}
+            "index_copy_bytes", "index_copy_staged_bytes", "slot_id_entries"}
 
 
 def _model(**config):
@@ -126,7 +128,8 @@ def _recount(engine, idx) -> dict:
     return {"lookups": int((lidx >= 0).sum()) + hits, "cache_hits": hits,
             "ranked": int((rank >= 0).sum()), "unique_rows": int((uniq >= 0).sum()),
             "spilled": int((spill >= 0).sum()), "index_entries": idx.size,
-            "index_copy_bytes": idx.nbytes, "slot_id_entries": lidx.numel()}
+            "index_copy_bytes": idx.nbytes, "index_copy_staged_bytes": 0,  # a CPU pack
+            "slot_id_entries": lidx.numel()}
 
 
 @pytest.mark.parametrize("kind", ["skewed", "uniform"])
@@ -200,6 +203,103 @@ def test_index_and_slot_id_counters_record_nothing_outside_counting(model):
     _forward(cfg, params, engine, idx)
     assert counts == before
     assert tracing._COUNTS.get() is None
+
+
+def _index_forms(idx: np.ndarray) -> dict:
+    """The same ids in the forms a caller may hand the lookup."""
+    return {
+        "numpy-int32": idx,
+        "numpy-int64": idx.astype(np.int64),
+        "numpy-permuted": np.ascontiguousarray(idx.transpose(1, 0, 2)).transpose(1, 0, 2),
+        "numpy-strided": np.repeat(idx, 2, axis=1)[:, ::2],
+        "cpu-tensor": torch.from_numpy(idx.copy()),
+    }
+
+
+@pytest.mark.parametrize("form", list(_index_forms(np.zeros((1, 1, 1), np.int32))))
+def test_a_cpu_pack_stages_no_index_bytes(model, form):
+    """On a CPU pack nothing goes through a page-locked buffer:
+    ``index_copy_staged_bytes`` reads 0 for host arrays and for a tensor
+    already on the lookup's device, while ``index_entries`` and
+    ``index_copy_bytes`` count as before, and the pooled output is bitwise
+    that of the int32 array."""
+    cfg, params, engine = model
+    idx = _indices(engine, "uniform", seed=5)
+    given = _index_forms(idx)[form]
+    want = engine.bag.apply(engine.packed, idx)
+    with tracing.counting() as counts:
+        got = engine.bag.apply(engine.packed, given)
+    assert torch.equal(got, want)
+    assert counts["index_copy_staged_bytes"] == 0
+    assert counts["index_entries"] == idx.size
+    moved = 0 if form == "cpu-tensor" else given.nbytes
+    assert counts["index_copy_bytes"] == moved
+
+
+@pytest.mark.parametrize("form", list(_index_forms(np.zeros((1, 1, 1), np.int32))))
+def test_index_copy_keeps_dtype_shape_and_values(form):
+    """The index copy of a CPU pack hands the kernels the caller's dtype,
+    shape and values; a tensor already on the device comes back as it is,
+    and a numpy array without a copy."""
+    idx = np.random.default_rng(6).integers(-1, 50, (3, 8, 4)).astype(np.int32)
+    given = _index_forms(idx)[form]
+    got = partition._index_copy(given, torch.device("cpu"))
+    assert got.device.type == "cpu" and tuple(got.shape) == idx.shape
+    assert got.dtype == torch.as_tensor(given).dtype
+    assert torch.equal(got.long(), torch.from_numpy(idx).long())
+    if form == "cpu-tensor":
+        assert got is given
+    else:
+        assert np.shares_memory(got.numpy(), given)
+
+
+@pytest.mark.parametrize("form", list(_index_forms(np.zeros((1, 1, 1), np.int32))))
+def test_to_device_on_the_cpu_stages_nothing(form):
+    """``to_device`` to the CPU is ``torch.as_tensor``: the caller's dtype,
+    shape and values, a numpy array without a copy, a CPU tensor as it is;
+    its counter reads 0, and no counter is touched without one."""
+    from repro_torch.device import to_device
+
+    idx = np.random.default_rng(8).integers(-1, 50, (3, 8, 4)).astype(np.int32)
+    given = _index_forms(idx)[form]
+    with tracing.counting() as counts:
+        got = to_device(given, torch.device("cpu"), counter="index_copy_staged_bytes")
+        to_device(given, "cpu")
+    assert counts == {"index_copy_staged_bytes": 0}
+    assert got.dtype == torch.as_tensor(given).dtype
+    assert torch.equal(got.long(), torch.from_numpy(idx).long())
+    if form == "cpu-tensor":
+        assert got is given
+    else:
+        assert np.shares_memory(got.numpy(), given)
+
+
+def test_broadcast_batch_on_a_cpu_engine_stages_nothing(model):
+    """The served step's index move on a CPU engine: no page-locked buffer,
+    the lookup's counters as for the array itself, and the same pooled
+    output."""
+    cfg, params, engine = model
+    idx = _indices(engine, "skewed")
+    want = engine.bag.apply(engine.packed, idx)
+    with tracing.counting() as counts:
+        got = engine.bag.apply(engine.packed, engine.broadcast_batch(idx))
+    assert torch.equal(got, want)
+    assert counts["index_copy_staged_bytes"] == 0
+    assert counts["index_entries"] == idx.size
+
+
+def test_staged_bytes_are_recorded_only_inside_counting(model):
+    cfg, params, engine = model
+    idx = _indices(engine, "skewed")
+    engine.bag.apply(engine.packed, idx)
+    assert tracing._COUNTS.get() is None
+    with tracing.counting() as empty:
+        pass
+    assert "index_copy_staged_bytes" not in empty
+    with tracing.counting() as counts:
+        engine.bag.apply(engine.packed, idx)
+    assert counts["index_copy_staged_bytes"] == 0
+    assert counts["index_copy_bytes"] == idx.nbytes
 
 
 READERS = ["index_pad_share", "slot_id_pad_share", "index_copy_roofline"]
